@@ -1,12 +1,13 @@
 """Smoke run of darknet_tpu_torch on one CUDA card: build the region
-kernel, check it against its plain version, serve yolov4-608 through the
-public API, and report.
+kernel and the int8 GEMM, check each against its plain version, serve
+yolov4-608 through the public API in bf16 and in int8, and report.
 
     python3 chip_smoke.py
 
 Phases, each of which fails the run (non-zero exit) on any error:
   1. the card's name and power limit (nvidia-smi); a CUDA card is required;
-  2. build the CUDA kernels from darknet_tpu_torch/csrc with nvcc;
+  2. build the CUDA kernels from darknet_tpu_torch/csrc with nvcc, one
+     process per source, all at once;
   3. the region kernel against its plain version on the card: yolov4's
      region prefix at 608 px (b=2) and 416 px (b=1), f32 with TF32 off and
      bf16, and a narrow CSP graph whose last tile is ragged;
@@ -16,7 +17,21 @@ Phases, each of which fails the run (non-zero exit) on any error:
      network with the plain region; img/s (median and spread of 5
      windows of 100 requests after 30 untimed ones) and the kernel's and
      the plain version's times at b=8;
-  5. a JSON line of the kernels, then {"ok": true, "device": ...} last.
+  5. the int8 GEMM against its plain version: exactly equal with unit
+     scales where |acc| < 2^24 (a ragged shape and a yolov4 3x3 shape),
+     and with real scales at a yolov4 1x1 and a 3x3 stride-2 shape (max
+     abs err 0: the sums are exact and the epilogue is the same rounded
+     ops);
+  6. int8 serving of yolov4-608 at b=8, bf16 (Network.from_cfg(int8=True)):
+     one dynamic request (+90 GEMM launches: layer 23 stays in floating
+     point inside the region), calibrate_int8 on 4 frames, save and load
+     the calibration into a second network, calibrated requests (+91
+     each, one uint8); during one calibrated request every quantized
+     conv's f32 pre-activation from the kernel against the plain version
+     on the same int8 operands, bitwise; int8 img/s beside the bf16 rate
+     of phase 4; the kernel's time summed over one request's 91 launches
+     against the plain version's sum on the same operands;
+  7. a JSON line of the kernels, then {"ok": true, "device": ...} last.
 
 Weights are random (numpy, seed 0); no file outside the checkout is read.
 """
@@ -46,6 +61,16 @@ RATE_REQUESTS = 100      # requests per timed window (~6 s at b=8)
 RATE_WINDOWS = 5
 CHECKS = ((608, 2), (416, 1))        # (px, batch) of the yolov4 checks
 DEVICE = "cuda"
+KERNELS = ("fused_region", "int8_gemm")
+# int8 GEMM checks (name, M, K, N) at b=8 of yolov4-608: unit scales and
+# zero bias where |acc| < 2^24 (the f32 output is the exact sum), then
+# real scales at the serving path's shapes
+INT8_EXACT = (("ragged", 1000, 96, 200),
+              ("yolov4-608 L60 3x3", 8 * 38 * 38, 9 * 256, 256))
+INT8_REAL = (("yolov4-608 L54 1x1", 8 * 76 * 76, 256, 256),
+             ("yolov4-608 L55 3x3/2", 8 * 38 * 38, 9 * 256, 512))
+INT8_CONVS = 91          # quantized convs of yolov4 (min(c, n) >= 128)
+INT8_CALIB_FRAMES = 4
 
 NARROW_CSP_CFG = """[net]
 width=200
@@ -215,6 +240,28 @@ def cuda_ms(fn, iters=10, warmup=2) -> float:
     return start.elapsed_time(stop) / iters
 
 
+def serve_rate(net, frame):
+    """Throughput: whole requests, host clock around synchronised work,
+    RATE_WINDOWS windows of RATE_REQUESTS requests after a warm-up.
+    Returns (median img/s, spread (max - min) / median, the rates)."""
+    import torch
+
+    def request():
+        net.device_out_to_dets(*net.submit_detect_device(frame))
+    for _ in range(RATE_WARMUP):
+        request()
+    rates = []
+    for _ in range(RATE_WINDOWS):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        for _ in range(RATE_REQUESTS):
+            request()
+        torch.cuda.synchronize()
+        rates.append(RATE_REQUESTS * SERVE_BATCH / (time.perf_counter() - t0))
+    img_s = float(np.median(rates))
+    return img_s, (max(rates) - min(rates)) / img_s, rates
+
+
 def check_region(name, graph, batch, dtype, seed):
     """Kernel vs plain version on one region prefix; returns a dict."""
     import torch
@@ -314,22 +361,7 @@ def phase_serve(card):
     require(counts == [1, 2, 3],
             f"one region kernel launch per request, got {counts}")
 
-    # throughput: whole requests, host clock around synchronised work,
-    # RATE_WINDOWS windows of RATE_REQUESTS requests after a warm-up
-    def request():
-        net.device_out_to_dets(*net.submit_detect_device(frames[0]))
-    for _ in range(RATE_WARMUP):
-        request()
-    rates = []
-    for _ in range(RATE_WINDOWS):
-        torch.cuda.synchronize()
-        t0 = time.perf_counter()
-        for _ in range(RATE_REQUESTS):
-            request()
-        torch.cuda.synchronize()
-        rates.append(RATE_REQUESTS * SERVE_BATCH / (time.perf_counter() - t0))
-    img_s = float(np.median(rates))
-    spread = (max(rates) - min(rates)) / img_s
+    img_s, spread, rates = serve_rate(net, frames[0])
 
     # the region kernel and its plain version at the serving shape
     plan = net._fwd.region_plans[0]
@@ -388,6 +420,186 @@ def phase_serve(card):
             "plain_ms": p_ms, "f32_kept": len(kept(pa))}
 
 
+def int8_operands(m, k, n, seed, unit):
+    """Seeded GEMM operands on the card: (a (M,K), b (N,K), w_scales,
+    bias, x_scale); unit scales and zero bias when `unit`."""
+    import torch
+
+    rng = np.random.default_rng(seed)
+    a = rng.integers(-127, 128, (m, k), dtype=np.int8)
+    b = rng.integers(-127, 128, (n, k), dtype=np.int8)
+    if unit:
+        ws, bias, xs = np.ones(n), np.zeros(n), 1.0
+    else:
+        ws, bias, xs = rng.uniform(1e-3, 1e-2, n), rng.normal(0, 1, n), 0.0039
+    return tuple(torch.from_numpy(np.asarray(t, dt)).to(DEVICE)
+                 for t, dt in ((a, np.int8), (b, np.int8),
+                               (ws, np.float32), (bias, np.float32),
+                               ([xs], np.float32)))
+
+
+def phase_int8_kernel():
+    """The int8 GEMM against its plain version on seeded operands."""
+    import torch
+
+    from darknet_tpu_torch.ops import quant_matmul as qm
+
+    checks = []
+    for i, (name, m, k, n) in enumerate(INT8_EXACT + INT8_REAL):
+        unit = i < len(INT8_EXACT)
+        ops = int8_operands(m, k, n, seed=i, unit=unit)
+        for leaky in (False,) if unit else (False, True):
+            got = qm.int8_matmul(*ops, leaky=leaky)
+            want = qm.int8_matmul_plain(*ops, leaky=leaky)
+            torch.cuda.synchronize()
+            res = {"name": name, "M": m, "K": k, "N": n, "unit": unit,
+                   "leaky": leaky,
+                   "max_abs_err": float((got - want).abs().max()),
+                   "max_abs_out": float(want.abs().max()),
+                   "equal": bool(torch.equal(got, want))}
+            res["ms"] = cuda_ms(lambda: qm.int8_matmul(*ops, leaky=leaky))
+            res["plain_ms"] = cuda_ms(
+                lambda: qm.int8_matmul_plain(*ops, leaky=leaky))
+            print("int8 check", json.dumps(res), flush=True)
+            checks.append(res)
+    require(all(c["max_abs_out"] < 2 ** 24 for c in checks if c["unit"]),
+            "unit-scale checks stay below 2^24")
+    bad = [c["name"] for c in checks if not c["equal"]]
+    require(not bad, f"int8 GEMM equals its plain version: {bad}")
+    return checks
+
+
+def phase_int8_serve(card, bf16_img_s):
+    """int8 serving of yolov4-608 at b=8, bf16, through the public API."""
+    import os
+    import tempfile
+
+    import torch
+
+    from darknet_tpu import model_zoo
+    from darknet_tpu_torch import Network
+    from darknet_tpu_torch.ops import conv as convmod
+    from darknet_tpu_torch.ops import quant_matmul as qm
+    from darknet_tpu_torch.ops.cuda import fused_region as kfr
+
+    cfg = model_zoo.yolov4_cfg(SERVE_PX, SERVE_PX)
+
+    def int8_net():
+        with warnings.catch_warnings():
+            warnings.simplefilter("ignore")
+            return Network.from_cfg(cfg, seed=0, compute_dtype=torch.bfloat16,
+                                    device=DEVICE, int8=True)
+
+    def served(net, f):
+        tb, ov, probs = net.submit_detect_device(f)
+        dets = net.device_out_to_dets(tb, ov, probs)
+        require(tuple(tb.shape) == (SERVE_BATCH, 256, 4),
+                f"int8 boxes shape {tuple(tb.shape)}")
+        require(bool(torch.isfinite(tb).all() & torch.isfinite(ov).all()
+                     & torch.isfinite(probs).all()), "int8 finite outputs")
+        require(len(dets) == SERVE_BATCH, "one detection list per image")
+        return sum(len(d) for d in dets)
+
+    net = int8_net()
+    n_q = sum("w_q" in p for p in net.params)
+    require(n_q == INT8_CONVS, f"{INT8_CONVS} quantized convs, got {n_q}")
+    rng = np.random.default_rng(1)
+    shape = (SERVE_BATCH, SERVE_PX, SERVE_PX, 3)
+    frames = [rng.uniform(0, 1, shape).astype(np.float32) for _ in range(3)]
+    frames[1] = (frames[1] * 255).astype(np.uint8)
+
+    # the dynamic path, counted: reset just before, read just after
+    qm.launches = 0
+    served(net, frames[0])
+    dynamic = qm.launches
+    print("int8 dynamic request: GEMM launches", dynamic, flush=True)
+    require(dynamic == INT8_CONVS - 1,
+            f"{INT8_CONVS - 1} GEMM launches per dynamic request, "
+            f"got {dynamic}")
+
+    calib = [rng.uniform(0, 1, shape[1:]).astype(np.float32)
+             for _ in range(INT8_CALIB_FRAMES)]
+    t0 = time.perf_counter()
+    net.calibrate_int8(calib)
+    calib_s = time.perf_counter() - t0
+    with tempfile.TemporaryDirectory() as d:
+        path = os.path.join(d, "yolov4-608.scales")
+        net.save_calibration(path)
+        snet = int8_net()
+        snet.load_calibration(path)
+    scaled = [i for i, p in enumerate(net.params) if "x_scale" in p]
+    require(len(scaled) == INT8_CONVS and all(
+        torch.equal(net.params[i]["x_scale"], snet.params[i]["x_scale"])
+        for i in scaled), "the loaded calibration has the same scales")
+    del net
+
+    # the calibrated path, counted
+    qm.launches = 0
+    kfr.launches = 0
+    counts, region_counts, results = [], [], []
+    for f in frames:
+        results.append(served(snet, f))
+        counts.append(qm.launches)
+        region_counts.append(kfr.launches)
+    launches = qm.launches
+    print(f"int8 calibrated requests {len(frames)} (calibration "
+          f"{calib_s:.2f} s on {INT8_CALIB_FRAMES} frames): GEMM launch "
+          f"counts {counts}, region {region_counts}, detections {results}",
+          flush=True)
+    want = [INT8_CONVS * (i + 1) for i in range(len(frames))]
+    require(counts == want, f"{INT8_CONVS} GEMM launches per calibrated "
+            f"request, got {counts}")
+    require(region_counts == [1, 2, 3], "one region launch per request")
+
+    # every quantized conv of one calibrated request: the kernel's f32
+    # pre-activation against the plain version on the same operands
+    records = []
+    orig = convmod.int8_matmul
+
+    def checked(a, b, ws, bias, xs, *, leaky=False):
+        out = orig(a, b, ws, bias, xs, leaky=leaky)
+        ref = qm.int8_matmul_plain(a, b, ws, bias, xs, leaky=leaky)
+        records.append({"ops": (a, b, ws, bias, xs), "leaky": leaky,
+                        "err": float((out - ref).abs().max()),
+                        "equal": bool(torch.equal(out, ref))})
+        return out
+
+    convmod.int8_matmul = checked
+    try:
+        served(snet, frames[0])
+    finally:
+        convmod.int8_matmul = orig
+    n_eq = sum(r["equal"] for r in records)
+    err = max(r["err"] for r in records)
+    print(f"int8 per-conv check: {n_eq} of {len(records)} quantized convs "
+          f"bitwise equal to the plain version (max abs err {err})",
+          flush=True)
+    require(len(records) == INT8_CONVS and n_eq == INT8_CONVS,
+            "every quantized conv bitwise equal to the plain version")
+
+    # the kernel's time over one request's launches against the plain
+    # version on the same operands, in turns
+    def total(fn):
+        return sum(cuda_ms(lambda r=r: fn(*r["ops"], leaky=r["leaky"]),
+                           iters=5, warmup=1) for r in records)
+    with torch.inference_mode():
+        k_ms, p_ms = total(qm.int8_matmul), total(qm.int8_matmul_plain)
+        p_ms2, k_ms2 = total(qm.int8_matmul_plain), total(qm.int8_matmul)
+    del records
+    print(f"int8 GEMM over one request's {INT8_CONVS} launches (b="
+          f"{SERVE_BATCH}): kernel {k_ms:.3f} / {k_ms2:.3f} ms, plain "
+          f"{p_ms:.3f} / {p_ms2:.3f} ms [{card}]", flush=True)
+
+    img_s, spread, rates = serve_rate(snet, frames[0])
+    print(f"serving yolov4-{SERVE_PX} int8 (calibrated, bf16) b="
+          f"{SERVE_BATCH}: {img_s:.2f} img/s median of {RATE_WINDOWS} "
+          f"windows of {RATE_REQUESTS} requests ({', '.join(f'{r:.2f}' for r in rates)}; "
+          f"spread {100 * spread:.2f}%) beside bf16 {bf16_img_s:.2f} img/s "
+          f"[{card}]", flush=True)
+    return {"launches": launches, "img_s": img_s, "ms": k_ms,
+            "plain_ms": p_ms, "max_abs_err": err}
+
+
 def main() -> int:
     import torch
 
@@ -401,14 +613,18 @@ def main() -> int:
 
     from darknet_tpu_torch.ops.cuda import build
 
-    build.load("fused_region")
-    log = build.build_log["fused_region"]
-    print(f"built fused_region with nvcc in {log['seconds']:.2f} s -> "
-          f"{log['so']}", flush=True)
-    print(log["ptxas"].strip(), flush=True)
+    build.build(KERNELS)
+    for name in KERNELS:
+        build.load(name)
+        log = build.build_log[name]
+        print(f"built {name} with nvcc in {log['seconds']:.2f} s -> "
+              f"{log['so']}", flush=True)
+        print(log["ptxas"].strip(), flush=True)
 
     checks = phase_kernels()
     serve = phase_serve(card)
+    phase_int8_kernel()
+    int8 = phase_int8_serve(card, serve["img_s"])
 
     main_check = next(c for c in checks if c["name"] == f"yolov4-{CHECKS[0][0]}-prefix"
                       and c["dtype"] == "bfloat16")
@@ -419,7 +635,13 @@ def main() -> int:
         "replaces": "darknet_tpu/ops/pallas/fused_region.py:759",
         "launches": serve["launches"],
         "max_abs_err": main_check["max_abs_err"],
-        "ms": serve["ms"], "plain_ms": serve["plain_ms"]}]}), flush=True)
+        "ms": serve["ms"], "plain_ms": serve["plain_ms"]}, {
+        "name": "int8_gemm", "route": "cuda",
+        "source": "darknet_tpu_torch/csrc/int8_gemm.cu",
+        "replaces": "darknet_tpu/ops/pallas/quant_matmul.py:91",
+        "launches": int8["launches"],
+        "max_abs_err": int8["max_abs_err"],
+        "ms": int8["ms"], "plain_ms": int8["plain_ms"]}]}), flush=True)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),
         "count": torch.cuda.device_count()}}), flush=True)

@@ -13,6 +13,10 @@ tensor, its plain version for a CPU tensor), and the strided remainder
 through the plain steps.  fuse_regions="plain" runs whole regions through
 the plain steps on any device (the reference the kernel path is checked
 against on the card).
+
+A conv whose params carry "w_q" (`Network.from_cfg(int8=True)`) runs
+`ops/conv.conv_block_int8`, the int8 GEMM kernel on a CUDA tensor; inside
+a region, a step whose layer carries a calibrated "x_scale" does too.
 """
 
 from __future__ import annotations
@@ -22,7 +26,7 @@ import torch
 from darknet_tpu_torch.ops import shapes as shapeops
 from darknet_tpu_torch.ops import yolo as yoloops
 from darknet_tpu_torch.ops.activations import apply_activation
-from darknet_tpu_torch.ops.conv import conv_block
+from darknet_tpu_torch.ops.conv import conv_block, conv_block_int8
 from darknet_tpu_torch.ops.pooling import maxpool_block
 
 HEAD_KINDS = ("yolo", "gaussian_yolo", "detection", "cost")
@@ -64,7 +68,8 @@ def region_runner(plan, *, compute_dtype=torch.float32,
     if pre is None:
         def run_plain(params, x):
             ws, bs = weights(params)
-            return fr.region_plain(plan, x, ws, bs, compute_dtype=cd)
+            return fr.region_plain(plan, x, ws, bs, compute_dtype=cd,
+                                   params=params)
         return run_plain
 
     sub, k = pre
@@ -75,16 +80,34 @@ def region_runner(plan, *, compute_dtype=torch.float32,
         n_pre = len(sub.conv_steps)
         y = region_call(sub, x, ws[:n_pre], bs[:n_pre], compute_dtype=cd)
         slots = {sub.out_slot: y}
-        fr.run_steps_plain(rest, slots, ws[n_pre:], bs[n_pre:], cd)
+        fr.run_steps_plain(rest, slots, ws[n_pre:], bs[n_pre:], cd, params)
         return slots[plan.out_slot]
 
     return run_hybrid
 
 
-def make_forward(graph, *, compute_dtype=None, fuse_regions="hybrid"):
+def region_conv_indices(graph) -> set:
+    """Conv layer indices covered by the inference region plans (stem
+    fold included when layer 0 is not live), as make_forward plans them."""
+    from darknet_tpu_torch.ops.fused_region import plan_graph_regions
+    from darknet_tpu_torch.ops.stem import stem_pattern
+
+    stem = bool(stem_pattern(graph) and 0 not in _liveness(graph))
+    return {k for p in plan_graph_regions(graph, stem=stem).values()
+            for k in range(p.start, p.stop + 1)
+            if graph.layers[k].kind == "convolutional"}
+
+
+def make_forward(graph, *, compute_dtype=None, fuse_regions="hybrid",
+                 probe_conv_absmax: bool = False):
     """Build `forward(params, x) -> {"heads", "raw_heads", "output"}`:
     the activated heads, the head inputs before activation, and the last
-    layer's output.
+    layer's output.  A conv whose params carry "w_q" runs the int8 conv
+    (`ops/conv.conv_block_int8`).
+
+    probe_conv_absmax adds "conv_in_absmax": {layer index: max |input|}
+    (a device scalar per conv), the int8 calibration probe; it plans no
+    region and no stem fold, so every conv is observed.
 
     compute_dtype None (or float32) is the f32 parity path; bfloat16 is
     the serving path (convs on the tensor cores, activations stored in
@@ -99,13 +122,14 @@ def make_forward(graph, *, compute_dtype=None, fuse_regions="hybrid"):
     if fuse_regions not in ("hybrid", "plain"):
         raise ValueError(f"fuse_regions must be 'hybrid' or 'plain', "
                          f"got {fuse_regions!r}")
-    plans = plan_graph_regions(
+    plans = {} if probe_conv_absmax else plan_graph_regions(
         graph, stem=stem_pattern(graph) and 0 not in live)
     runners = {a: region_runner(p, compute_dtype=cd, mode=fuse_regions)
                for a, p in plans.items()}
 
     def forward(params, x):
         outs: dict = {}
+        absmax: dict = {}
         heads: list = []
         raw_heads: list = []
         cur = x
@@ -121,8 +145,11 @@ def make_forward(graph, *, compute_dtype=None, fuse_regions="hybrid"):
                 continue
             k = l.kind
             if k == "convolutional":
-                src = l.share_index if l.share_index is not None else i
-                cur = conv_block(cur, params[src], l, compute_dtype=cd)
+                if probe_conv_absmax:
+                    absmax[i] = cur.float().abs().amax()
+                p = params[l.share_index if l.share_index is not None else i]
+                block = conv_block_int8 if "w_q" in p else conv_block
+                cur = block(cur, p, l, compute_dtype=cd)
             elif k == "maxpool":
                 cur = maxpool_block(cur, l)
             elif k == "route":
@@ -146,7 +173,10 @@ def make_forward(graph, *, compute_dtype=None, fuse_regions="hybrid"):
                     f"layer {i}: kind {k!r} is not ported yet")
             if i in live:
                 outs[i] = cur
-        return {"heads": heads, "raw_heads": raw_heads, "output": cur}
+        r = {"heads": heads, "raw_heads": raw_heads, "output": cur}
+        if probe_conv_absmax:
+            r["conv_in_absmax"] = absmax
+        return r
 
     forward.region_plans = plans
     return forward

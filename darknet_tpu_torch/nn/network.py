@@ -55,6 +55,7 @@ class Network:
         self.compute_dtype = compute_dtype
         self.device = torch.device(device)
         self.seen = seen
+        self._calib_absmax: dict | None = None
         self._fwd = make_forward(graph, compute_dtype=compute_dtype,
                                  fuse_regions=fuse_regions)
         heads = [l for l in graph.heads() if l.kind == "yolo"]
@@ -67,9 +68,11 @@ class Network:
     @classmethod
     def from_cfg(cls, cfg, weights=None, *, seed: int = 0,
                  compute_dtype=None, device="cpu",
-                 fuse_regions="hybrid") -> "Network":
+                 fuse_regions="hybrid", int8: bool = False) -> "Network":
         """LoadNetwork (parser.cpp:1852-1876) for inference: parse, load
-        or init, fold BN, move to `device` in the compute dtype."""
+        or init, fold BN, move to `device` in the compute dtype.  int8=True
+        also quantizes the eligible convs (`nn/params.quantize_conv_params`)
+        for the int8 path (`ops/conv.conv_block_int8`)."""
         graph = build_graph(cfg)
         seen = 0
         init = paramlib.init_params(graph, seed=seed)
@@ -78,10 +81,59 @@ class Network:
             # layers the file did not cover keep the init
             init = [p if p else ip for p, ip in zip(loaded, init)]
         params = paramlib.fuse_conv_batchnorm(graph, init)
+        if int8:
+            params = paramlib.quantize_conv_params(graph, params)
         tparams = paramlib.params_to_torch(
             graph, params, device, compute_dtype or torch.float32)
         return cls(graph, tparams, compute_dtype=compute_dtype,
                    device=device, seen=seen, fuse_regions=fuse_regions)
+
+    # -------------------------------------------------------- int8 scales
+    def calibrate_int8(self, images, *, region_int8: bool = False) -> None:
+        """Static int8 activation calibration: record each quantized
+        conv's input range over `images` (iterable of HWC or BHWC float
+        arrays, network-sized) and store per-tensor scales, so that
+        serving skips the dynamic absmax reduce in front of every
+        quantized conv.  A no-op when nothing is quantized.
+        region_int8 (int8 for the region convs without "w_q") is not
+        ported: it raises NotImplementedError."""
+        if not any("w_q" in p for p in self.params):
+            return
+        batches = []
+        for im in images:
+            a = np.asarray(im, dtype=np.float32)
+            batches.append(a[None] if a.ndim == 3 else a)
+        absmax = paramlib.calibrate_conv_input_scales(
+            self.graph, self.params, batches,
+            compute_dtype=self.compute_dtype, device=self.device)
+        self._apply_calibration(absmax, region_int8=region_int8)
+
+    def save_calibration(self, path) -> None:
+        """Persist the calibrated per-conv input ranges: an npz keyed by
+        layer index, the JAX package's file format."""
+        if self._calib_absmax is None:
+            raise ValueError("no calibration to save: run calibrate_int8 "
+                             "first")
+        # through a file object: np.savez(path) appends ".npz" to a bare
+        # path, which load_calibration would then not find
+        with open(path, "wb") as f:
+            np.savez(f, **{str(k): np.asarray(v, np.float32)
+                           for k, v in self._calib_absmax.items()})
+
+    def load_calibration(self, path, *, region_int8: bool = False) -> None:
+        """Apply input ranges saved by save_calibration."""
+        data = np.load(path)
+        absmax = {int(k): float(data[k]) for k in data.files}
+        self._apply_calibration(absmax, region_int8=region_int8)
+
+    def _apply_calibration(self, absmax: dict, *, region_int8: bool) -> None:
+        if region_int8:
+            raise NotImplementedError("region_int8 is not ported yet")
+        self._calib_absmax = dict(absmax)
+        self.params = paramlib.x_scale_to_torch(
+            paramlib.apply_conv_input_scales(self.params, absmax,
+                                             graph=self.graph),
+            self.device)
 
     # ------------------------------------------------------------- input
     def _check_shape(self, x) -> None:

@@ -1,13 +1,16 @@
-"""Parameters: the numpy init and BN fold of `darknet_tpu/nn/params.py`,
-and the bridge that hands those numpy arrays to torch.
+"""Parameters: the numpy init, BN fold and int8 quantization of
+`darknet_tpu/nn/params.py`, the int8 calibration probe, and the bridge
+that hands those numpy arrays to torch.
 
-`init_params` and `fuse_conv_batchnorm` give byte-identical arrays to the
-JAX package's for the same graph and seed (they cannot be imported from
-there: `darknet_tpu/nn/__init__.py` pulls in jax).  Params are a list with
+`init_params`, `fuse_conv_batchnorm`, `quantize_conv_params` and
+`apply_conv_input_scales` give byte-identical arrays to the JAX
+package's for the same inputs (they cannot be imported from there:
+`darknet_tpu/nn/__init__.py` pulls in jax).  Params are a list with
 one dict per layer:
 
 * convolutional: {"w": (kh,kw,c/g,n) HWIO, "b": (n,)} plus
-  {"scales","mean","var"} when batch-normalized;
+  {"scales","mean","var"} when batch-normalized, and after quantization
+  {"w_q": int8 HWIO, "w_scale": (n,)} and optionally "x_scale";
 * connected / batchnorm / local as in the JAX package;
 * every other layer: {}.
 """
@@ -87,14 +90,117 @@ def fuse_conv_batchnorm(graph, params: list) -> list:
     return out
 
 
+def quantize_conv_params(graph, params: list, *, min_ch: int = 128,
+                         skip_heads: bool = True) -> list:
+    """Add int8 weights to eligible convs for the quantized inference path
+    (ops/conv.conv_block_int8): per-output-channel symmetric absmax
+    scales, "w_q" int8 HWIO and "w_scale" (n,) f32.
+
+    Call AFTER fuse_conv_batchnorm.  Eligible: groups==1, dilation==1, no
+    weight sharing, min(c, n) >= min_ch, and (when skip_heads) not a
+    conv feeding a detection head."""
+    head_inputs = set()
+    if skip_heads:
+        for l in graph.layers:
+            if l.kind in ("yolo", "gaussian_yolo", "detection"):
+                head_inputs.add(l.index - 1)
+    out = []
+    for l, p in zip(graph.layers, params):
+        p = dict(p)
+        if (l.kind == "convolutional" and l.groups == 1 and l.dilation == 1
+                and l.share_index is None and "w" in p
+                and min(l.c, l.n) >= min_ch
+                and l.index not in head_inputs):
+            w = np.asarray(p["w"], dtype=np.float32)
+            absmax = np.maximum(np.abs(w).reshape(-1, w.shape[-1]).max(axis=0),
+                                1e-8)
+            scale = (absmax / 127.0).astype(np.float32)
+            p["w_q"] = np.clip(np.round(w / scale), -127, 127).astype(np.int8)
+            p["w_scale"] = scale
+        out.append(p)
+    return out
+
+
+def calibrate_conv_input_scales(graph, params: list, batches, *,
+                                compute_dtype=None, device=None) -> dict:
+    """Static int8 activation calibration: run the port's probe forward
+    (regions and the stem fold off, so every conv is observed) over
+    `batches` (iterable of (B,H,W,C) arrays) and return {layer_index:
+    max |input|}, aggregated by max.  `params` are the port's torch
+    params (quantized or not); the batches go to their device."""
+    from darknet_tpu_torch.nn.emit import make_forward
+
+    if device is None:
+        device = next((t.device for p in params for t in p.values()
+                       if isinstance(t, torch.Tensor)), torch.device("cpu"))
+    fwd = make_forward(graph, compute_dtype=compute_dtype,
+                       probe_conv_absmax=True)
+    agg: dict[int, float] = {}
+    with torch.inference_mode():
+        for x in batches:
+            r = fwd(params, torch.from_numpy(
+                np.asarray(x, dtype=np.float32)).to(device))
+            for i, v in r["conv_in_absmax"].items():
+                agg[i] = max(agg.get(i, 0.0), float(v))
+    return agg
+
+
+def apply_conv_input_scales(params: list, absmax: dict,
+                            graph=None, extra=()) -> list:
+    """Attach static activation scales: p["x_scale"] = absmax/127 on every
+    quantized conv (one with "w_q") whose index has a calibration entry,
+    as a numpy float32 (`x_scale_to_torch` moves it to a device).
+
+    Pass `graph` when the net uses share_index weight sharing: a sharing
+    call site reads the SOURCE layer's param dict, so its input range is
+    folded into the source's scale (max over all call sites).  `extra`
+    lists layer indices that get an "x_scale" even without "w_q"."""
+    absmax = dict(absmax)
+    if graph is not None:
+        for l in graph.layers:
+            if (getattr(l, "kind", None) == "convolutional"
+                    and getattr(l, "share_index", None) is not None
+                    and l.index in absmax):
+                src = l.share_index
+                absmax[src] = max(absmax.get(src, 0.0),
+                                  float(absmax[l.index]))
+    extra = set(extra)
+    out = []
+    for i, p in enumerate(params):
+        if ("w_q" in p or i in extra) and i in absmax:
+            p = dict(p)
+            p["x_scale"] = np.float32(max(float(absmax[i]), 1e-8) / 127.0)
+        out.append(p)
+    return out
+
+
+def x_scale_to_torch(params: list, device) -> list:
+    """Each numpy "x_scale" as a 1-element float32 tensor on `device`:
+    the int8 kernel reads it through a pointer, with no host sync."""
+    out = []
+    for p in params:
+        if "x_scale" in p and not isinstance(p["x_scale"], torch.Tensor):
+            p = dict(p)
+            p["x_scale"] = torch.tensor(
+                [np.float32(p["x_scale"])], dtype=torch.float32,
+                device=device)
+        out.append(p)
+    return out
+
+
 def params_to_torch(graph, np_params: list, device="cpu",
                     dtype=torch.float32) -> list:
     """Numpy params (BN folded) -> the port's torch params on `device`.
 
     Conv weights turn from HWIO into OIHW in `dtype` (the compute dtype:
     the convs read them as they are), stored channels_last as cuDNN
-    prefers; biases stay float32.  Only inference conv params are
-    carried; layers the port does not run yet keep an empty dict."""
+    prefers; biases stay float32.  A quantized conv also carries "w_q"
+    as int8 (n, kh*kw*c), K ordered (kh, kw, c) (HWIO `reshape(-1, n).T`:
+    both operands of the int8 GEMM K-contiguous), "w_scale" (n,) f32 and,
+    when calibrated, "x_scale" (1,) f32; the float "w" stays (a region
+    step without "x_scale" runs in floating point).  Only inference conv
+    params are carried; layers the port does not run yet keep an empty
+    dict."""
     out = []
     for l, p in zip(graph.layers, np_params):
         q = {}
@@ -108,5 +214,13 @@ def params_to_torch(graph, np_params: list, device="cpu",
                 memory_format=torch.channels_last)
             q["b"] = torch.from_numpy(
                 np.asarray(p["b"], np.float32).copy()).to(device)
+            if "w_q" in p:
+                w_q = np.asarray(p["w_q"], np.int8)
+                q["w_q"] = torch.from_numpy(np.ascontiguousarray(
+                    w_q.reshape(-1, w_q.shape[-1]).T)).to(device)
+                q["w_scale"] = torch.from_numpy(
+                    np.asarray(p["w_scale"], np.float32).copy()).to(device)
+            if "x_scale" in p:
+                q["x_scale"] = p["x_scale"]
         out.append(q)
-    return out
+    return x_scale_to_torch(out, device)

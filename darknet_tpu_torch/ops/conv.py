@@ -16,6 +16,10 @@ Numerics:
   its f32 accumulator to bf16 before the bias is added, so the sum rounds
   twice where the reference (and the region kernel) round once: single
   elements may differ by a bf16 ulp.
+* int8 (`conv_block_int8`): the int32 sum is exact, and the f32
+  epilogue is the reference's, so given the same quantized input the
+  pre-activation equals the reference's to the bit; the cast and the
+  activation follow in the reference's order.
 """
 
 from __future__ import annotations
@@ -26,6 +30,8 @@ import torch
 import torch.nn.functional as F
 
 from darknet_tpu_torch.ops.activations import apply_activation
+from darknet_tpu_torch.ops.quant_matmul import (input_scale, int8_matmul,
+                                                quantize_int8)
 
 
 def darknet_conv_padding(size: int, pad: int, dilation: int,
@@ -80,6 +86,56 @@ def conv2d_raw(x, w, b=None, *, stride=(1, 1), padding=((0, 0), (0, 0)),
         # in place on a bf16 y with an f32 b: computed in f32, cast once
         y.add_(b.float().view(-1, 1, 1))
     return y.permute(0, 2, 3, 1)
+
+
+def im2col_int8(x_q, kh, kw, stride, padding, out_hw):
+    """(B,H,W,C) int8 -> (B*OH*OW, kh*kw*C) int8, K ordered (kh, kw, c)
+    like the stored "w_q" (`nn/params.params_to_torch`).  Zero padding is
+    exact: a zero input quantizes to 0.  A 1x1 stride-1 conv is a view."""
+    (lo_h, hi_h), (lo_w, hi_w) = padding
+    b, h, w, c = x_q.shape
+    (oh, ow), (sy, sx) = out_hw, stride
+    if (kh, kw, sy, sx, lo_h, lo_w, oh, ow) == (1, 1, 1, 1, 0, 0, h, w):
+        return x_q.reshape(-1, c)
+    xp = F.pad(x_q, (0, 0, lo_w, hi_w, lo_h, hi_h))
+    cols = [xp[:, ky:ky + sy * (oh - 1) + 1:sy, kx:kx + sx * (ow - 1) + 1:sx]
+            for ky in range(kh) for kx in range(kw)]
+    return torch.stack(cols, dim=3).reshape(b * oh * ow, kh * kw * c)
+
+
+def conv2d_int8(x, p, *, size, stride, padding, out_hw):
+    """The int8 product of `conv_block_int8`: NHWC x -> NHWC float32
+    `acc * (x_scale * w_scale) + b`, before the cast and the activation.
+
+    The scale is static (p["x_scale"], calibrated) or dynamic: max|x|
+    over the whole batch, kept on the device.  x quantizes from float32
+    with a true division; the int8 GEMM (`int8_matmul`, the CUDA kernel
+    for a CUDA tensor) takes the im2col and p["w_q"] (n, K)."""
+    xf = x.float()
+    x_scale = p["x_scale"] if "x_scale" in p else input_scale(xf)
+    x_q = quantize_int8(xf, x_scale)
+    a = im2col_int8(x_q, size, size, stride, padding, out_hw)
+    y = int8_matmul(a, p["w_q"], p["w_scale"], p["b"], x_scale)
+    return y.reshape(x.shape[0], out_hw[0], out_hw[1], -1)
+
+
+def conv_block_int8(x, p, l, *, compute_dtype=None):
+    """Quantized inference conv (`darknet_tpu/ops/conv.py:107-150`):
+    per-tensor int8 activations x per-output-channel int8 weights, exact
+    int32 sums, the f32 dequant + bias epilogue, a cast to the compute
+    dtype, then the activation.  `p` carries "w_q" and "w_scale"
+    (`nn/params.quantize_conv_params`), BN folded, and optionally a
+    static "x_scale"."""
+    if getattr(l, "antialiasing", 0) or l.groups != 1 or l.dilation != 1:
+        raise NotImplementedError(
+            "int8 conv: antialiasing, groups and dilation are not ported")
+    padding = darknet_conv_padding(
+        l.size, l.pad, l.dilation, (l.h, l.w), (l.stride_y, l.stride_x),
+        (l.out_h, l.out_w))
+    y = conv2d_int8(x, p, size=l.size, stride=(l.stride_y, l.stride_x),
+                    padding=padding, out_hw=(l.out_h, l.out_w))
+    return apply_activation(y.to(compute_dtype or torch.float32),
+                            l.activation)
 
 
 def conv_block(x, p, l, *, compute_dtype=None):

@@ -3,7 +3,8 @@ library with a plain C interface, and load it with ctypes.
 
 The library lands in `darknet_tpu_torch/_build/` (listed in .gitignore),
 named by a hash of its source and flags, so an edited source rebuilds and
-an unchanged one loads at once.  A missing nvcc raises: there is no
+an unchanged one loads at once.  `build(names)` starts one nvcc per
+missing source, all at once.  A missing nvcc raises: there is no
 fallback.
 """
 
@@ -41,29 +42,51 @@ def find_nvcc() -> str:
     return nvcc
 
 
-def load(name: str) -> ctypes.CDLL:
-    """Build (if needed) and load `csrc/<name>.cu`."""
-    if name in _loaded:
-        return _loaded[name]
+def _paths(name: str) -> tuple:
     src = os.path.join(CSRC, f"{name}.cu")
     with open(src, "rb") as f:
         digest = hashlib.sha256(
             f.read() + " ".join(ARCH_FLAGS + FLAGS).encode()).hexdigest()
-    so = os.path.join(BUILD_DIR, f"lib{name}-{digest[:16]}.so")
-    if not os.path.exists(so):
+    return src, os.path.join(BUILD_DIR, f"lib{name}-{digest[:16]}.so")
+
+
+def build(names) -> None:
+    """Compile every library of `names` that is not built yet: one nvcc
+    per source, all started together."""
+    jobs = []
+    for name in names:
+        src, so = _paths(name)
+        if name in _loaded or os.path.exists(so):
+            continue
         os.makedirs(BUILD_DIR, exist_ok=True)
         tmp = f"{so}.{os.getpid()}.tmp"
         cmd = [find_nvcc(), *ARCH_FLAGS, *FLAGS, "-o", tmp, src]
-        t0 = time.perf_counter()
-        proc = subprocess.run(cmd, capture_output=True, text=True)
-        if proc.returncode != 0:
-            raise RuntimeError(f"nvcc failed ({proc.returncode}):\n"
-                               f"{' '.join(cmd)}\n{proc.stderr}")
-        os.replace(tmp, so)
-        build_log[name] = {"seconds": time.perf_counter() - t0,
-                           "ptxas": proc.stderr, "so": so}
-    else:
-        build_log.setdefault(name, {"seconds": 0.0, "ptxas": "", "so": so})
+        proc = subprocess.Popen(cmd, stdout=subprocess.PIPE,
+                                stderr=subprocess.PIPE, text=True)
+        jobs.append((name, cmd, tmp, so, time.perf_counter(), proc))
+    try:
+        for name, cmd, tmp, so, t0, proc in jobs:
+            _out, err = proc.communicate()
+            if proc.returncode != 0:
+                raise RuntimeError(f"nvcc failed ({proc.returncode}):\n"
+                                   f"{' '.join(cmd)}\n{err}")
+            os.replace(tmp, so)
+            build_log[name] = {"seconds": time.perf_counter() - t0,
+                               "ptxas": err, "so": so}
+    finally:
+        for job in jobs:          # after a failure, stop the other builds
+            if job[-1].poll() is None:
+                job[-1].kill()
+                job[-1].wait()
+
+
+def load(name: str) -> ctypes.CDLL:
+    """Build (if needed) and load `csrc/<name>.cu`."""
+    if name in _loaded:
+        return _loaded[name]
+    build([name])
+    so = _paths(name)[1]
+    build_log.setdefault(name, {"seconds": 0.0, "ptxas": "", "so": so})
     lib = ctypes.CDLL(so)
     _loaded[name] = lib
     return lib

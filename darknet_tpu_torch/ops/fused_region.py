@@ -26,7 +26,7 @@ from typing import Callable
 import torch
 
 from darknet_tpu_torch.ops.activations import apply_activation
-from darknet_tpu_torch.ops.conv import conv2d_raw
+from darknet_tpu_torch.ops.conv import conv2d_int8, conv2d_raw
 
 ELEMENTWISE_ACTS = frozenset({
     "linear", "leaky", "relu", "relu6", "relie", "ramp", "mish", "swish",
@@ -440,9 +440,16 @@ def step_weights(steps, params, dtype):
             [s.b_fn(params).float() for s in convs])
 
 
-def run_steps_plain(steps, slots: dict, weights, biases, compute_dtype):
+def run_steps_plain(steps, slots: dict, weights, biases, compute_dtype,
+                    params=None):
     """Execute `steps` on unpacked NHWC tensors, updating `slots` in place.
-    weights/biases: one per ConvStep, in step order (`step_weights`)."""
+    weights/biases: one per ConvStep, in step order (`step_weights`).
+
+    With `params` (the layer list), a conv step whose layer carries a
+    calibrated "x_scale" and its "w_scale" runs the int8 conv
+    (`ops/conv.conv2d_int8`), as the reference's packed int8 step does
+    (`_run_steps_xla`, bit-exact with the unpacked int8 chain there); a
+    step without "x_scale" stays in floating point."""
     cd = compute_dtype
     wi = 0
     for step in steps:
@@ -452,24 +459,41 @@ def run_steps_plain(steps, slots: dict, weights, biases, compute_dtype):
             continue
         src = torch.cat([slots[s] for s in step.srcs], dim=-1) \
             if len(step.srcs) > 1 else slots[step.srcs[0]]
-        w = weights[wi].permute(3, 2, 0, 1)        # HWIO -> OIHW
         pad = ((step.pt, step.kh - 1 - step.pt),
                (step.pl_, step.kw - 1 - step.pl_))
-        y = conv2d_raw(src, w, biases[wi], stride=(step.sy, step.sx),
-                       padding=pad, compute_dtype=cd)
+        p_l = params[step.li] if params is not None and step.li >= 0 else {}
+        if "x_scale" in p_l:
+            if ("w_q" not in p_l or p_l["w_q"].shape[1]
+                    != step.kh * step.kw * step.c_tot):
+                # no w_q, or a stem step whose packed geometry is not the
+                # layer's (region_int8 is not ported)
+                raise NotImplementedError(
+                    f"layer {step.li}: an int8 region step needs the "
+                    f"layer's own w_q over the step's window")
+            out_hw = ((src.shape[1] - 1) // step.sy + 1,
+                      (src.shape[2] - 1) // step.sx + 1)
+            y = conv2d_int8(src, p_l, size=step.kh,
+                            stride=(step.sy, step.sx), padding=pad,
+                            out_hw=out_hw).to(cd)
+        else:
+            w = weights[wi].permute(3, 2, 0, 1)    # HWIO -> OIHW
+            y = conv2d_raw(src, w, biases[wi], stride=(step.sy, step.sx),
+                           padding=pad, compute_dtype=cd)
         slots[step.out_slot] = apply_activation(y, step.act)
         wi += 1
 
 
 def region_plain(plan: RegionPlan, x, weights, biases, *,
-                 compute_dtype=torch.float32):
+                 compute_dtype=torch.float32, params=None):
     """The plain version of the region kernel: same contract as
     `ops.cuda.fused_region.region_call` (x is the raw net input when
-    plan.stem, else the previous layer's NHWC output)."""
+    plan.stem, else the previous layer's NHWC output).  `params` as in
+    `run_steps_plain` (the whole region in plain form)."""
     from darknet_tpu_torch.ops.stem import space_to_depth
 
     if plan.stem:
         x = space_to_depth(x)
     slots = {IN_SLOT: x.to(compute_dtype)}
-    run_steps_plain(plan.steps, slots, weights, biases, compute_dtype)
+    run_steps_plain(plan.steps, slots, weights, biases, compute_dtype,
+                    params)
     return slots[plan.out_slot]

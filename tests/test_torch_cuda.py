@@ -1,7 +1,8 @@
-"""darknet_tpu_torch on a CUDA card: the region kernel against its plain
-version, and the serving path on the card against the CPU.  Every test
-here skips without a card.  This file imports no jax; where only torch
-is installed, skip tests/conftest.py (which sets jax up):
+"""darknet_tpu_torch on a CUDA card: the region kernel and the int8 GEMM
+against their plain versions, and the serving paths (f32 and int8) on the
+card against the CPU.  Every test here skips without a card.  This file
+imports no jax; where only torch is installed, skip tests/conftest.py
+(which sets jax up):
     python -m pytest --noconftest tests/test_torch_cuda.py
 
 Tolerances: f32 kernel at 1e-4 of the output's scale (FFMA sums in
@@ -10,7 +11,13 @@ another order than cuDNN, TF32 off); bf16 at two bf16 ulps of the scale,
 output before the f32 bias and once more after it).  Served boxes on the
 card against the CPU as in tests/test_torch_slice.py: centres within
 1e-5, sizes at rtol 1e-4, objectness within 1e-5, kept sets equal once
-each card slot is matched to the CPU slot of its candidate.
+each card slot is matched to the CPU slot of its candidate.  The int8
+GEMM equals its plain version bitwise (exact int32 sums, the same rounded
+epilogue).  int8 serving: the chain of quantized convs amplifies sub-ulp
+differences between devices (tests/test_torch_int8.py), so each card
+conv is held to the CPU's on the card's own input (rtol 1e-6, the mish
+tolerance), and the card's served kept set to the CPU serving program's
+on the card's heads.
 """
 
 import warnings
@@ -23,11 +30,14 @@ from darknet_tpu import model_zoo
 from darknet_tpu.graph.builder import build_graph
 from darknet_tpu_torch import Network
 from darknet_tpu_torch.nn import params as tparams
+from darknet_tpu_torch.nn import emit as temit
+from darknet_tpu_torch.ops import conv as tconv
 from darknet_tpu_torch.ops import fused_region as tfr
+from darknet_tpu_torch.ops import quant_matmul as tqm
 from darknet_tpu_torch.ops.cuda import fused_region as cfr
 # by file, not as tests.torch_params: an installed package named `tests`
 # would shadow this directory
-from torch_params import lively_params
+from torch_params import lively_params, match_slots, matched
 
 
 @pytest.fixture
@@ -79,18 +89,6 @@ def _kept(probs):
     return set(zip(*np.nonzero(np.asarray(probs) > 0)))
 
 
-def _cpu_slot_of(tb, ctb):
-    """Per image, the CPU slot that holds each card slot's candidate: the
-    one with the nearest box.  The top-k ranks exact objectness ties by
-    index on both devices, but the card's sum-order noise can split such
-    a tie the other way (yolov4 at 64 px, seed 0, has one), and then the
-    two candidates trade slots."""
-    d = np.abs(tb[:, :, None, :] - ctb[:, None, :, :]).max(-1)
-    slot = d.argmin(-1)
-    assert all(len(set(s)) == len(s) for s in slot)
-    return slot
-
-
 @pytest.mark.cuda
 def test_forward_on_card_matches_cpu(cuda):
     """The whole yolov4 forward (kernel region prefix on the card, plain
@@ -122,10 +120,8 @@ def test_serving_on_card_matches_cpu(thresh, nms, cuda):
     assert cfr.launches == before + 1 and tb.is_cuda
     ctb, cov, cprobs = cpu.submit_detect_device(x, thresh=thresh, nms=nms)
     a = tb.cpu().numpy()
-    slot = _cpu_slot_of(a, ctb.numpy())
-    b = np.take_along_axis(ctb.numpy(), slot[..., None], axis=1)
-    cv = np.take_along_axis(cov.numpy(), slot, axis=1)
-    cp = np.take_along_axis(cprobs.numpy(), slot[..., None], axis=1)
+    slot = match_slots(a, ctb.numpy())
+    b, cv, cp = matched((ctb, cov, cprobs), slot)
     kept = _kept(cp)
     assert len(kept) > 5
     assert _kept(probs.cpu()) == kept
@@ -135,3 +131,86 @@ def test_serving_on_card_matches_cpu(thresh, nms, cuda):
     dets = Network.device_out_to_dets(tb, ov, probs)
     assert [len(d) for d in dets] == [
         len(d) for d in Network.device_out_to_dets(ctb, cov, cprobs)]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("m,k,n,offset", [
+    (1000, 96, 200, 0), (37, 50, 9, 0), (300, 128, 70, 1),
+    (8 * 19 * 19, 9 * 512, 1024, 0), (8 * 76 * 76, 256, 256, 0)])
+def test_int8_gemm_kernel(m, k, n, offset, cuda):
+    """Ragged M, N and K (K % 16 != 0 and a misaligned operand take the
+    byte-wise load path) and yolov4-608 shapes at b=8: bitwise equal."""
+    rng = np.random.default_rng(m + k + n)
+    buf = torch.from_numpy(rng.integers(-127, 128, m * k + offset,
+                                        dtype=np.int8)).to(cuda)
+    a = buf[offset:].view(m, k)
+    b = torch.from_numpy(rng.integers(-127, 128, (n, k),
+                                      dtype=np.int8)).to(cuda)
+    ws = torch.from_numpy(rng.uniform(1e-3, 1e-2, n).astype(np.float32))
+    bias = torch.from_numpy(rng.normal(size=n).astype(np.float32))
+    xs = torch.tensor([0.0039], device=cuda)
+    for leaky in (False, True):
+        before = tqm.launches
+        got = tqm.int8_matmul(a, b, ws.to(cuda), bias.to(cuda), xs,
+                              leaky=leaky)
+        want = tqm.int8_matmul_plain(a, b, ws.to(cuda), bias.to(cuda), xs,
+                                     leaky=leaky)
+        torch.cuda.synchronize()
+        assert tqm.launches == before + 1
+        assert torch.equal(got, want)
+
+
+def _int8_nets(px):
+    """The same lively quantized f32 yolov4 on the card and on the CPU."""
+    with warnings.catch_warnings():
+        warnings.simplefilter("ignore")
+        g = build_graph(model_zoo.yolov4_cfg(px, px))
+    npar = tparams.quantize_conv_params(
+        g, tparams.fuse_conv_batchnorm(g, lively_params(g)))
+    return [Network(g, tparams.params_to_torch(g, npar, dev, torch.float32),
+                    device=dev) for dev in ("cuda", "cpu")]
+
+
+@pytest.mark.cuda
+def test_int8_serving_on_card(cuda, monkeypatch, tmp_path):
+    gpu, cpu = _int8_nets(64)
+    x = np.random.default_rng(0).uniform(0, 1, (2, 64, 64, 3)).astype(
+        np.float32)
+    before = tqm.launches
+    gpu.submit_detect_device(x)
+    assert tqm.launches == before + 90           # dynamic: 23 stays float
+    cpu.calibrate_int8([x])
+    cpu.save_calibration(tmp_path / "scales.cache")
+    gpu.load_calibration(tmp_path / "scales.cache")
+
+    recs = []
+
+    def record(xin, p, l, **kw):
+        y = tconv.conv_block_int8(xin, p, l, **kw)
+        recs.append((l.index, xin, y))
+        return y
+
+    monkeypatch.setattr(temit, "conv_block_int8", record)
+    before = tqm.launches
+    with torch.backends.cudnn.flags(enabled=True, allow_tf32=False), \
+            torch.inference_mode():
+        heads = gpu._fwd(gpu.params, torch.from_numpy(x).to(cuda))["heads"]
+        tb, ov, probs = gpu._serve(torch.from_numpy(x).to(cuda), 0.1, 0.3,
+                                   256, None)
+    assert tqm.launches == before + 2 * 91 and len(recs) == 2 * 90
+    for i, xin, y in recs[:90]:
+        want = tconv.conv_block_int8(xin.cpu(), cpu.params[i],
+                                     cpu.graph.layers[i])
+        torch.testing.assert_close(y.cpu(), want, rtol=1e-6, atol=1e-6)
+
+    cheads = [h.cpu() for h in heads]
+    monkeypatch.setattr(cpu, "_fwd", lambda params, x: {"heads": cheads})
+    ctb, cov, cprobs = cpu.submit_detect_device(x, thresh=0.1, nms=0.3)
+    a = tb.cpu().numpy()
+    slot = match_slots(a, ctb.numpy())
+    b, cv, cp = matched((ctb, cov, cprobs), slot)
+    kept = _kept(cp)
+    assert len(kept) > 5
+    assert _kept(probs.cpu()) == kept
+    np.testing.assert_allclose(a, b, rtol=1e-5, atol=1e-5)
+    np.testing.assert_allclose(ov.cpu().numpy(), cv, atol=1e-5)

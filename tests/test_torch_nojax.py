@@ -1,6 +1,6 @@
 """darknet_tpu_torch runs where jax is not installed: a subprocess blocks
 jax/jaxlib with a meta-path finder, imports the port and serves yolov4 at
-64 px on the CPU."""
+64 px on the CPU, in f32 and in int8 (quantized, calibrated)."""
 
 import os
 import pathlib
@@ -41,6 +41,17 @@ assert tb.shape == (2, 252, 4) and len(dets) == 2
 assert torch.isfinite(tb).all()
 host = net.detect(frames[0], thresh=0.1)
 assert fused_region.launches == 0        # CPU: the plain version ran
+
+# int8: quantize, calibrate with the port's probe forward, serve
+from darknet_tpu_torch.ops import quant_matmul
+with warnings.catch_warnings():
+    warnings.simplefilter("ignore")
+    qnet = Network.from_cfg(model_zoo.yolov4_cfg(64, 64), seed=0, int8=True)
+qnet.calibrate_int8([frames[0].astype(np.float32) / 255.0])
+assert sum("x_scale" in p for p in qnet.params) == 91
+qtb, _qov, _qprobs = qnet.submit_detect_device(frames, thresh=0.1)
+assert qtb.shape == (2, 252, 4) and torch.isfinite(qtb).all()
+assert quant_matmul.launches == 0
 bad = [m for m in sys.modules if m.split(".")[0] in ("jax", "jaxlib")]
 assert not bad, bad
 print("SERVED", sum(len(d) for d in dets), len(host))

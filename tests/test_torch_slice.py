@@ -9,7 +9,10 @@ Tolerances: heads at rtol 1e-4 / atol 1e-5 (as tests/test_fused_region.py;
 the head logits carry about 1e-5 of their spread in f32 sum-order noise
 through 100 layers); served box centres within 1e-5; box sizes, which
 are exp() of a head logit times an anchor of up to 7 net widths at 64 px,
-at rtol 1e-4; the kept (image, candidate, class) sets equal.
+at rtol 1e-4; the kept (image, candidate, class) sets equal once each
+port slot is matched to the JAX slot of its candidate: two candidates of
+image 1 tie exactly in f32 objectness, and the two packages' sum-order
+noise may split the tie either way (`torch_params.match_slots`).
 """
 
 import warnings
@@ -27,7 +30,7 @@ from darknet_tpu.weights import io as wio
 from darknet_tpu_torch import Network
 from darknet_tpu_torch.nn import params as tparams
 from darknet_tpu_torch.nn.emit import make_forward
-from tests.torch_params import lively_params
+from tests.torch_params import lively_params, match_slots, matched
 
 torch.set_num_threads(2)
 CFG = model_zoo.yolov4_cfg(64, 64)
@@ -95,6 +98,21 @@ def _kept(probs):
     return set(zip(*np.nonzero(np.asarray(probs) > 0)))
 
 
+def assert_serving_matches(port, ref):
+    """A served port triple against a reference triple, once each port
+    slot is matched to the reference slot of its candidate
+    (`match_slots`): objectness within 1e-5, then the kept (image, slot,
+    class) sets equal and the boxes close."""
+    ttb, tov, tp = (t.float().cpu().numpy() for t in port)
+    slot = match_slots(ttb, ref[0])
+    jtb, jov, jp = matched(ref, slot)
+    np.testing.assert_allclose(tov, jov, atol=1e-5)
+    kept = _kept(jp)
+    assert len(kept) > 5
+    assert _kept(tp) == kept
+    assert_boxes_close(ttb, jtb)
+
+
 @pytest.mark.parametrize("thresh,nms", [(0.25, 0.45), (0.1, 0.3)])
 def test_serving_matches_device_detect(nets, thresh, nms):
     jnet, tnet, _ = nets
@@ -103,11 +121,7 @@ def test_serving_matches_device_detect(nets, thresh, nms):
         jnet.params, x)
     ttb, tov, tp = tnet.submit_detect_device(x, thresh=thresh, nms=nms,
                                              top_k=256)
-    kept = _kept(jp)
-    assert len(kept) > 5
-    assert _kept(tp.numpy()) == kept
-    assert_boxes_close(ttb.numpy(), np.asarray(jtb))
-    np.testing.assert_allclose(tov.numpy(), np.asarray(jov), atol=1e-5)
+    assert_serving_matches((ttb, tov, tp), (jtb, jov, jp))
     dets = Network.device_out_to_dets(ttb, tov, tp)
     jdets = JaxNetwork.device_out_to_dets(jtb, jov, jp)
     assert [len(d) for d in dets] == [len(d) for d in jdets]

@@ -1,4 +1,5 @@
-"""Numpy yolov4 params whose heads are not saturated, for the port's tests.
+"""Helpers of the port's tests: numpy yolov4 params whose heads are not
+saturated, and the slot matcher that compares two served triples.
 
 At random init a deep yolov4 damps its heads to sigmoid(~1e-6), where
 every score ties and a served kept set is decided by sum-order noise.
@@ -22,3 +23,24 @@ def lively_params(graph, seed=0):
         if i in HEAD_GAIN:
             d["w"] = d["w"] * np.float32(HEAD_GAIN[i])
     return p
+
+
+def match_slots(tb, ref_tb):
+    """Per image, the reference slot that holds each slot's candidate: the
+    one with the nearest box.  The top-k ranks exact objectness ties by
+    index, but sum-order noise in one of the two runs can split such a
+    tie the other way (yolov4 at 64 px, seed 0, has one), and then the
+    two candidates trade slots.  Asserts the match is one-to-one."""
+    tb, ref_tb = np.asarray(tb), np.asarray(ref_tb)
+    d = np.abs(tb[:, :, None, :] - ref_tb[:, None, :, :]).max(-1)
+    slot = d.argmin(-1)
+    assert all(len(set(s)) == len(s) for s in slot), "slots match twice"
+    return slot
+
+
+def matched(ref_triple, slot):
+    """The reference triple (boxes, objectness, probs) in matched order."""
+    tb, ov, probs = (np.asarray(t) for t in ref_triple)
+    return (np.take_along_axis(tb, slot[..., None], axis=1),
+            np.take_along_axis(ov, slot, axis=1),
+            np.take_along_axis(probs, slot[..., None], axis=1))
