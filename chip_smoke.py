@@ -14,23 +14,27 @@ Phases, each of which fails the run (non-zero exit) on any error:
   4. yolov4-608 serving at b=8 in bf16 through Network.submit_detect_device
      and device_out_to_dets (one request uint8), with the kernel's launch
      count rising on every request; one f32 request against the same
-     network with the plain region; img/s (median and spread of 5
-     windows of 100 requests after 30 untimed ones) and the kernel's and
-     the plain version's times at b=8;
+     network with the plain region; bf16 img/s (median and spread of 5
+     windows of 100 requests after 30 untimed ones), the kernel's and the
+     plain version's times at b=8, the kernel's bound, and a profile of
+     one request;
   5. the int8 GEMM against its plain version: exactly equal with unit
      scales where |acc| < 2^24 (a ragged shape and a yolov4 3x3 shape),
-     and with real scales at a yolov4 1x1 and a 3x3 stride-2 shape (max
-     abs err 0: the sums are exact and the epilogue is the same rounded
-     ops);
+     and with real scales at a yolov4 1x1 and a 3x3 stride-2 shape; the
+     implicit-GEMM int8_conv against its plain version (explicit im2col)
+     at yolov4's 1x1, 3x3/1, 3x3/2, a 19x19 3x3 with C = 1024 and a
+     ragged M, f32 and bf16 out, with and without leaky: bitwise (the
+     sums are exact and the epilogue is the same rounded ops);
   6. int8 serving of yolov4-608 at b=8, bf16 (Network.from_cfg(int8=True)):
-     one dynamic request (+90 GEMM launches: layer 23 stays in floating
-     point inside the region), calibrate_int8 on 4 frames, save and load
-     the calibration into a second network, calibrated requests (+91
-     each, one uint8); during one calibrated request every quantized
-     conv's f32 pre-activation from the kernel against the plain version
-     on the same int8 operands, bitwise; int8 img/s beside the bf16 rate
-     of phase 4; the kernel's time summed over one request's 91 launches
-     against the plain version's sum on the same operands;
+     one dynamic request (+90 launches: layer 23 stays in floating point
+     inside the region), calibrate_int8 on 4 frames, save and load the
+     calibration into a second network, calibrated requests (+91 each,
+     one uint8); during one calibrated request every quantized conv's
+     bf16 output from the kernel against the plain version on the same
+     int8 operands, bitwise, and no explicit im2col on the card; the
+     kernel's device time over one request (profiler, CUDA graph) beside
+     torch._int_mm's on the same operands and the bound; int8 img/s beside
+     the bf16 rate of phase 4; a profile of one request;
   7. a JSON line of the kernels, then {"ok": true, "device": ...} last.
 
 Weights are random (numpy, seed 0); no file outside the checkout is read.
@@ -48,12 +52,13 @@ import numpy as np
 
 # f32 check: FFMA and cuDNN (TF32 off) sum in different orders, so the
 # kernel agrees with the plain version to ~1e-6 of the output's scale;
-# 1e-4 leaves room for depth.  bf16: the kernel rounds each conv's f32
-# sum (bias included) once; the plain version's cuDNN conv rounds to bf16
-# before the f32 bias and once more after it, so single elements differ
-# by a bf16 ulp (2^-7 of the scale at most); the check allows two.
+# 1e-4 leaves room for depth.  bf16: the kernel and the plain version
+# (exact bf16 products summed in f32, f32 bias, one rounding) each round
+# a conv's sum once; sums in another order land on the other side of a
+# rounding boundary at times, so an element differs by one bf16 ulp at
+# most (2^-7 of the scale).
 TOL_F32 = 1e-4
-TOL_BF16 = 2.0 ** -6
+TOL_BF16 = 2.0 ** -7
 SERVE_BATCH = 8
 SERVE_PX = 608
 RATE_WARMUP = 30         # untimed requests before the first window
@@ -69,7 +74,17 @@ INT8_EXACT = (("ragged", 1000, 96, 200),
               ("yolov4-608 L60 3x3", 8 * 38 * 38, 9 * 256, 256))
 INT8_REAL = (("yolov4-608 L54 1x1", 8 * 76 * 76, 256, 256),
              ("yolov4-608 L55 3x3/2", 8 * 38 * 38, 9 * 256, 512))
+# int8_conv checks (name, B, H, C, N, size, stride) against the plain
+# version, bitwise, at f32 and bf16 out
+INT8_CONV = (("yolov4-608 1x1", 8, 76, 256, 256, 1, 1),
+             ("yolov4-608 3x3/1", 8, 38, 256, 256, 3, 1),
+             ("yolov4-608 3x3/2", 8, 76, 256, 512, 3, 2),
+             ("yolov4-608 3x3 19x19 C=1024", 8, 19, 1024, 512, 3, 1),
+             ("ragged M", 3, 13, 128, 256, 3, 1))
 INT8_CONVS = 91          # quantized convs of yolov4 (min(c, n) >= 128)
+PEAK_INT8 = 1979e12      # H100 SXM dense int8 tensor-core op/s
+PEAK_BF16 = 989e12       # dense bf16 tensor-core FLOP/s
+PEAK_BYTES = 3.35e12     # HBM3 bytes/s
 INT8_CALIB_FRAMES = 4
 
 NARROW_CSP_CFG = """[net]
@@ -167,7 +182,7 @@ def card_line() -> str:
 
 
 def quiet_graph(cfg):
-    from darknet_tpu.graph.builder import build_graph
+    from darknet_tpu_torch.graph.builder import build_graph
 
     with warnings.catch_warnings():
         warnings.simplefilter("ignore")
@@ -240,6 +255,103 @@ def cuda_ms(fn, iters=10, warmup=2) -> float:
     return start.elapsed_time(stop) / iters
 
 
+def graph_ms(fn, reps=5) -> float:
+    """Device time of fn() without the host's launch time: fn captured
+    once in a CUDA graph, the graph replayed `reps` times between CUDA
+    events."""
+    import torch
+
+    side = torch.cuda.Stream()
+    side.wait_stream(torch.cuda.current_stream())
+    with torch.cuda.stream(side):
+        fn()                             # warm-up off the capture
+    torch.cuda.current_stream().wait_stream(side)
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph):
+        fn()
+    graph.replay()
+    start = torch.cuda.Event(enable_timing=True)
+    stop = torch.cuda.Event(enable_timing=True)
+    start.record()
+    for _ in range(reps):
+        graph.replay()
+    stop.record()
+    torch.cuda.synchronize()
+    del graph
+    return start.elapsed_time(stop) / reps
+
+
+def profiled_ms(fn, name=None):
+    """(device ms, kernels) of one fn() call in a torch.profiler trace:
+    the summed durations of the device events whose name contains `name`
+    (all device events when None).  (None, 0) if the trace holds no
+    device event."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+
+    fn()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        fn()
+        torch.cuda.synchronize()
+    dev = [e for e in prof.events()
+           if e.device_type == torch.autograd.DeviceType.CUDA]
+    if not dev:
+        return None, 0
+    hit = [e for e in dev if name is None or name in e.name]
+    return sum(e.time_range.elapsed_us() for e in hit) / 1e3, len(hit)
+
+
+def top_kernels(net, frame, label, card, n=8):
+    """One request in a profiler trace: device busy time, the idle share
+    of the device window, and the kernels that take the most time."""
+    import collections
+
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+
+    def request():
+        net.device_out_to_dets(*net.submit_detect_device(frame))
+    request()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        request()
+        torch.cuda.synchronize()
+    dev = [e for e in prof.events()
+           if e.device_type == torch.autograd.DeviceType.CUDA]
+    if not dev:
+        print(f"{label} request profile: no device events", flush=True)
+        return
+    busy = sum(e.time_range.elapsed_us() for e in dev) / 1e3
+    span = (max(e.time_range.end for e in dev)
+            - min(e.time_range.start for e in dev)) / 1e3
+    by = collections.Counter()
+    for e in dev:
+        by[e.name[:60]] += e.time_range.elapsed_us() / 1e3
+    top = "; ".join(f"{k} {v:.3f}" for k, v in by.most_common(n))
+    print(f"{label} request profile: {len(dev)} device events, busy "
+          f"{busy:.3f} ms of a {span:.3f} ms window (idle "
+          f"{100 * (1 - busy / span):.1f}%); top ms: {top} [{card}]",
+          flush=True)
+
+
+def region_bound(sub, x, ws, bs, out_shape):
+    """(least ms, "operations" or "bytes") of the region prefix kernel: its
+    useful FLOPs at the bf16 tensor-core peak, or its input, weights,
+    biases and bf16 output read or written once at the memory rate."""
+    flops = sum(2 * x.shape[0] * sub.h * 2 * sub.w2 * st.kh * st.kw
+                * sum(st.srcs_c) * st.n for st in sub.conv_steps)
+    nbytes = (x.numel() * 2 + sum(w.numel() * 2 for w in ws)
+              + sum(b.numel() * 4 for b in bs) + int(np.prod(out_shape)) * 2)
+    t_ops, t_bytes = flops / PEAK_BF16, nbytes / PEAK_BYTES
+    print(f"region prefix: {flops / 1e9:.2f} GFLOP, {nbytes / 1e6:.1f} MB: "
+          f"bound {1e3 * max(t_ops, t_bytes):.4f} ms", flush=True)
+    return 1e3 * max(t_ops, t_bytes), ("operations" if t_ops > t_bytes
+                                        else "bytes")
+
+
 def serve_rate(net, frame):
     """Throughput: whole requests, host clock around synchronised work,
     RATE_WINDOWS windows of RATE_REQUESTS requests after a warm-up.
@@ -299,7 +411,7 @@ def check_region(name, graph, batch, dtype, seed):
 def phase_kernels():
     import torch
 
-    from darknet_tpu import model_zoo
+    from darknet_tpu_torch import model_zoo
 
     checks = []
     with torch.backends.cudnn.flags(enabled=True, allow_tf32=False):
@@ -325,7 +437,7 @@ def kept(probs) -> set:
 def phase_serve(card):
     import torch
 
-    from darknet_tpu import model_zoo
+    from darknet_tpu_torch import model_zoo
     from darknet_tpu_torch import Network
     from darknet_tpu_torch.nn import params as paramlib
     from darknet_tpu_torch.ops import fused_region as fr
@@ -378,6 +490,10 @@ def phase_serve(card):
         p_ms2 = cuda_ms(lambda: fr.region_plain(
             sub, x, ws, bs, compute_dtype=torch.bfloat16))
         fwd_ms = cuda_ms(lambda: net._fwd(net.params, x), iters=5)
+        out_shape = kfr.region_call(sub, x, ws, bs,
+                                    compute_dtype=torch.bfloat16).shape
+    bound, bound_by = region_bound(sub, x, ws, bs, out_shape)
+    top_kernels(net, frames[0], "bf16", card)
     print(f"serving yolov4-{SERVE_PX} bf16 b={SERVE_BATCH}: {img_s:.2f} img/s "
           f"median of {RATE_WINDOWS} windows of {RATE_REQUESTS} requests "
           f"({', '.join(f'{r:.2f}' for r in rates)}; spread "
@@ -417,7 +533,8 @@ def phase_serve(card):
     require(kept(pa) == kept(pb) and box_err <= 1e-4,
             "f32 kernel path keeps what the plain path keeps")
     return {"launches": launches, "img_s": img_s, "ms": k_ms,
-            "plain_ms": p_ms, "f32_kept": len(kept(pa))}
+            "plain_ms": p_ms, "f32_kept": len(kept(pa)), "bound_ms": bound,
+            "bound_by": bound_by}
 
 
 def int8_operands(m, k, n, seed, unit):
@@ -436,6 +553,29 @@ def int8_operands(m, k, n, seed, unit):
                  for t, dt in ((a, np.int8), (b, np.int8),
                                (ws, np.float32), (bias, np.float32),
                                ([xs], np.float32)))
+
+
+def int8_conv_operands(b, h, c, n, size, stride, seed):
+    """Seeded conv operands on the card, darknet padding size // 2:
+    ((x_q, w_q, w_scale, bias, x_scale), geometry keywords)."""
+    import torch
+
+    from darknet_tpu_torch.ops.conv import darknet_conv_padding
+
+    rng = np.random.default_rng(seed)
+    pad = size // 2
+    o = (h + 2 * pad - size) // stride + 1
+    x_q = rng.integers(-127, 128, (b, h, h, c), dtype=np.int8)
+    w_q = rng.integers(-127, 128, (n, size * size * c), dtype=np.int8)
+    ws, bias = rng.uniform(1e-3, 1e-2, n), rng.normal(0, 1, n)
+    ops = tuple(torch.from_numpy(np.asarray(v, dt)).to(DEVICE)
+                for v, dt in ((x_q, np.int8), (w_q, np.int8),
+                              (ws, np.float32), (bias, np.float32),
+                              ([0.0039], np.float32)))
+    kw = {"size": size, "stride": (stride, stride), "out_hw": (o, o),
+          "padding": darknet_conv_padding(size, pad, 1, (h, h),
+                                          (stride, stride), (o, o))}
+    return ops, kw
 
 
 def phase_int8_kernel():
@@ -464,8 +604,25 @@ def phase_int8_kernel():
             checks.append(res)
     require(all(c["max_abs_out"] < 2 ** 24 for c in checks if c["unit"]),
             "unit-scale checks stay below 2^24")
+    for i, (name, b, h, c, n, size, stride) in enumerate(INT8_CONV):
+        ops, kw = int8_conv_operands(b, h, c, n, size, stride, seed=10 + i)
+        for dt in (torch.float32, torch.bfloat16):
+            for leaky in (False, True):
+                got = qm.int8_conv(*ops, out_dtype=dt, leaky=leaky, **kw)
+                want = qm.int8_conv_plain(*ops, out_dtype=dt, leaky=leaky,
+                                          **kw)
+                torch.cuda.synchronize()
+                res = {"name": name, "B": b, "H": h, "C": c, "N": n,
+                       "size": size, "stride": stride,
+                       "out": str(dt).split(".")[-1], "leaky": leaky,
+                       "shape": list(got.shape),
+                       "max_abs_err": float((got.float() - want.float())
+                                            .abs().max()),
+                       "equal": bool(torch.equal(got, want))}
+                print("int8_conv check", json.dumps(res), flush=True)
+                checks.append(res)
     bad = [c["name"] for c in checks if not c["equal"]]
-    require(not bad, f"int8 GEMM equals its plain version: {bad}")
+    require(not bad, f"int8 GEMM and conv equal their plain versions: {bad}")
     return checks
 
 
@@ -476,7 +633,7 @@ def phase_int8_serve(card, bf16_img_s):
 
     import torch
 
-    from darknet_tpu import model_zoo
+    from darknet_tpu_torch import model_zoo
     from darknet_tpu_torch import Network
     from darknet_tpu_torch.ops import conv as convmod
     from darknet_tpu_torch.ops import quant_matmul as qm
@@ -551,44 +708,109 @@ def phase_int8_serve(card, bf16_img_s):
             f"request, got {counts}")
     require(region_counts == [1, 2, 3], "one region launch per request")
 
-    # every quantized conv of one calibrated request: the kernel's f32
-    # pre-activation against the plain version on the same operands
-    records = []
-    orig = convmod.int8_matmul
+    # every quantized conv of one calibrated request: the kernel's output
+    # against the plain version on the same int8 operands, bitwise; the
+    # explicit im2col must not run on the card on the way
+    records, im2col_cuda = [], []
+    orig_conv, orig_im2col = convmod.int8_conv, qm.im2col_int8
 
-    def checked(a, b, ws, bias, xs, *, leaky=False):
-        out = orig(a, b, ws, bias, xs, leaky=leaky)
-        ref = qm.int8_matmul_plain(a, b, ws, bias, xs, leaky=leaky)
-        records.append({"ops": (a, b, ws, bias, xs), "leaky": leaky,
-                        "err": float((out - ref).abs().max()),
-                        "equal": bool(torch.equal(out, ref))})
+    def recorded(x_q, w_q, ws, bias, xs, **kw):
+        out = orig_conv(x_q, w_q, ws, bias, xs, **kw)
+        records.append({"ops": (x_q, w_q, ws, bias, xs), "kw": kw,
+                        "out": out})
         return out
 
-    convmod.int8_matmul = checked
+    def spy(x_q, *a, **k):
+        if x_q.is_cuda:
+            im2col_cuda.append(tuple(x_q.shape))
+        return orig_im2col(x_q, *a, **k)
+
+    convmod.int8_conv, qm.im2col_int8 = recorded, spy
     try:
         served(snet, frames[0])
     finally:
-        convmod.int8_matmul = orig
-    n_eq = sum(r["equal"] for r in records)
-    err = max(r["err"] for r in records)
+        convmod.int8_conv = orig_conv
+    try:
+        qm.launches = 0
+        served(snet, frames[1])
+        launches_req = qm.launches
+    finally:
+        qm.im2col_int8 = orig_im2col
+    require(not im2col_cuda,
+            f"no explicit im2col on the card, got {im2col_cuda[:3]}")
+    require(launches_req == INT8_CONVS, f"{INT8_CONVS} int8_conv launches a "
+            f"request, got {launches_req}")
+    n_eq, err = 0, 0.0
+    for r in records:
+        ref = qm.int8_conv_plain(*r["ops"], **r["kw"])
+        err = max(err, float((r["out"].float() - ref.float()).abs().max()))
+        n_eq += bool(torch.equal(r["out"], ref))
+        del r["out"]
     print(f"int8 per-conv check: {n_eq} of {len(records)} quantized convs "
-          f"bitwise equal to the plain version (max abs err {err})",
-          flush=True)
+          f"bitwise equal to the plain version (max abs err {err}); "
+          f"explicit im2col calls on the card: {len(im2col_cuda)}; "
+          f"int8_conv launches a request {launches_req}", flush=True)
     require(len(records) == INT8_CONVS and n_eq == INT8_CONVS,
             "every quantized conv bitwise equal to the plain version")
 
-    # the kernel's time over one request's launches against the plain
-    # version on the same operands, in turns
+    # the work of one request's 91 convs, and its least time on the card
+    macs = sum(r["ops"][0].shape[0] * r["kw"]["out_hw"][0]
+               * r["kw"]["out_hw"][1] * r["ops"][1].numel() for r in records)
+    nbytes = sum(r["ops"][0].numel() + r["ops"][1].numel()
+                 + 8 * r["ops"][1].shape[0]
+                 + r["ops"][0].shape[0] * r["kw"]["out_hw"][0]
+                 * r["kw"]["out_hw"][1] * r["ops"][1].shape[0]
+                 * torch.tensor([], dtype=r["kw"]["out_dtype"]).element_size()
+                 for r in records)
+    bound = max(2 * macs / PEAK_INT8, nbytes / PEAK_BYTES) * 1e3
+    bound_by = "operations" if 2 * macs / PEAK_INT8 > nbytes / PEAK_BYTES \
+        else "bytes"
+    print(f"int8 convs of one request: {macs / 1e9:.3f} GMAC, "
+          f"{nbytes / 1e9:.4f} GB read once and written once: bound "
+          f"{bound:.4f} ms by {bound_by} (1,979 TOP/s int8, 3.35 TB/s)",
+          flush=True)
+
+    # times: the kernel's own durations in a profiler trace of one request;
+    # CUDA-graph replays of the 91 launches (device time, no host); CUDA
+    # events per conv (host launch included); the plain version; and
+    # torch._int_mm (int32 out) on the same operands with A as the
+    # explicit im2col (built here, outside the request)
+    def kernels():
+        for r in records:
+            qm.int8_conv(*r["ops"], **r["kw"])
+
+    lib_ops = [(qm.im2col_int8(r["ops"][0], r["kw"]["size"],
+                               r["kw"]["size"], r["kw"]["stride"],
+                               r["kw"]["padding"], r["kw"]["out_hw"]),
+                r["ops"][1].t()) for r in records]
+
+    def library():
+        for a, b in lib_ops:
+            torch._int_mm(a, b)
+
     def total(fn):
-        return sum(cuda_ms(lambda r=r: fn(*r["ops"], leaky=r["leaky"]),
+        return sum(cuda_ms(lambda r=r: fn(*r["ops"], **r["kw"]),
                            iters=5, warmup=1) for r in records)
     with torch.inference_mode():
-        k_ms, p_ms = total(qm.int8_matmul), total(qm.int8_matmul_plain)
-        p_ms2, k_ms2 = total(qm.int8_matmul_plain), total(qm.int8_matmul)
-    del records
-    print(f"int8 GEMM over one request's {INT8_CONVS} launches (b="
-          f"{SERVE_BATCH}): kernel {k_ms:.3f} / {k_ms2:.3f} ms, plain "
-          f"{p_ms:.3f} / {p_ms2:.3f} ms [{card}]", flush=True)
+        prof_req, n_req = profiled_ms(lambda: served(snet, frames[0]),
+                                      "int8_gemm_kernel")
+        prof_lib, n_lib = profiled_ms(library)
+        g_k, g_l = graph_ms(kernels), graph_ms(library)
+        g_l2, g_k2 = graph_ms(library), graph_ms(kernels)
+        k_ms, p_ms = total(qm.int8_conv), total(qm.int8_conv_plain)
+        p_ms2, k_ms2 = total(qm.int8_conv_plain), total(qm.int8_conv)
+    del records, lib_ops
+    print(f"int8_conv over one request's {INT8_CONVS} launches (b="
+          f"{SERVE_BATCH}), device time: profiler {prof_req} ms "
+          f"({n_req} kernels), CUDA graph {g_k:.3f} / {g_k2:.3f} ms; "
+          f"torch._int_mm on the same operands: profiler {prof_lib} ms "
+          f"({n_lib} kernels), CUDA graph {g_l:.3f} / {g_l2:.3f} ms; bound "
+          f"{bound:.4f} ms [{card}]", flush=True)
+    print(f"int8_conv over one request's {INT8_CONVS} launches, CUDA events "
+          f"per conv (host launch included): kernel {k_ms:.3f} / "
+          f"{k_ms2:.3f} ms, plain {p_ms:.3f} / {p_ms2:.3f} ms [{card}]",
+          flush=True)
+    top_kernels(snet, frames[0], "int8", card)
 
     img_s, spread, rates = serve_rate(snet, frames[0])
     print(f"serving yolov4-{SERVE_PX} int8 (calibrated, bf16) b="
@@ -596,8 +818,11 @@ def phase_int8_serve(card, bf16_img_s):
           f"windows of {RATE_REQUESTS} requests ({', '.join(f'{r:.2f}' for r in rates)}; "
           f"spread {100 * spread:.2f}%) beside bf16 {bf16_img_s:.2f} img/s "
           f"[{card}]", flush=True)
-    return {"launches": launches, "img_s": img_s, "ms": k_ms,
-            "plain_ms": p_ms, "max_abs_err": err}
+    return {"launches": launches, "img_s": img_s,
+            "ms": prof_req if prof_req is not None else g_k,
+            "plain_ms": p_ms, "max_abs_err": err,
+            "library_ms": prof_lib if prof_lib is not None else g_l,
+            "bound_ms": bound, "bound_by": bound_by}
 
 
 def main() -> int:
@@ -635,13 +860,17 @@ def main() -> int:
         "replaces": "darknet_tpu/ops/pallas/fused_region.py:759",
         "launches": serve["launches"],
         "max_abs_err": main_check["max_abs_err"],
-        "ms": serve["ms"], "plain_ms": serve["plain_ms"]}, {
+        "ms": serve["ms"], "plain_ms": serve["plain_ms"],
+        "bound_ms": serve["bound_ms"], "bound_by": serve["bound_by"],
+        "library_ms": None}, {
         "name": "int8_gemm", "route": "cuda",
         "source": "darknet_tpu_torch/csrc/int8_gemm.cu",
         "replaces": "darknet_tpu/ops/pallas/quant_matmul.py:91",
         "launches": int8["launches"],
         "max_abs_err": int8["max_abs_err"],
-        "ms": int8["ms"], "plain_ms": int8["plain_ms"]}]}), flush=True)
+        "ms": int8["ms"], "plain_ms": int8["plain_ms"],
+        "bound_ms": int8["bound_ms"], "bound_by": int8["bound_by"],
+        "library_ms": int8["library_ms"]}]}), flush=True)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),
         "count": torch.cuda.device_count()}}), flush=True)

@@ -58,17 +58,18 @@ def region_runner(plan, *, compute_dtype=torch.float32,
 
     def weights(params):
         # pack_w0/pack_w1 and the casts run once per params list (the
-        # entry holds the list, so its id stays unique)
+        # entry holds the list, so its id stays unique); the plain steps
+        # read bf16 weights as f32 copies (`ops/conv.conv2d_raw`)
         if id(params) not in cache:
             cache.clear()
-            cache[id(params)] = (params,
-                                 fr.step_weights(plan.steps, params, cd))
-        return cache[id(params)][1]
+            ws, bs = fr.step_weights(plan.steps, params, cd)
+            cache[id(params)] = (params, ws, bs, [w.float() for w in ws])
+        return cache[id(params)][1:]
 
     if pre is None:
         def run_plain(params, x):
-            ws, bs = weights(params)
-            return fr.region_plain(plan, x, ws, bs, compute_dtype=cd,
+            _ws, bs, ws32 = weights(params)
+            return fr.region_plain(plan, x, ws32, bs, compute_dtype=cd,
                                    params=params)
         return run_plain
 
@@ -76,11 +77,12 @@ def region_runner(plan, *, compute_dtype=torch.float32,
     rest = plan.steps[k:]
 
     def run_hybrid(params, x):
-        ws, bs = weights(params)
+        ws, bs, ws32 = weights(params)
         n_pre = len(sub.conv_steps)
         y = region_call(sub, x, ws[:n_pre], bs[:n_pre], compute_dtype=cd)
         slots = {sub.out_slot: y}
-        fr.run_steps_plain(rest, slots, ws[n_pre:], bs[n_pre:], cd, params)
+        fr.run_steps_plain(rest, slots, ws32[n_pre:], bs[n_pre:], cd,
+                           params)
         return slots[plan.out_slot]
 
     return run_hybrid

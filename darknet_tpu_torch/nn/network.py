@@ -5,9 +5,11 @@
     dets = net.detect(image)                              # host NMS path
     dets = net.device_out_to_dets(*net.submit_detect_device(frames))
 
-`from_cfg` parses the cfg with the shared graph builder, loads `.weights`
-through the shared `weights/io` (or draws the numpy init from `seed`),
-folds BN, and moves the params to `device`.  The serving program runs on
+`from_cfg` parses the cfg with the port's graph builder, loads `.weights`
+through the port's `weights/io` (or draws the numpy init from `seed`),
+folds BN, and moves the params to `device`: the CUDA card unless the
+caller names the CPU (without a card, a call that does not name the CPU
+raises).  The serving program runs on
 `device`: forward, native-order decode, objectness threshold, a stable
 top-k, probabilities, and device NMS; only the top-k candidates per image
 leave the device.
@@ -20,12 +22,12 @@ import dataclasses
 import numpy as np
 import torch
 
-from darknet_tpu.graph.builder import Graph, build_graph
-from darknet_tpu.weights import io as wio
+from darknet_tpu_torch.graph.builder import Graph, build_graph
 from darknet_tpu_torch.nn import params as paramlib
 from darknet_tpu_torch.nn.emit import make_forward
 from darknet_tpu_torch.ops import nms as nmslib
 from darknet_tpu_torch.ops import yolo as yoloops
+from darknet_tpu_torch.weights import io as wio
 
 
 @dataclasses.dataclass
@@ -48,12 +50,12 @@ class Detection:
 
 class Network:
     def __init__(self, graph: Graph, params: list, *, compute_dtype=None,
-                 device="cpu", seen: int = 0, fuse_regions="hybrid"):
+                 device="cuda", seen: int = 0, fuse_regions="hybrid"):
         self.graph = graph
         self.net = graph.net
         self.params = params
         self.compute_dtype = compute_dtype
-        self.device = torch.device(device)
+        self.device = paramlib.resolve_device(device)
         self.seen = seen
         self._calib_absmax: dict | None = None
         self._fwd = make_forward(graph, compute_dtype=compute_dtype,
@@ -67,12 +69,13 @@ class Network:
 
     @classmethod
     def from_cfg(cls, cfg, weights=None, *, seed: int = 0,
-                 compute_dtype=None, device="cpu",
+                 compute_dtype=None, device="cuda",
                  fuse_regions="hybrid", int8: bool = False) -> "Network":
         """LoadNetwork (parser.cpp:1852-1876) for inference: parse, load
         or init, fold BN, move to `device` in the compute dtype.  int8=True
         also quantizes the eligible convs (`nn/params.quantize_conv_params`)
         for the int8 path (`ops/conv.conv_block_int8`)."""
+        device = paramlib.resolve_device(device)
         graph = build_graph(cfg)
         seen = 0
         init = paramlib.init_params(graph, seed=seed)

@@ -188,19 +188,36 @@ def x_scale_to_torch(params: list, device) -> list:
     return out
 
 
-def params_to_torch(graph, np_params: list, device="cpu",
-                    dtype=torch.float32) -> list:
-    """Numpy params (BN folded) -> the port's torch params on `device`.
+def resolve_device(device) -> torch.device:
+    """`device` as a torch.device; a CUDA device without a card raises
+    (the port's entry points default to the card and never fall back to
+    the CPU unless the caller names it)."""
+    device = torch.device(device)
+    if device.type == "cuda" and not torch.cuda.is_available():
+        raise RuntimeError(
+            "no CUDA card: the port runs on the card unless the caller "
+            "passes device=\"cpu\"")
+    return device
 
-    Conv weights turn from HWIO into OIHW in `dtype` (the compute dtype:
-    the convs read them as they are), stored channels_last as cuDNN
-    prefers; biases stay float32.  A quantized conv also carries "w_q"
+
+def params_to_torch(graph, np_params: list, device="cuda",
+                    dtype=torch.float32) -> list:
+    """Numpy params (BN folded) -> the port's torch params on `device`
+    (the card unless the caller names the CPU).
+
+    Conv weights turn from HWIO into OIHW, rounded to `dtype` (the compute
+    dtype) and stored channels_last as cuDNN prefers; biases stay float32.
+    A bf16 network keeps its rounded weights in float32, once: the plain
+    bf16 conv sums their exact products in f32 (`ops/conv.conv2d_raw`),
+    and the region kernel's bf16 copy (`ops/fused_region.step_weights`)
+    is exact.  A quantized conv also carries "w_q"
     as int8 (n, kh*kw*c), K ordered (kh, kw, c) (HWIO `reshape(-1, n).T`:
     both operands of the int8 GEMM K-contiguous), "w_scale" (n,) f32 and,
     when calibrated, "x_scale" (1,) f32; the float "w" stays (a region
     step without "x_scale" runs in floating point).  Only inference conv
     params are carried; layers the port does not run yet keep an empty
     dict."""
+    device = resolve_device(device)
     out = []
     for l, p in zip(graph.layers, np_params):
         q = {}
@@ -210,8 +227,10 @@ def params_to_torch(graph, np_params: list, device="cpu",
                     f"layer {l.index}: fold BN before params_to_torch")
             w = torch.from_numpy(np.ascontiguousarray(
                 np.transpose(np.asarray(p["w"], np.float32), (3, 2, 0, 1))))
-            q["w"] = w.to(device=device, dtype=dtype).contiguous(
-                memory_format=torch.channels_last)
+            w = w.to(device=device, dtype=dtype)
+            if dtype == torch.bfloat16:
+                w = w.float()
+            q["w"] = w.contiguous(memory_format=torch.channels_last)
             q["b"] = torch.from_numpy(
                 np.asarray(p["b"], np.float32).copy()).to(device)
             if "w_q" in p:

@@ -12,14 +12,16 @@ Numerics:
 * BN is folded into w/b beforehand (`nn/params.fuse_conv_batchnorm`);
 * conv, then the bias added in f32 and the sum cast to the compute dtype
   once, then the activation (`ops/conv.py:200-210` of the reference).  In
-  f32 this is the reference's order.  In bf16, cuDNN has already rounded
-  its f32 accumulator to bf16 before the bias is added, so the sum rounds
-  twice where the reference (and the region kernel) round once: single
-  elements may differ by a bf16 ulp.
+  bf16 the conv runs on f32 copies of the bf16-rounded input and weights
+  with TF32 on: a bf16 value is exact in TF32, so the tensor cores form
+  exact products and sum them in f32; the f32 bias is added and the sum
+  rounds to bf16 once, as the reference's `preferred_element_type` conv
+  and the region kernel do.
 * int8 (`conv_block_int8`): the int32 sum is exact, and the f32
   epilogue is the reference's, so given the same quantized input the
-  pre-activation equals the reference's to the bit; the cast and the
-  activation follow in the reference's order.
+  pre-activation equals the reference's to the bit; the cast (fused into
+  the kernel's epilogue on the card) and the activation follow in the
+  reference's order.
 """
 
 from __future__ import annotations
@@ -30,7 +32,7 @@ import torch
 import torch.nn.functional as F
 
 from darknet_tpu_torch.ops.activations import apply_activation
-from darknet_tpu_torch.ops.quant_matmul import (input_scale, int8_matmul,
+from darknet_tpu_torch.ops.quant_matmul import (input_scale, int8_conv,
                                                 quantize_int8)
 
 
@@ -48,9 +50,13 @@ def darknet_conv_padding(size: int, pad: int, dilation: int,
 
 
 def precise(dtype):
-    """Context that keeps an f32 conv in full float32 on cuDNN."""
+    """Context for a conv that serves `dtype`: full float32 on cuDNN for
+    the f32 path; TF32 for the bf16 path, whose f32 operands hold bf16
+    values (exact in TF32)."""
     if dtype == torch.float32:
         return torch.backends.cudnn.flags(enabled=True, allow_tf32=False)
+    if dtype == torch.bfloat16:
+        return torch.backends.cudnn.flags(enabled=True, allow_tf32=True)
     return contextlib.nullcontext()
 
 
@@ -73,50 +79,44 @@ def _nchw_padding(x, padding, k, stride, dilation):
 def conv2d_raw(x, w, b=None, *, stride=(1, 1), padding=((0, 0), (0, 0)),
                dilation=(1, 1), groups=1, compute_dtype=None):
     """NHWC x OIHW -> NHWC.  compute_dtype None runs full f32 (the parity
-    path); bf16 runs the tensor-core path with f32 accumulation and a
-    bf16 result.  `b` (optional) is added in f32 and the sum rounded once
-    to the compute dtype."""
+    path).  bf16 rounds x to bf16 and sums the exact products of bf16
+    values in f32 (TF32 tensor cores over f32 copies); `w` must hold bf16
+    values already: a bf16 tensor, or the f32 copy that
+    `nn/params.params_to_torch` keeps for a bf16 network.  `b` (optional)
+    is added to the f32 sum, which then rounds once to the compute
+    dtype."""
     cd = compute_dtype or torch.float32
-    xn = x.to(cd).permute(0, 3, 1, 2)
+    if cd == torch.bfloat16:
+        xn, wn = x.to(cd).float(), w.float()
+    else:
+        xn, wn = x.to(cd), w.to(cd)
+    xn = xn.permute(0, 3, 1, 2)
     xn, pad = _nchw_padding(xn, padding, w.shape[2:], stride, dilation[0])
     with precise(cd):
-        y = F.conv2d(xn, w.to(cd), None, stride=stride, padding=pad,
+        y = F.conv2d(xn, wn, None, stride=stride, padding=pad,
                      dilation=dilation, groups=groups)
     if b is not None:
-        # in place on a bf16 y with an f32 b: computed in f32, cast once
         y.add_(b.float().view(-1, 1, 1))
-    return y.permute(0, 2, 3, 1)
+    return y.to(cd).permute(0, 2, 3, 1)
 
 
-def im2col_int8(x_q, kh, kw, stride, padding, out_hw):
-    """(B,H,W,C) int8 -> (B*OH*OW, kh*kw*C) int8, K ordered (kh, kw, c)
-    like the stored "w_q" (`nn/params.params_to_torch`).  Zero padding is
-    exact: a zero input quantizes to 0.  A 1x1 stride-1 conv is a view."""
-    (lo_h, hi_h), (lo_w, hi_w) = padding
-    b, h, w, c = x_q.shape
-    (oh, ow), (sy, sx) = out_hw, stride
-    if (kh, kw, sy, sx, lo_h, lo_w, oh, ow) == (1, 1, 1, 1, 0, 0, h, w):
-        return x_q.reshape(-1, c)
-    xp = F.pad(x_q, (0, 0, lo_w, hi_w, lo_h, hi_h))
-    cols = [xp[:, ky:ky + sy * (oh - 1) + 1:sy, kx:kx + sx * (ow - 1) + 1:sx]
-            for ky in range(kh) for kx in range(kw)]
-    return torch.stack(cols, dim=3).reshape(b * oh * ow, kh * kw * c)
-
-
-def conv2d_int8(x, p, *, size, stride, padding, out_hw):
-    """The int8 product of `conv_block_int8`: NHWC x -> NHWC float32
-    `acc * (x_scale * w_scale) + b`, before the cast and the activation.
+def conv2d_int8(x, p, *, size, stride, padding, out_hw,
+                out_dtype=torch.float32):
+    """The int8 product of `conv_block_int8`: NHWC x -> NHWC out_dtype
+    `acc * (x_scale * w_scale) + b` (computed in f32, rounded once),
+    before the activation.
 
     The scale is static (p["x_scale"], calibrated) or dynamic: max|x|
     over the whole batch, kept on the device.  x quantizes from float32
-    with a true division; the int8 GEMM (`int8_matmul`, the CUDA kernel
-    for a CUDA tensor) takes the im2col and p["w_q"] (n, K)."""
+    with a true division; `int8_conv` (the implicit-GEMM CUDA kernel for
+    a CUDA tensor, which reads x_q in place) takes it and p["w_q"]
+    (n, K)."""
     xf = x.float()
     x_scale = p["x_scale"] if "x_scale" in p else input_scale(xf)
     x_q = quantize_int8(xf, x_scale)
-    a = im2col_int8(x_q, size, size, stride, padding, out_hw)
-    y = int8_matmul(a, p["w_q"], p["w_scale"], p["b"], x_scale)
-    return y.reshape(x.shape[0], out_hw[0], out_hw[1], -1)
+    return int8_conv(x_q, p["w_q"], p["w_scale"], p["b"], x_scale, size=size,
+                     stride=stride, padding=padding, out_hw=out_hw,
+                     out_dtype=out_dtype)
 
 
 def conv_block_int8(x, p, l, *, compute_dtype=None):
@@ -133,9 +133,9 @@ def conv_block_int8(x, p, l, *, compute_dtype=None):
         l.size, l.pad, l.dilation, (l.h, l.w), (l.stride_y, l.stride_x),
         (l.out_h, l.out_w))
     y = conv2d_int8(x, p, size=l.size, stride=(l.stride_y, l.stride_x),
-                    padding=padding, out_hw=(l.out_h, l.out_w))
-    return apply_activation(y.to(compute_dtype or torch.float32),
-                            l.activation)
+                    padding=padding, out_hw=(l.out_h, l.out_w),
+                    out_dtype=compute_dtype or torch.float32)
+    return apply_activation(y, l.activation)
 
 
 def conv_block(x, p, l, *, compute_dtype=None):

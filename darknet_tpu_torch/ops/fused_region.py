@@ -443,7 +443,8 @@ def step_weights(steps, params, dtype):
 def run_steps_plain(steps, slots: dict, weights, biases, compute_dtype,
                     params=None):
     """Execute `steps` on unpacked NHWC tensors, updating `slots` in place.
-    weights/biases: one per ConvStep, in step order (`step_weights`).
+    weights/biases: one per ConvStep, in step order (`step_weights`;
+    in bf16 the weights may be their f32 copies, see `ops/conv.conv2d_raw`).
 
     With `params` (the layer list), a conv step whose layer carries a
     calibrated "x_scale" and its "w_scale" runs the int8 conv
@@ -474,7 +475,7 @@ def run_steps_plain(steps, slots: dict, weights, biases, compute_dtype,
                       (src.shape[2] - 1) // step.sx + 1)
             y = conv2d_int8(src, p_l, size=step.kh,
                             stride=(step.sy, step.sx), padding=pad,
-                            out_hw=out_hw).to(cd)
+                            out_hw=out_hw, out_dtype=cd)
         else:
             w = weights[wi].permute(3, 2, 0, 1)    # HWIO -> OIHW
             y = conv2d_raw(src, w, biases[wi], stride=(step.sy, step.sx),

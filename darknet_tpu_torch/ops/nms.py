@@ -50,16 +50,9 @@ def _np_diou(a, b, beta):
 
 
 def nms_numpy(boxes: np.ndarray, probs: np.ndarray, thresh: float,
-              kind: str = "greedynms", beta: float = 0.6,
-              allow_native: bool = True) -> np.ndarray:
-    """Exact NmsSort: boxes (N,4), probs (N,C) -> suppressed probs (N,C).
-    Uses the shared native C++ kernel of darknet_tpu when it is built."""
-    if allow_native:
-        from darknet_tpu.utils.native import nms_native
-
-        out = nms_native(boxes, probs, thresh, kind=kind, beta=beta)
-        if out is not None:
-            return out
+              kind: str = "greedynms", beta: float = 0.6) -> np.ndarray:
+    """Exact NmsSort: boxes (N,4), probs (N,C) -> suppressed probs (N,C),
+    in numpy (the host path; serving runs `nms_device`)."""
     boxes = np.asarray(boxes, dtype=np.float32)
     probs = np.asarray(probs, dtype=np.float32).copy()
     n, c = probs.shape

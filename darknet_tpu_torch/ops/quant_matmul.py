@@ -3,6 +3,11 @@
     int8_matmul(a_q, b_q, w_scales, bias, x_scale, leaky=False)
         (M, K) int8 . (N, K) int8^T -> (M, N) float32
         = float(acc) * (x_scale * w_scales[n]) + bias[n], then leaky 0.1
+    int8_conv(x_q, w_q, w_scale, bias, x_scale, *, size, stride, padding,
+              out_hw, out_dtype, leaky)
+        the same product over the implicit im2col of an NHWC int8 input
+        (K ordered (kh, kw, c)), -> (B, OH, OW, N) in out_dtype (float32,
+        or bf16: the f32 result rounded once), leaky after the cast
 
 The weight operand is (N, K), K-contiguous like the activations (the
 JAX function takes (K, N)); conv weights are stored that way once
@@ -10,9 +15,11 @@ JAX function takes (K, N)); conv weights are stored that way once
 on the operands' device (the kernel reads it through a pointer, so no
 host sync) or a Python float.
 
-A CPU tensor goes to `int8_matmul_plain`; a CUDA tensor launches the
-CUDA kernel (`csrc/int8_gemm.cu`) or raises.  `launches` counts the
-kernel launches.
+A CPU tensor goes to the plain version (`int8_matmul_plain`,
+`int8_conv_plain`: the explicit `im2col_int8`, then the GEMM); a CUDA
+tensor launches the CUDA kernel (`csrc/int8_gemm.cu`, which reads the
+NHWC input in place) or raises.  `launches` counts the kernel launches
+of both.
 
 The plain version sums in float64, which is exact (|acc| <= K * 127^2 is
 far below 2^53) on the CPU and on the card alike (torch has no integer
@@ -25,6 +32,7 @@ from __future__ import annotations
 
 import numpy as np
 import torch
+import torch.nn.functional as F
 
 launches = 0
 
@@ -82,11 +90,30 @@ def int8_matmul_plain(a_q, b_q, w_scales, bias, x_scale, *,
     return y
 
 
+def _aligned(t):
+    """t contiguous at a 16-byte aligned address (a copy if it is not)."""
+    t = t.contiguous()
+    return t if t.data_ptr() % 16 == 0 else t.clone()
+
+
+def _check_epilogue(name, dev, n, w_scales, bias, x_scale):
+    for what, t, shape in (("w_scales", w_scales, (n,)), ("bias", bias, (n,)),
+                           ("x_scale", x_scale, (1,))):
+        if t.device != dev or t.dtype != torch.float32:
+            raise ValueError(f"{name}: {what} must be float32 on {dev}, "
+                             f"got {t.dtype} on {t.device}")
+        if not t.is_contiguous() or tuple(t.shape) != shape:
+            raise ValueError(f"{name}: {what} must be contiguous of shape "
+                             f"{shape}, got {tuple(t.shape)}")
+
+
 def int8_matmul(a_q, b_q, w_scales, bias, x_scale, *, leaky: bool = False):
     """(M, K) int8 . (N, K) int8^T -> (M, N) f32 with the dequant, bias
     and optional leaky epilogue: the plain version for a CPU tensor, the
     CUDA kernel for a CUDA tensor (operands checked, output allocated
-    here, launched on the current stream, counted in `launches`)."""
+    here, launched on the current stream, counted in `launches`).  A K
+    that is not a multiple of 16 is zero-padded (exact) and a misaligned
+    operand copied, as the kernel's TMA loads need."""
     global launches
     if a_q.device.type == "cpu":
         return int8_matmul_plain(a_q, b_q, w_scales, bias, x_scale,
@@ -96,25 +123,106 @@ def int8_matmul(a_q, b_q, w_scales, bias, x_scale, *, leaky: bool = False):
     if a_q.dim() != 2 or b_q.dim() != 2 or a_q.shape[1] != b_q.shape[1]:
         raise ValueError(f"int8_matmul takes (M, K) and (N, K), got "
                          f"{tuple(a_q.shape)} and {tuple(b_q.shape)}")
+    for name, t in (("a_q", a_q), ("b_q", b_q)):
+        if t.device != a_q.device or t.dtype != torch.int8:
+            raise ValueError(f"int8_matmul: {name} must be int8 on "
+                             f"{a_q.device}, got {t.dtype} on {t.device}")
     n = b_q.shape[0]
     x_scale = _f32(x_scale, a_q.device).reshape(-1)
-    for name, t, dt, shape in (("a_q", a_q, torch.int8, None),
-                               ("b_q", b_q, torch.int8, None),
-                               ("w_scales", w_scales, torch.float32, (n,)),
-                               ("bias", bias, torch.float32, (n,)),
-                               ("x_scale", x_scale, torch.float32, (1,))):
-        if t.device != a_q.device or t.dtype != dt:
-            raise ValueError(f"int8_matmul: {name} must be {dt} on "
-                             f"{a_q.device}, got {t.dtype} on {t.device}")
-        if not t.is_contiguous() or (shape and tuple(t.shape) != shape):
-            raise ValueError(f"int8_matmul: {name} must be contiguous"
-                             f"{'' if not shape else f' of shape {shape}'}"
-                             f", got {tuple(t.shape)}")
+    _check_epilogue("int8_matmul", a_q.device, n, w_scales, bias, x_scale)
     from darknet_tpu_torch.ops.cuda import int8_gemm
 
+    k_pad = -a_q.shape[1] % 16
+    if k_pad:
+        a_q, b_q = F.pad(a_q, (0, k_pad)), F.pad(b_q, (0, k_pad))
     out = torch.empty((a_q.shape[0], n), dtype=torch.float32,
                       device=a_q.device)
-    int8_gemm.launch(a_q, b_q, w_scales, bias, x_scale, out, leaky)
+    int8_gemm.launch(_aligned(a_q), _aligned(b_q), w_scales, bias, x_scale,
+                     out, leaky)
+    launches += 1
+    return out
+
+
+def im2col_int8(x_q, kh, kw, stride, padding, out_hw):
+    """(B,H,W,C) int8 -> (B*OH*OW, kh*kw*C) int8, K ordered (kh, kw, c)
+    like the stored "w_q" (`nn/params.params_to_torch`).  Zero padding is
+    exact: a zero input quantizes to 0.  A 1x1 stride-1 conv is a view.
+    The plain version's operand: the kernel reads x_q in place."""
+    (lo_h, hi_h), (lo_w, hi_w) = padding
+    b, h, w, c = x_q.shape
+    (oh, ow), (sy, sx) = out_hw, stride
+    if (kh, kw, sy, sx, lo_h, lo_w, oh, ow) == (1, 1, 1, 1, 0, 0, h, w):
+        return x_q.reshape(-1, c)
+    xp = F.pad(x_q, (0, 0, lo_w, hi_w, lo_h, hi_h))
+    cols = [xp[:, ky:ky + sy * (oh - 1) + 1:sy, kx:kx + sx * (ow - 1) + 1:sx]
+            for ky in range(kh) for kx in range(kw)]
+    return torch.stack(cols, dim=3).reshape(b * oh * ow, kh * kw * c)
+
+
+def int8_conv_plain(x_q, w_q, w_scale, bias, x_scale, *, size, stride,
+                    padding, out_hw, out_dtype=torch.float32,
+                    leaky: bool = False):
+    """The plain version of `int8_conv`, on any device: the explicit
+    im2col and `int8_matmul_plain`, the cast, then leaky."""
+    a = im2col_int8(x_q, size, size, stride, padding, out_hw)
+    y = int8_matmul_plain(a, w_q, w_scale, bias, x_scale).to(out_dtype)
+    if leaky:
+        y = torch.where(y > 0, y, 0.1 * y)
+    return y.reshape(x_q.shape[0], out_hw[0], out_hw[1], -1)
+
+
+def pad_channels(x_q, w_q, size, multiple: int = 128):
+    """x_q (B, H, W, C) and w_q (N, size*size*C) with C zero-padded to a
+    multiple of `multiple`, in x_q and in each tap of w_q: the kernel reads
+    128 channels a K step.  Exact: the padded products are 0."""
+    c, n = x_q.shape[-1], w_q.shape[0]
+    c_pad = -c % multiple
+    if not c_pad:
+        return x_q, w_q
+    return (F.pad(x_q, (0, c_pad)),
+            F.pad(w_q.reshape(n, size * size, c), (0, c_pad)).reshape(n, -1))
+
+
+def int8_conv(x_q, w_q, w_scale, bias, x_scale, *, size, stride, padding,
+              out_hw, out_dtype=torch.float32, leaky: bool = False):
+    """int8 conv: x_q (B, H, W, C) NHWC int8 and w_q (N, size*size*C) int8
+    ((kh, kw, c) order) -> (B, OH, OW, N) in out_dtype (float32 or
+    bfloat16) = epilogue of the exact int32 sums, cast, then leaky.
+    padding is darknet's ((lo, hi), (lo, hi)).  The plain version for a
+    CPU tensor; for a CUDA tensor the implicit-GEMM kernel, which reads
+    x_q in place (counted in `launches`).  A C that is not a multiple of
+    128 is zero-padded (`pad_channels`)."""
+    global launches
+    if x_q.device.type == "cpu":
+        return int8_conv_plain(x_q, w_q, w_scale, bias, x_scale, size=size,
+                               stride=stride, padding=padding, out_hw=out_hw,
+                               out_dtype=out_dtype, leaky=leaky)
+    if x_q.device.type != "cuda":
+        raise ValueError(f"int8_conv: no kernel for device {x_q.device}")
+    if out_dtype not in (torch.float32, torch.bfloat16):
+        raise ValueError(f"int8_conv writes float32 or bfloat16, not "
+                         f"{out_dtype}")
+    b, h, w, c = x_q.shape
+    n = w_q.shape[0]
+    for name, t in (("x_q", x_q), ("w_q", w_q)):
+        if t.device != x_q.device or t.dtype != torch.int8:
+            raise ValueError(f"int8_conv: {name} must be int8 on "
+                             f"{x_q.device}, got {t.dtype} on {t.device}")
+    if x_q.dim() != 4 or w_q.dim() != 2 or w_q.shape[1] != size * size * c:
+        raise ValueError(f"int8_conv takes (B, H, W, C) and (N, {size}*"
+                         f"{size}*C), got {tuple(x_q.shape)} and "
+                         f"{tuple(w_q.shape)}")
+    x_scale = _f32(x_scale, x_q.device).reshape(-1)
+    _check_epilogue("int8_conv", x_q.device, n, w_scale, bias, x_scale)
+    from darknet_tpu_torch.ops.cuda import int8_gemm
+
+    x_q, w_q = pad_channels(x_q, w_q, size)
+    out = torch.empty((b, out_hw[0], out_hw[1], n), dtype=out_dtype,
+                      device=x_q.device)
+    int8_gemm.launch_conv(_aligned(x_q), _aligned(w_q), w_scale, bias,
+                          x_scale, out, size=size, stride=stride,
+                          pad_lo=(padding[0][0], padding[1][0]),
+                          out_hw=out_hw, leaky=leaky)
     launches += 1
     return out
 

@@ -192,7 +192,7 @@ def test_params_to_torch_int8_layout(yolo):
     g, npar = yolo
     qp = tparams.quantize_conv_params(g, npar)
     tp = tparams.params_to_torch(g, tparams.apply_conv_input_scales(
-        qp, {23: 2.5}))
+        qp, {23: 2.5}), "cpu")
     w_q = qp[23]["w_q"]
     assert tp[23]["w_q"].dtype == torch.int8
     assert tp[23]["w_q"].is_contiguous()
@@ -237,7 +237,7 @@ def test_conv_block_int8_matches(convs, li, static):
     p = dict(qp[li])
     if static:
         p["x_scale"] = np.float32(1.3 * np.abs(x).max() / 127.0)
-    tp = tparams.params_to_torch(g, [{}] * li + [p])[li]
+    tp = tparams.params_to_torch(g, [{}] * li + [p], "cpu")[li]
 
     # the quantized input and the int32 accumulator
     xs = p["x_scale"] if static else jqm.quantize_activations_int8(
@@ -251,8 +251,8 @@ def test_conv_block_int8_matches(convs, li, static):
     pad = tconv.darknet_conv_padding(
         l.size, l.pad, l.dilation, (l.h, l.w), (l.stride_y, l.stride_x),
         (l.out_h, l.out_w))
-    cols = tconv.im2col_int8(x_q, l.size, l.size, (l.stride_y, l.stride_x),
-                             pad, (l.out_h, l.out_w))
+    cols = tqm.im2col_int8(x_q, l.size, l.size, (l.stride_y, l.stride_x),
+                           pad, (l.out_h, l.out_w))
     acc = (cols.long() @ tp["w_q"].long().T).reshape(jacc.shape)
     np.testing.assert_array_equal(acc.numpy(), jacc)
 
@@ -291,7 +291,7 @@ def test_calibration_matches_jax(yolo, quantized, rtol):
         npar = tparams.quantize_conv_params(g, npar)
     frames = [_image(seed=8), _image(seed=9)]
     got = tparams.calibrate_conv_input_scales(
-        g, tparams.params_to_torch(g, npar), frames)
+        g, tparams.params_to_torch(g, npar, "cpu"), frames)
     want = jparams.calibrate_conv_input_scales(g, npar, frames)
     assert got.keys() == want.keys()
     assert len(got) == sum(l.kind == "convolutional" for l in g.layers)
@@ -311,7 +311,8 @@ def _nets(path):
     with warnings.catch_warnings():
         warnings.simplefilter("ignore")
         return (jnetwork.Network.from_cfg(CFG, weights=path, int8=True),
-                Network.from_cfg(CFG, weights=path, int8=True))
+                Network.from_cfg(CFG, weights=path, int8=True,
+                                 device="cpu"))
 
 
 @pytest.fixture(scope="module", params=["dynamic", "calibrated"])
@@ -388,7 +389,7 @@ def test_region_int8_step_matches_jax(yolo):
               for s, v in srcs.items()}
     jfr._run_steps_xla(qp, jslots, [jstep], jnp.float32)
     want = np.asarray(jslots[23]).reshape(2, 16, 16, 128)
-    tp = tparams.params_to_torch(g, qp)
+    tp = tparams.params_to_torch(g, qp, "cpu")
     slots = {s: torch.from_numpy(v) for s, v in srcs.items()}
     ws, bs = tfr.step_weights([tstep], tp, torch.float32)
     tfr.run_steps_plain([tstep], slots, ws, bs, torch.float32, tp)

@@ -73,12 +73,13 @@ def test_fold_uses_rolling_stats():
 
 def test_params_to_torch_layout():
     p = tparams.fuse_conv_batchnorm(TINY, tparams.init_params(TINY, seed=0))
-    t = tparams.params_to_torch(TINY, p)
+    t = tparams.params_to_torch(TINY, p, "cpu")
     w = p[5]["w"]                                       # HWIO
     np.testing.assert_array_equal(t[5]["w"].permute(2, 3, 1, 0).numpy(), w)
     assert t[5]["b"].dtype == torch.float32
     with pytest.raises(ValueError):
-        tparams.params_to_torch(TINY, tparams.init_params(TINY, seed=0))
+        tparams.params_to_torch(TINY, tparams.init_params(TINY, seed=0),
+                                "cpu")
 
 
 @pytest.mark.parametrize("act", sorted(set(tact.ACTIVATION_FNS)
@@ -246,7 +247,7 @@ def test_nms_host_and_device(kind):
     probs[rng.uniform(size=(n, c)) < 0.3] = 0.0
     probs[5] = probs[9]                                   # ties
     want = jnms.nms_numpy(boxes, probs, 0.45, kind=kind, allow_native=False)
-    got = tnms.nms_numpy(boxes, probs, 0.45, kind=kind, allow_native=False)
+    got = tnms.nms_numpy(boxes, probs, 0.45, kind=kind)
     np.testing.assert_array_equal(got, want)
     jdev = np.asarray(jnms.nms_device(jnp.asarray(boxes), jnp.asarray(probs),
                                       0.45, kind=kind))

@@ -5,9 +5,9 @@ against the plain version through a torch emulation that reads the same
 table the kernel reads.
 
 Tolerances: rtol 1e-4 / atol 1e-5 in f32, as tests/test_fused_region.py
-(the packings sum in another order); bf16 at 2^-6 of the output's scale
-(two bf16 ulps: the emulation rounds each conv's f32 sum once, the plain
-version rounds the conv output and again after the f32 bias).
+(the packings sum in another order); bf16 at 2^-7 of the output's scale
+(one bf16 ulp: the emulation and the plain version each round a conv's
+f32 sum once, in another order).
 """
 
 import warnings
@@ -40,7 +40,7 @@ def _setup(cfg, seed=0):
         warnings.simplefilter("ignore")
         g = build_graph(cfg)
     npar = jparams.fuse_conv_batchnorm(g, jparams.init_params(g, seed=seed))
-    return g, npar, tparams.params_to_torch(g, npar)
+    return g, npar, tparams.params_to_torch(g, npar, "cpu")
 
 
 @pytest.fixture(scope="module")
@@ -235,7 +235,7 @@ def test_kernel_tiling_bf16(yolov4_64):
                             compute_dtype=torch.bfloat16).float()
     got = emulate(tsub, x, ws, bs, torch.bfloat16, 12).float()
     scale = float(want.abs().max())
-    assert float((got - want).abs().max()) <= 2.0 ** -6 * scale
+    assert float((got - want).abs().max()) <= 2.0 ** -7 * scale
 
 
 def test_kernel_plan_fits_the_card():

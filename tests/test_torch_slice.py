@@ -56,7 +56,7 @@ def nets(tmp_path_factory):
     with warnings.catch_warnings():
         warnings.simplefilter("ignore")
         jnet = JaxNetwork.from_cfg(CFG, weights=path)
-        tnet = Network.from_cfg(CFG, weights=path)
+        tnet = Network.from_cfg(CFG, weights=path, device="cpu")
     return jnet, tnet, path
 
 
@@ -66,7 +66,7 @@ def test_heads_match_hybrid_region():
     x = _image()
     want = jax_forward(g, fused_bn=True, fuse_regions="hybrid",
                        region_interpret=True)(npar, x)
-    got = make_forward(g)(tparams.params_to_torch(g, npar),
+    got = make_forward(g)(tparams.params_to_torch(g, npar, "cpu"),
                           torch.from_numpy(x))
     assert len(got["heads"]) == len(want["heads"]) == 3
     for a, b in zip(got["heads"], want["heads"]):
@@ -81,7 +81,7 @@ def test_heads_match_hybrid_region():
 def test_region_modes_agree():
     g = _graph()
     tp = tparams.params_to_torch(
-        g, tparams.fuse_conv_batchnorm(g, lively_params(g)))
+        g, tparams.fuse_conv_batchnorm(g, lively_params(g)), "cpu")
     x = torch.from_numpy(_image())
     a = make_forward(g)(tp, x)["heads"]
     b = make_forward(g, fuse_regions="plain")(tp, x)["heads"]
