@@ -8,16 +8,26 @@ Phases, each of which fails the run (non-zero exit) on any error:
   1. the card's name and power limit (nvidia-smi); a CUDA card is required;
   2. build the CUDA kernels from darknet_tpu_torch/csrc with nvcc, one
      process per source, all at once;
-  3. the region kernel against its plain version on the card: yolov4's
-     region prefix at 608 px (b=2) and 416 px (b=1), f32 with TF32 off and
-     bf16, and a narrow CSP graph whose last tile is ragged;
+  3. the region kernels against their plain version on the card: yolov4's
+     region prefix at 608 px (b=2) and 416 px (b=1), f32 (the FFMA kernel,
+     TF32 off) and bf16 (the tensor-core kernel), a narrow CSP graph
+     (8-channel slots, a route concat) whose last tile is ragged, and a
+     region without the stem whose 1024-channel step takes narrowed
+     weight passes; each check prints its error and the share of elements
+     that differ;
   4. yolov4-608 serving at b=8 in bf16 through Network.submit_detect_device
      and device_out_to_dets (one request uint8), with the kernel's launch
      count rising on every request; one f32 request against the same
      network with the plain region; bf16 img/s (median and spread of 5
-     windows of 100 requests after 30 untimed ones), the kernel's and the
-     plain version's times at b=8, the kernel's bound, and a profile of
-     one request;
+     windows of 100 requests after 30 untimed ones); at b=8, the serving
+     shape, the bf16 kernel held to its plain version (one ulp, with the
+     share of elements that differ), its time by CUDA events and by
+     torch.profiler, the plain
+     version's, the multiply-adds it executes (halo and padding included)
+     beside the useful ones, its bound, and, for context only, the same
+     nine steps as cuDNN's native bf16 convs with torch epilogues one
+     layer at a time (a route the port never takes); a profile of one
+     request;
   5. the int8 GEMM against its plain version: exactly equal with unit
      scales where |acc| < 2^24 (a ragged shape and a yolov4 3x3 shape),
      and with real scales at a yolov4 1x1 and a 3x3 stride-2 shape; the
@@ -52,11 +62,13 @@ import numpy as np
 
 # f32 check: FFMA and cuDNN (TF32 off) sum in different orders, so the
 # kernel agrees with the plain version to ~1e-6 of the output's scale;
-# 1e-4 leaves room for depth.  bf16: the kernel and the plain version
-# (exact bf16 products summed in f32, f32 bias, one rounding) each round
-# a conv's sum once; sums in another order land on the other side of a
-# rounding boundary at times, so an element differs by one bf16 ulp at
-# most (2^-7 of the scale).
+# 1e-4 leaves room for depth.  bf16: the tensor-core kernel and the plain
+# version (exact bf16 products summed in f32, f32 bias, one rounding)
+# each round a conv's sum once; sums in another order land on the other
+# side of a rounding boundary at times, so an element differs by one bf16
+# ulp at most (2^-7 of the scale).  At 608 px, b=8, 0.52% of the
+# elements differ and the largest difference is 5.5e-3 of the scale
+# (chip_region_tiles.py on an H100); phase 4 checks that shape again.
 TOL_F32 = 1e-4
 TOL_BF16 = 2.0 ** -7
 SERVE_BATCH = 8
@@ -166,6 +178,23 @@ num=1
 classes=7
 anchors=16,16
 """
+# a region without the stem (its input is conv 0's 16 channels, loaded
+# element by element) whose 1024-channel step fits shared memory only
+# with narrowed weight passes
+WIDE_LAYERS = ((16, 3), (1024, 1), (32, 1))
+WIDE_PX = 64
+
+
+def conv_stack_cfg(px: int, layers) -> str:
+    """A cfg of stride-1 convs, (filters, size) each with BN and leaky,
+    under a one-class yolo head."""
+    s = f"[net]\nwidth={px}\nheight={px}\nchannels=3\n"
+    for n, size in layers:
+        s += (f"[convolutional]\nbatch_normalize=1\nfilters={n}\n"
+              f"size={size}\nstride=1\npad=1\nactivation=leaky\n")
+    return s + ("[convolutional]\nfilters=18\nsize=1\nstride=1\npad=1\n"
+                "activation=linear\n[yolo]\nmask=0,1,2\nnum=3\nclasses=1\n"
+                "anchors=10,10,20,20,30,30\n")
 
 
 def require(cond, what: str) -> None:
@@ -352,6 +381,40 @@ def region_bound(sub, x, ws, bs, out_shape):
                                         else "bytes")
 
 
+def unfused_cudnn(sub, x, wc, bc):
+    """The region prefix as cuDNN's native bf16 convs (channels-last; wc:
+    OIHW channels-last bf16 weights, bc: bf16 biases), each with a torch
+    activation, one layer at a time: the unfused route the fused kernel
+    has to beat.  For context only; the port never takes it."""
+    import torch
+    import torch.nn.functional as F
+
+    from darknet_tpu_torch.ops.activations import apply_activation
+    from darknet_tpu_torch.ops.fused_region import IN_SLOT, AddStep
+    from darknet_tpu_torch.ops.stem import space_to_depth
+
+    slots = {IN_SLOT: space_to_depth(x).to(torch.bfloat16)}
+    wi = 0
+    for st in sub.steps:
+        if isinstance(st, AddStep):
+            slots[st.out_slot] = apply_activation(
+                slots[st.a] + slots[st.b], st.act)
+            continue
+        src = torch.cat([slots[s] for s in st.srcs], dim=-1) \
+            if len(st.srcs) > 1 else slots[st.srcs[0]]
+        src = src.permute(0, 3, 1, 2)                  # NCHW, channels-last
+        pads = (st.pl_, st.kw - 1 - st.pl_, st.pt, st.kh - 1 - st.pt)
+        if pads[0] == pads[1] and pads[2] == pads[3]:
+            y = F.conv2d(src, wc[wi], bc[wi], padding=(st.pt, st.pl_))
+        else:
+            src = F.pad(src, pads).contiguous(
+                memory_format=torch.channels_last)
+            y = F.conv2d(src, wc[wi], bc[wi])
+        slots[st.out_slot] = apply_activation(y.permute(0, 2, 3, 1), st.act)
+        wi += 1
+    return slots[sub.out_slot]
+
+
 def serve_rate(net, frame):
     """Throughput: whole requests, host clock around synchronised work,
     RATE_WINDOWS windows of RATE_REQUESTS requests after a warm-up.
@@ -374,8 +437,22 @@ def serve_rate(net, frame):
     return img_s, (max(rates) - min(rates)) / img_s, rates
 
 
+def held_to_plain(got, want, tol):
+    """(max abs err, scale, share of elements that differ, ok): ok when
+    every element is finite and within tol of the plain version's
+    scale."""
+    import torch
+
+    got, want = got.float(), want.float()
+    err = float((got - want).abs().max())
+    scale = float(want.abs().max())
+    ok = bool(torch.isfinite(got).all()) and err <= tol * scale
+    return err, scale, float((got != want).float().mean()), ok
+
+
 def check_region(name, graph, batch, dtype, seed):
-    """Kernel vs plain version on one region prefix; returns a dict."""
+    """Kernel vs plain version on the graph's first region (its stride-1
+    prefix); returns a dict."""
     import torch
 
     from darknet_tpu_torch.nn import params as paramlib
@@ -385,25 +462,30 @@ def check_region(name, graph, batch, dtype, seed):
     npar = paramlib.fuse_conv_batchnorm(
         graph, paramlib.init_params(graph, seed=seed))
     tp = paramlib.params_to_torch(graph, npar, DEVICE, dtype)
-    plan = fr.plan_graph_regions(graph, stem=True)[0]
+    plans = fr.plan_graph_regions(graph, stem=True)
+    plan = plans[min(plans)]
     pre = fr.hybrid_prefix(plan)
     sub = pre[0] if pre is not None else plan
     kp = kfr.kernel_plan(sub, torch.tensor([], dtype=dtype).element_size())
-    x = torch.from_numpy(np.random.default_rng(seed).uniform(
-        0, 1, (batch, graph.net.h, graph.net.w, 3)).astype(
-            np.float32)).to(DEVICE)
+    rng = np.random.default_rng(seed)
+    if sub.stem:
+        x = rng.uniform(0, 1, (batch, graph.net.h, graph.net.w, 3))
+    else:
+        x = rng.normal(0, 1, (batch, sub.h, 2 * sub.w2, sub.in_c))
+    x = torch.from_numpy(x.astype(np.float32)).to(DEVICE)
     ws, bs = fr.step_weights(sub.steps, tp, dtype)
-    want = fr.region_plain(sub, x, ws, bs, compute_dtype=dtype).float()
-    got = kfr.region_call(sub, x, ws, bs, compute_dtype=dtype).float()
+    want = fr.region_plain(sub, x, ws, bs, compute_dtype=dtype)
+    got = kfr.region_call(sub, x, ws, bs, compute_dtype=dtype)
     torch.cuda.synchronize()
-    err = float((got - want).abs().max())
-    scale = float(want.abs().max())
     tol = TOL_F32 if dtype == torch.float32 else TOL_BF16
-    ok = bool(torch.isfinite(got).all()) and err <= tol * scale
+    err, scale, share, ok = held_to_plain(got, want, tol)
     res = {"name": name, "dtype": str(dtype).split(".")[-1],
-           "shape": list(got.shape), "tile": kp.tile,
-           "ragged": sub.h % kp.tile != 0, "smem_bytes": kp.smem_bytes,
-           "max_abs_err": err, "scale": scale, "tol_rel": tol, "ok": ok}
+           "kernel": "tensor cores" if kp.tensor_cores else "ffma",
+           "stem": sub.stem, "shape": list(got.shape), "tile": kp.tile,
+           "threads": kp.threads,
+           "ragged": sub.h % kp.tile != 0 or 2 * sub.w2 % kp.tile != 0,
+           "smem_bytes": kp.smem_bytes, "max_abs_err": err, "scale": scale,
+           "tol_rel": tol, "differ_share": share, "ok": ok}
     print("check", json.dumps(res), flush=True)
     return res
 
@@ -423,8 +505,14 @@ def phase_kernels():
         g = quiet_graph(NARROW_CSP_CFG)
         for dt in (torch.float32, torch.bfloat16):
             checks.append(check_region("narrow-csp-200", g, 2, dt, seed=3))
-    require(any(c["ragged"] for c in checks
+        g = quiet_graph(conv_stack_cfg(WIDE_PX, WIDE_LAYERS))
+        for dt in (torch.float32, torch.bfloat16):
+            checks.append(check_region(f"wide-{WIDE_PX}", g, 2, dt, seed=4))
+    require(all(c["ragged"] for c in checks
                 if c["name"] == "narrow-csp-200"), "a ragged edge tile")
+    require(not any(c["stem"] for c in checks
+                    if c["name"] == f"wide-{WIDE_PX}"), "a region without "
+            "the stem")
     bad = [c["name"] + "/" + c["dtype"] for c in checks if not c["ok"]]
     require(not bad, f"kernel agrees with its plain version: {bad}")
     return checks
@@ -479,29 +567,56 @@ def phase_serve(card):
     plan = net._fwd.region_plans[0]
     sub, _k = fr.hybrid_prefix(plan)
     ws, bs = fr.step_weights(sub.steps, net.params, torch.bfloat16)
+    wc = [w.permute(3, 2, 0, 1).contiguous(memory_format=torch.channels_last)
+          for w in ws]
+    bc = [b.to(torch.bfloat16) for b in bs]
     x = torch.from_numpy(frames[0]).to(DEVICE)
+
+    def kernel():
+        return kfr.region_call(sub, x, ws, bs, compute_dtype=torch.bfloat16)
+
+    def plain():
+        return fr.region_plain(sub, x, ws, bs, compute_dtype=torch.bfloat16)
+
     with torch.inference_mode():
-        k_ms = cuda_ms(lambda: kfr.region_call(
-            sub, x, ws, bs, compute_dtype=torch.bfloat16))
-        p_ms = cuda_ms(lambda: fr.region_plain(
-            sub, x, ws, bs, compute_dtype=torch.bfloat16))
-        k_ms2 = cuda_ms(lambda: kfr.region_call(
-            sub, x, ws, bs, compute_dtype=torch.bfloat16))
-        p_ms2 = cuda_ms(lambda: fr.region_plain(
-            sub, x, ws, bs, compute_dtype=torch.bfloat16))
+        k_ms, p_ms = cuda_ms(kernel), cuda_ms(plain)
+        u_ms = cuda_ms(lambda: unfused_cudnn(sub, x, wc, bc))
+        u_ms2 = cuda_ms(lambda: unfused_cudnn(sub, x, wc, bc))
+        p_ms2, k_ms2 = cuda_ms(plain), cuda_ms(kernel)
+        prof_ms, n_prof = profiled_ms(kernel, "region_tc_kernel")
         fwd_ms = cuda_ms(lambda: net._fwd(net.params, x), iters=5)
-        out_shape = kfr.region_call(sub, x, ws, bs,
-                                    compute_dtype=torch.bfloat16).shape
-    bound, bound_by = region_bound(sub, x, ws, bs, out_shape)
+        out = kernel()
+        err, scale, share, ok = held_to_plain(out, plain(), TOL_BF16)
+        u_err = float((unfused_cudnn(sub, x, wc, bc).float()
+                       - out.float()).abs().max())
+    print(f"check region prefix b={SERVE_BATCH} bf16, the serving shape: "
+          f"max abs err {err:.4g} at scale {scale:.4g} (tolerance "
+          f"{TOL_BF16 * scale:.4g}), {100 * share:.3f}% of the elements "
+          f"differ from the plain version", flush=True)
+    require(ok, f"the region kernel at b={SERVE_BATCH} agrees with its plain "
+            f"version")
+    require(n_prof == 1, f"one region_tc_kernel in the trace, got {n_prof}")
+    bound, bound_by = region_bound(sub, x, ws, bs, out.shape)
+    kp = kfr.kernel_plan(sub, 2)
+    executed = kp.macs_per_tile * kp.tiles_y * kp.tiles_x * x.shape[0]
+    useful = x.shape[0] * sub.h * 2 * sub.w2 * sum(
+        st.kh * st.kw * st.c_tot * st.n for st in sub.conv_steps)
     top_kernels(net, frames[0], "bf16", card)
     print(f"serving yolov4-{SERVE_PX} bf16 b={SERVE_BATCH}: {img_s:.2f} img/s "
           f"median of {RATE_WINDOWS} windows of {RATE_REQUESTS} requests "
           f"({', '.join(f'{r:.2f}' for r in rates)}; spread "
           f"{100 * spread:.2f}%) (forward {fwd_ms:.3f} ms) [{card}]",
           flush=True)
-    print(f"region prefix b={SERVE_BATCH} bf16: kernel {k_ms:.3f} / "
-          f"{k_ms2:.3f} ms, plain {p_ms:.3f} / {p_ms2:.3f} ms [{card}]",
-          flush=True)
+    print(f"region prefix b={SERVE_BATCH} bf16: tensor-core kernel "
+          f"{k_ms:.3f} / {k_ms2:.3f} ms by CUDA events, {prof_ms} ms by "
+          f"torch.profiler (tile {kp.tile}, {kp.threads} threads, "
+          f"{kp.smem_bytes} B shared memory); plain {p_ms:.3f} / "
+          f"{p_ms2:.3f} ms; unfused cuDNN bf16 convs + torch epilogues "
+          f"{u_ms:.3f} / {u_ms2:.3f} ms (max abs diff to the kernel "
+          f"{u_err:.4g}) [{card}]", flush=True)
+    print(f"region prefix b={SERVE_BATCH}: {executed / 1e9:.3f} GMAC "
+          f"executed (halo and padding included) for {useful / 1e9:.3f} "
+          f"GMAC useful ({executed / useful:.4f}x)", flush=True)
 
     # one f32 request: kernel region against the plain region, on params
     # whose score threshold sits in a gap of the plain path's logits
@@ -533,8 +648,10 @@ def phase_serve(card):
     require(kept(pa) == kept(pb) and box_err <= 1e-4,
             "f32 kernel path keeps what the plain path keeps")
     return {"launches": launches, "img_s": img_s, "ms": k_ms,
-            "plain_ms": p_ms, "f32_kept": len(kept(pa)), "bound_ms": bound,
-            "bound_by": bound_by}
+            "plain_ms": p_ms, "max_abs_err": err,
+            "f32_kept": len(kept(pa)), "bound_ms": bound,
+            "bound_by": bound_by, "profiler_ms": prof_ms,
+            "unfused_cudnn_ms": u_ms}
 
 
 def int8_operands(m, k, n, seed, unit):
@@ -846,20 +963,18 @@ def main() -> int:
               f"{log['so']}", flush=True)
         print(log["ptxas"].strip(), flush=True)
 
-    checks = phase_kernels()
+    phase_kernels()
     serve = phase_serve(card)
     phase_int8_kernel()
     int8 = phase_int8_serve(card, serve["img_s"])
 
-    main_check = next(c for c in checks if c["name"] == f"yolov4-{CHECKS[0][0]}-prefix"
-                      and c["dtype"] == "bfloat16")
     print(card, flush=True)
     print(json.dumps({"kernels": [{
         "name": "fused_region", "route": "cuda",
         "source": "darknet_tpu_torch/csrc/fused_region.cu",
         "replaces": "darknet_tpu/ops/pallas/fused_region.py:759",
         "launches": serve["launches"],
-        "max_abs_err": main_check["max_abs_err"],
+        "max_abs_err": serve["max_abs_err"],
         "ms": serve["ms"], "plain_ms": serve["plain_ms"],
         "bound_ms": serve["bound_ms"], "bound_by": serve["bound_by"],
         "library_ms": None}, {

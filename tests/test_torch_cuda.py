@@ -36,7 +36,7 @@ from darknet_tpu_torch.ops import quant_matmul as tqm
 from darknet_tpu_torch.ops.cuda import fused_region as cfr
 # by file, not as tests.torch_params: an installed package named `tests`
 # would shadow this directory
-from torch_params import lively_params, match_slots, matched
+from torch_params import chip_smoke, lively_params, match_slots, matched
 
 
 @pytest.fixture
@@ -72,6 +72,102 @@ def test_region_kernel(px, dtype, cuda):
     assert cfr.launches == before + 1
     tol = 1e-4 if dt == torch.float32 else 2.0 ** -7
     assert float((got - want).abs().max()) <= tol * float(want.abs().max())
+
+
+def _region_case(case):
+    """(graph, batch, region start) of a tensor-core kernel case."""
+    smoke = chip_smoke()
+    if case == "narrow-csp":
+        cfg, b, a = smoke.NARROW_CSP_CFG, 2, 0
+    elif case == "wide":
+        cfg, b, a = smoke.conv_stack_cfg(64, smoke.WIDE_LAYERS), 2, 1
+    elif case.startswith("yolov4-tiny"):
+        cfg, b = model_zoo.yolov4_tiny_cfg(416, 416), 1
+        a = int(case.rsplit("region", 1)[1])
+    else:
+        px = int(case.split("-")[1])
+        cfg, b, a = model_zoo.yolov4_cfg(px, px), 2 if px == 608 else 1, 0
+    with warnings.catch_warnings():
+        warnings.simplefilter("ignore")
+        return build_graph(cfg), b, a
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("case", ["yolov4-608", "yolov4-416", "narrow-csp",
+                                  "yolov4-tiny-416-region4",
+                                  "yolov4-tiny-416-region12", "wide"])
+def test_region_tc_kernel(case, cuda):
+    """The bf16 tensor-core kernel against its plain version: yolov4's
+    prefix at 608 (b=2) and 416 (b=1); a narrow CSP region (8-channel
+    slots zero-padded to 16, a route concat) whose last tile is ragged;
+    yolov4-tiny's two regions, which have no stem (their inputs are 32 and
+    64 channels, loaded element by element); and a region whose
+    1024-channel step fits only with narrowed weight passes.  One bf16
+    ulp of the output's scale."""
+    g, b, a = _region_case(case)
+    npar = tparams.fuse_conv_batchnorm(g, tparams.init_params(g, seed=3))
+    tp = tparams.params_to_torch(g, npar, cuda, torch.bfloat16)
+    plan = tfr.plan_graph_regions(g, stem=True)[a]
+    sub = (tfr.hybrid_prefix(plan) or (plan,))[0]
+    kp = cfr.kernel_plan(sub, 2)
+    if case == "narrow-csp":
+        assert sub.h % kp.tile or (2 * sub.w2) % kp.tile      # ragged
+        assert min(c for st in sub.conv_steps for c in st.srcs_c) == 8
+        assert any(len(st.srcs) > 1 for st in sub.conv_steps)
+    if case == "wide":            # the passes mma_config prefers do not fit
+        assert cfr._tc_plan(sub, kp.tile, cfr.TC_THREADS,
+                            cfr._slot_ids(sub))[0] > cfr.SMEM_MAX
+    rng = np.random.default_rng(1)
+    if sub.stem:
+        x = rng.uniform(0, 1, (b, g.net.h, g.net.w, 3))
+    else:
+        x = rng.normal(0, 1, (b, sub.h, 2 * sub.w2, sub.in_c))
+    x = torch.from_numpy(x.astype(np.float32)).to(cuda)
+    assert sub.stem == (case in ("yolov4-608", "yolov4-416", "narrow-csp"))
+    ws, bs = tfr.step_weights(sub.steps, tp, torch.bfloat16)
+    want = tfr.region_plain(sub, x, ws, bs,
+                            compute_dtype=torch.bfloat16).float()
+    got = cfr.region_call(sub, x, ws, bs,
+                          compute_dtype=torch.bfloat16).float()
+    torch.cuda.synchronize()
+    assert bool(torch.isfinite(got).all())
+    assert float((got - want).abs().max()) <= 2.0 ** -7 * float(
+        want.abs().max())
+
+
+def _device_kernels(fn):
+    from torch.profiler import ProfilerActivity, profile
+
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        fn()
+        torch.cuda.synchronize()
+    return [e.name for e in prof.events()
+            if e.device_type == torch.autograd.DeviceType.CUDA]
+
+
+@pytest.mark.cuda
+def test_bf16_request_runs_tensor_core_kernel(cuda):
+    """A bf16 request launches the tensor-core region kernel, an f32
+    request the FFMA kernel (their names in a torch.profiler trace)."""
+    with warnings.catch_warnings():
+        warnings.simplefilter("ignore")
+        g = build_graph(model_zoo.yolov4_cfg(64, 64))
+    npar = tparams.fuse_conv_batchnorm(g, tparams.init_params(g, seed=0))
+    x = np.random.default_rng(0).uniform(0, 1, (2, 64, 64, 3)).astype(
+        np.float32)
+    names = {}
+    for dt in (torch.bfloat16, torch.float32):
+        net = Network(g, tparams.params_to_torch(g, npar, cuda, dt),
+                      device=cuda, compute_dtype=dt)
+        net.submit_detect_device(x)                 # build, plan, warm up
+        before = cfr.launches
+        names[dt] = _device_kernels(lambda: net.submit_detect_device(x))
+        assert cfr.launches == before + 1
+    assert sum("region_tc_kernel" in n for n in names[torch.bfloat16]) == 1
+    assert not any("region_kernel" in n for n in names[torch.bfloat16])
+    assert sum("region_kernel" in n for n in names[torch.float32]) == 1
+    assert not any("region_tc_kernel" in n for n in names[torch.float32])
 
 
 def _lively_nets(px):

@@ -1,8 +1,9 @@
 """darknet_tpu_torch stands alone: a subprocess blocks jax, jaxlib and the
 JAX package `darknet_tpu` with a meta-path finder, imports the port and
 serves yolov4 at 64 px on the CPU, in f32 and in int8 (quantized,
-calibrated); and no source of the port, nor chip_smoke.py, imports any of
-the three."""
+calibrated); and no source of the port, nor the chip scripts
+(chip_smoke.py, chip_int8_shapes.py, chip_region_tiles.py), imports any
+of the three."""
 
 import os
 import pathlib
@@ -76,7 +77,8 @@ def test_port_serves_with_jax_blocked():
 
 @pytest.mark.parametrize("path", sorted(
     p.relative_to(REPO).as_posix()
-    for p in (REPO / "darknet_tpu_torch").rglob("*.py")) + ["chip_smoke.py"])
+    for p in (REPO / "darknet_tpu_torch").rglob("*.py")) + [
+        "chip_smoke.py", "chip_int8_shapes.py", "chip_region_tiles.py"])
 def test_no_jax_import_in_source(path):
     text = (REPO / path).read_text()
     for line in text.splitlines():

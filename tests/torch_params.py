@@ -1,11 +1,15 @@
 """Helpers of the port's tests: numpy yolov4 params whose heads are not
-saturated, and the slot matcher that compares two served triples.
+saturated, and the slot matcher that compares two served triples, and chip_smoke.py's
+test graphs.
 
 At random init a deep yolov4 damps its heads to sigmoid(~1e-6), where
 every score ties and a served kept set is decided by sum-order noise.
 `lively_params` raises the BN scales to 1.5 and scales the three head
 convs so that the head logits spread over O(1).  Imports no jax.
 """
+
+import importlib.util
+import pathlib
 
 import numpy as np
 
@@ -44,3 +48,15 @@ def matched(ref_triple, slot):
     return (np.take_along_axis(tb, slot[..., None], axis=1),
             np.take_along_axis(ov, slot, axis=1),
             np.take_along_axis(probs, slot[..., None], axis=1))
+
+
+def chip_smoke():
+    """chip_smoke.py as a module, read by file (an installed package named
+    `tests` may shadow this directory): its test cfgs NARROW_CSP_CFG,
+    conv_stack_cfg and WIDE_LAYERS."""
+    spec = importlib.util.spec_from_file_location(
+        "chip_smoke", pathlib.Path(__file__).resolve().parents[1]
+        / "chip_smoke.py")
+    mod = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(mod)
+    return mod
