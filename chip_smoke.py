@@ -1,6 +1,7 @@
 """Smoke run of darknet_tpu_torch on one CUDA card: build the region
 kernel and the int8 GEMM, check each against its plain version, serve
-yolov4-608 through the public API in bf16 and in int8, and report.
+yolov4-608 through the public API in bf16 and in int8, train it, and
+report.
 
     python3 chip_smoke.py
 
@@ -45,16 +46,44 @@ Phases, each of which fails the run (non-zero exit) on any error:
      kernel's device time over one request (profiler, CUDA graph) beside
      torch._int_mm's on the same operands and the bound; int8 img/s beside
      the bf16 rate of phase 4; a profile of one request;
-  7. a JSON line of the kernels, then {"ok": true, "device": ...} last.
+  7. a JSON line of the kernels, then {"ok": true, "device": ...} last
+     (printed after phase 8);
+  8. training (train/step, train/trainer), which launches neither kernel,
+     as in the JAX package:
+     (a) parity on the card: the narrow CSP + SPP graph (TRAIN_CSP_CFG,
+         64 px) and yolov4 at 128 px, burn_in 0, two steps of accum 2 on
+         seeded batches, f32 with TF32 off, held to the port's own CPU run
+         (updates and rolling statistics; yolov4's updates within three
+         times what a 1e-7 change of the input moves the card's own run:
+         the graph is chaotic in training); one bf16 step finite and close
+         to the f32 step (loss within 1%, updates' cosine >= 0.99);
+     (b) full width: `data/synth` writes 256 images, `train_detector`
+         trains yolov4-608 at its published batch=64, subdivisions=8,
+         mosaic, bf16 (act16), for 6 iterations: the first on the 608
+         batch already in flight, then the 896 bucket that multi-scale
+         forces while the loss is unset; the bucket, s/iter and img/s
+         over the 896 iterations after the first (the last, profiled,
+         left out), each loss, the peak memory, the loader's rate beside
+         the step's, a profile of the last iteration (device busy share,
+         top kernels); finite losses, nonzero batches, non-empty truths,
+         moved rolling statistics, nonzero momentum buffers and no kernel
+         launch are required;
+     (c) train to serve: the saved .weights load through
+         Network.from_cfg(compute_dtype=bf16) and serve one request, the
+         region kernel's count rising by one.
 
-Weights are random (numpy, seed 0); no file outside the checkout is read.
+Weights are random (numpy, seed 0); the training images are drawn from a
+seed into a temporary directory; no file outside the checkout is read.
 """
 
 from __future__ import annotations
 
 import json
+import os
+import shutil
 import subprocess
 import sys
+import tempfile
 import time
 import warnings
 
@@ -98,6 +127,19 @@ PEAK_INT8 = 1979e12      # H100 SXM dense int8 tensor-core op/s
 PEAK_BF16 = 989e12       # dense bf16 tensor-core FLOP/s
 PEAK_BYTES = 3.35e12     # HBM3 bytes/s
 INT8_CALIB_FRAMES = 4
+# training: parity on the card (batch, steps, accum; the narrow graph's
+# updates within TOL_TRAIN of the largest update, or YARDSTICK times the
+# card's own response to a 1e-7 input change) and the full-width run
+TRAIN_PARITY_BATCH = 4
+TRAIN_PARITY_STEPS = 2
+TRAIN_ACCUM = 2
+TOL_TRAIN = 2e-3
+YARDSTICK = 3.0
+TRAIN_IMAGES = 256
+TRAIN_IMAGE_PX = ((416, 640), (416, 640))   # synth image sizes (w, h)
+TRAIN_ITERS = 6
+TRAIN_LOADER_PROCS = 7
+TRAIN_PROFILED_ITER = TRAIN_ITERS     # the last; not in s/iter
 
 NARROW_CSP_CFG = """[net]
 width=200
@@ -181,6 +223,125 @@ anchors=16,16
 # a region without the stem (its input is conv 0's 16 channels, loaded
 # element by element) whose 1024-channel step fits shared memory only
 # with narrowed weight passes
+# training parity graph: a narrow CSP block, a strided maxpool, an SPP
+# block (stride-1 maxpools 5/9/13), an upsample route and a yolo head
+TRAIN_CSP_CFG = """[net]
+batch=4
+subdivisions=1
+width=64
+height=64
+channels=3
+learning_rate=0.001
+momentum=0.9
+decay=0.0005
+burn_in=0
+[convolutional]
+batch_normalize=1
+filters=8
+size=3
+stride=1
+pad=1
+activation=mish
+[convolutional]
+batch_normalize=1
+filters=16
+size=3
+stride=2
+pad=1
+activation=mish
+[convolutional]
+batch_normalize=1
+filters=16
+size=1
+stride=1
+pad=1
+activation=mish
+[route]
+layers = -2
+[convolutional]
+batch_normalize=1
+filters=16
+size=1
+stride=1
+pad=1
+activation=mish
+[convolutional]
+batch_normalize=1
+filters=16
+size=3
+stride=1
+pad=1
+activation=mish
+[shortcut]
+from=-2
+activation=linear
+[route]
+layers = -1,-5
+[maxpool]
+size=2
+stride=2
+[convolutional]
+batch_normalize=1
+filters=16
+size=1
+stride=1
+pad=1
+activation=leaky
+[maxpool]
+stride=1
+size=5
+[route]
+layers=-2
+[maxpool]
+stride=1
+size=9
+[route]
+layers=-4
+[maxpool]
+stride=1
+size=13
+[route]
+layers=-1,-3,-5,-6
+[convolutional]
+batch_normalize=1
+filters=16
+size=1
+stride=1
+pad=1
+activation=leaky
+[upsample]
+stride=2
+[route]
+layers=-1,-11
+[convolutional]
+batch_normalize=1
+filters=16
+size=3
+stride=1
+pad=1
+activation=leaky
+[convolutional]
+filters=27
+size=1
+stride=1
+pad=1
+activation=linear
+[yolo]
+mask=0,1,2
+anchors=8,8, 16,20, 28,24
+classes=4
+num=3
+jitter=.3
+ignore_thresh=.7
+truth_thresh=1
+scale_x_y=1.05
+iou_thresh=0.213
+iou_normalizer=0.07
+cls_normalizer=1.0
+iou_loss=ciou
+max_delta=5
+"""
+
 WIDE_LAYERS = ((16, 3), (1024, 1), (32, 1))
 WIDE_PX = 64
 
@@ -210,12 +371,12 @@ def card_line() -> str:
     return out[0]
 
 
-def quiet_graph(cfg):
+def quiet_graph(cfg, train=False):
     from darknet_tpu_torch.graph.builder import build_graph
 
     with warnings.catch_warnings():
         warnings.simplefilter("ignore")
-        return build_graph(cfg)
+        return build_graph(cfg, train=train)
 
 
 PROBE_PASS = 24          # candidates per head that pass the threshold
@@ -332,27 +493,23 @@ def profiled_ms(fn, name=None):
     return sum(e.time_range.elapsed_us() for e in hit) / 1e3, len(hit)
 
 
-def top_kernels(net, frame, label, card, n=8):
-    """One request in a profiler trace: device busy time, the idle share
-    of the device window, and the kernels that take the most time."""
+def trace_summary(fn, label, card, n=8):
+    """fn() once in a profiler trace: device busy time, the idle share of
+    the device window, and the kernels that take the most time."""
     import collections
 
     import torch
     from torch.profiler import ProfilerActivity, profile
 
-    def request():
-        net.device_out_to_dets(*net.submit_detect_device(frame))
-    request()
-    torch.cuda.synchronize()
     with profile(activities=[ProfilerActivity.CPU,
                              ProfilerActivity.CUDA]) as prof:
-        request()
+        fn()
         torch.cuda.synchronize()
     dev = [e for e in prof.events()
            if e.device_type == torch.autograd.DeviceType.CUDA]
     if not dev:
-        print(f"{label} request profile: no device events", flush=True)
-        return
+        print(f"{label} profile: no device events", flush=True)
+        return None
     busy = sum(e.time_range.elapsed_us() for e in dev) / 1e3
     span = (max(e.time_range.end for e in dev)
             - min(e.time_range.start for e in dev)) / 1e3
@@ -360,10 +517,22 @@ def top_kernels(net, frame, label, card, n=8):
     for e in dev:
         by[e.name[:60]] += e.time_range.elapsed_us() / 1e3
     top = "; ".join(f"{k} {v:.3f}" for k, v in by.most_common(n))
-    print(f"{label} request profile: {len(dev)} device events, busy "
+    print(f"{label} profile: {len(dev)} device events, busy "
           f"{busy:.3f} ms of a {span:.3f} ms window (idle "
           f"{100 * (1 - busy / span):.1f}%); top ms: {top} [{card}]",
           flush=True)
+    return busy, span
+
+
+def top_kernels(net, frame, label, card, n=8):
+    """One request in a profiler trace (trace_summary)."""
+    import torch
+
+    def request():
+        net.device_out_to_dets(*net.submit_detect_device(frame))
+    request()
+    torch.cuda.synchronize()
+    trace_summary(request, f"{label} request", card, n)
 
 
 def region_bound(sub, x, ws, bs, out_shape):
@@ -942,6 +1111,284 @@ def phase_int8_serve(card, bf16_img_s):
             "bound_ms": bound, "bound_by": bound_by}
 
 
+
+def train_batch(graph, b, seed):
+    """Seeded (x, truths) for the parity steps: uniform pixels, three
+    boxes per image."""
+    rng = np.random.default_rng(seed)
+    x = rng.uniform(0, 1, (b, graph.net.h, graph.net.w, 3)).astype(np.float32)
+    head = [l for l in graph.layers if l.kind == "yolo"][0]
+    y = np.zeros((b, head.max_boxes, 5), np.float32)
+    for i in range(b):
+        for t in range(3):
+            w, h = rng.uniform(0.1, 0.5, 2)
+            y[i, t] = [rng.uniform(w / 2, 1 - w / 2),
+                       rng.uniform(h / 2, 1 - h / 2), w, h,
+                       rng.integers(0, head.classes)]
+    return x, y
+
+
+def train_steps(graph, p0, x, y, device, dtype=None):
+    """Numpy params after each of TRAIN_PARITY_STEPS steps, and costs."""
+    import torch
+
+    from darknet_tpu_torch.nn import params as paramlib
+    from darknet_tpu_torch.train.step import init_opt_state, make_train_step
+
+    step = make_train_step(graph, accum=TRAIN_ACCUM, compute_dtype=dtype,
+                           train_act_dtype=dtype)
+    p = paramlib.train_params_to_torch(graph, p0, device)
+    o = init_opt_state(graph, p)
+    snaps, costs = [], []
+    for _ in range(TRAIN_PARITY_STEPS):
+        p, o, c, _m = step(p, o, torch.from_numpy(x).to(device),
+                           torch.from_numpy(y).to(device), graph.net.lr)
+        snaps.append(paramlib.train_params_to_numpy(graph, p))
+        costs.append(float(c))
+    return snaps, costs
+
+
+def update_gap(a, b, p0, keys):
+    """(max |a - b| over the arrays named `keys`, the largest change from
+    p0 among them)."""
+    err = scale = 0.0
+    for da, db, d0 in zip(a, b, p0):
+        for k in keys:
+            if k in d0:
+                err = max(err, float(np.abs(da[k] - db[k]).max()))
+                scale = max(scale, float(np.abs(da[k] - d0[k]).max()))
+    return err, scale
+
+
+def phase_train_parity():
+    import torch
+
+    from darknet_tpu_torch import model_zoo
+    from darknet_tpu_torch.nn import params as paramlib
+
+    trainable, stats = ("w", "b", "scales"), ("mean", "var")
+    for name, cfg, seed in (("narrow CSP + SPP 64 px", TRAIN_CSP_CFG, 1),
+                            ("yolov4-128", model_zoo.yolov4_cfg(128, 128), 2)):
+        g = quiet_graph(cfg.replace("burn_in=1000", "burn_in=0"), train=True)
+        p0 = paramlib.init_params(g, seed=0)
+        x, y = train_batch(g, TRAIN_PARITY_BATCH, seed)
+        noise = np.random.default_rng(99).standard_normal(x.shape)
+        x_eps = (x * (1 + 1e-7 * noise)).astype(np.float32)
+        t0 = time.perf_counter()
+        cpu, c_cpu = train_steps(g, p0, x, y, "cpu")
+        t1 = time.perf_counter()
+        card, c_card = train_steps(g, p0, x, y, DEVICE)
+        card_eps, _ = train_steps(g, p0, x_eps, y, DEVICE)
+        t2 = time.perf_counter()
+        require(all(np.isfinite(c) for c in c_card), f"{name}: finite costs")
+        for n in range(TRAIN_PARITY_STEPS):
+            line = []
+            for keys in (trainable, stats):
+                err, scale = update_gap(card[n], cpu[n], p0, keys)
+                yard, _ = update_gap(card[n], card_eps[n], p0, keys)
+                tight = TOL_TRAIN if n else 1e-4
+                if name.startswith("yolov4"):
+                    ok = err <= YARDSTICK * yard + 1e-4 * scale
+                else:
+                    ok = err <= max(tight * scale, YARDSTICK * yard)
+                line.append(f"{'updates' if keys == trainable else 'stats'} "
+                            f"err {err:.3g} of {scale:.3g} (1e-7 input "
+                            f"change: {yard:.3g})")
+                require(scale > 0 and ok, f"{name} step {n + 1}: the card's "
+                        f"{keys} agree with the CPU run")
+            print(f"train parity {name} step {n + 1}: cost card "
+                  f"{c_card[n]:.6g} cpu {c_cpu[n]:.6g}; " + "; ".join(line),
+                  flush=True)
+        print(f"train parity {name}: {TRAIN_PARITY_STEPS} steps, CPU "
+              f"{t1 - t0:.1f} s, card (two runs) {t2 - t1:.1f} s", flush=True)
+        if name.startswith("narrow"):
+            bf, c_bf = train_steps(g, p0, x, y, DEVICE, torch.bfloat16)
+            ua = np.concatenate([(d[k] - d0[k]).ravel() for d, d0 in
+                                 zip(card[0], p0) for k in sorted(d0)
+                                 if k in trainable])
+            ub = np.concatenate([(d[k] - d0[k]).ravel() for d, d0 in
+                                 zip(bf[0], p0) for k in sorted(d0)
+                                 if k in trainable])
+            cos = float(ua @ ub / (np.linalg.norm(ua) * np.linalg.norm(ub)))
+            rel = abs(c_bf[0] - c_card[0]) / abs(c_card[0])
+            print(f"train bf16 step {name}: cost {c_bf[0]:.6g} against f32 "
+                  f"{c_card[0]:.6g} (rel {rel:.3g}), updates' cosine "
+                  f"{cos:.6f}", flush=True)
+            require(np.isfinite(ub).all() and rel <= 0.01 and cos >= 0.99,
+                    "the bf16 step is finite and close to the f32 step")
+
+
+def phase_train_full(card):
+    root = tempfile.mkdtemp(prefix="chip_smoke_train_")
+    try:
+        return train_full(card, root)
+    finally:
+        shutil.rmtree(root, ignore_errors=True)
+
+
+def train_full(card, root):
+    """Phase 8 (b) and (c), the data and the saves under `root`."""
+    import torch
+
+    from darknet_tpu_torch import Network, model_zoo
+    from darknet_tpu_torch.data import loader as loaderlib
+    from darknet_tpu_torch.data import synth
+    from darknet_tpu_torch.ops import quant_matmul as qm
+    from darknet_tpu_torch.ops.cuda import fused_region as kfr
+    from darknet_tpu_torch.train import trainer as trainerlib
+
+    t0 = time.perf_counter()
+    files = synth.generate(os.path.join(root, "data"), n_train=TRAIN_IMAGES,
+                           n_val=2, seed=0, size_range=TRAIN_IMAGE_PX)
+    print(f"synth: {TRAIN_IMAGES} images in {time.perf_counter() - t0:.1f} s",
+          flush=True)
+    cfg_text = model_zoo.yolov4_cfg(SERVE_PX, SERVE_PX)
+    net_cfg = quiet_graph(cfg_text, train=True).net
+    n_img = net_cfg.optimizer_batch
+    cfg = os.path.join(root, "yolov4.cfg")
+    with open(cfg, "w") as f:
+        f.write(cfg_text)
+    data = os.path.join(root, "obj.data")
+    backup = os.path.join(root, "backup")
+    with open(files["data"]) as f, open(data, "w") as g:
+        g.write(f.read() + f"save = {backup}\n")
+
+    # spies: each batch's content, the loader's assembly time per batch,
+    # each step's time (synchronised) and one profiled step
+    batches, assembly, steps = [], [], []
+    next_batch = loaderlib.DetectionLoader.next
+    make_batch = loaderlib.DetectionLoader._make_batch
+    make_step = trainerlib.make_train_step
+
+    def spy_next(self):
+        x, y = next_batch(self)
+        batches.append((x.shape[1:3], float((x != 0).mean()),
+                        int((y[:, :, 0] > 0).sum())))
+        return x, y
+
+    def spy_make(self, seed, w, h):
+        t = time.perf_counter()
+        out = make_batch(self, seed, w, h)
+        assembly.append(((h, w), time.perf_counter() - t))
+        return out
+
+    def spy_step(graph, **kw):
+        step = make_step(graph, **kw)
+
+        def timed(params, opt, x, y, lr):
+            def run():
+                return step(params, opt, x, y, lr)
+            torch.cuda.synchronize()
+            t = time.perf_counter()
+            if len(steps) + 1 == TRAIN_PROFILED_ITER:
+                res = []
+                trace_summary(lambda: res.append(run()),
+                              f"train iteration {len(steps) + 1} "
+                              f"({tuple(x.shape[1:3])})", card, 10)
+                out = res[0]
+            else:
+                out = run()
+            torch.cuda.synchronize()
+            steps.append((tuple(x.shape[1:3]), time.perf_counter() - t))
+            return out
+        return timed
+
+    loaderlib.DetectionLoader.next = spy_next
+    loaderlib.DetectionLoader._make_batch = spy_make
+    trainerlib.make_train_step = spy_step
+    logs = []
+
+    def log(line):
+        logs.append(line)
+        print(line, flush=True)
+
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    kfr.launches = qm.launches = 0
+    t0 = time.perf_counter()
+    try:
+        avg = trainerlib.train_detector(
+            data, cfg, max_iters=TRAIN_ITERS, device=DEVICE,
+            loader_processes=TRAIN_LOADER_PROCS, log=log,
+            metrics_path=os.path.join(root, "metrics.jsonl"))
+    finally:
+        loaderlib.DetectionLoader.next = next_batch
+        loaderlib.DetectionLoader._make_batch = make_batch
+        trainerlib.make_train_step = make_step
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    launches = (kfr.launches, qm.launches)
+    peak = torch.cuda.max_memory_allocated()
+    with open(os.path.join(root, "metrics.jsonl")) as f:
+        rows = [json.loads(line) for line in f if '"loss"' in line]
+    losses = [r["loss"] for r in rows]
+    print(f"train launches during training: region {launches[0]}, int8 "
+          f"{launches[1]}", flush=True)
+    require(launches == (0, 0), "training launches neither kernel")
+    require(len(losses) == TRAIN_ITERS and all(np.isfinite(losses)),
+            f"finite losses {losses}")
+    require(len(batches) >= TRAIN_ITERS and all(
+        nz > 0.5 and n > 0 for _s, nz, n in batches[:TRAIN_ITERS]),
+        f"nonzero batches with truths {batches}")
+    # s/iter over the bucket's iterations after its first (cuDNN's
+    # algorithm choice, allocations), the profiled one left out
+    big = [t for i, (hw, t) in enumerate(steps)
+           if hw != (SERVE_PX, SERVE_PX) and i + 1 != TRAIN_PROFILED_ITER]
+    require(len(big) >= 2, f"iterations on the multi-scale bucket: {steps}")
+    bucket = [hw for hw, _t in steps if hw != (SERVE_PX, SERVE_PX)][0]
+    s_iter = float(np.mean(big[1:]))
+    asm = [t for hw, t in assembly if hw == bucket]
+    print(f"train yolov4-{SERVE_PX} batch={n_img} subdivisions="
+          f"{net_cfg.subdiv} mosaic bf16 "
+          f"act16: bucket {bucket[1]}x{bucket[0]}; steps "
+          f"{', '.join(f'{hw[1]}:{t:.3f}s' for hw, t in steps)}; after the "
+          f"first {bucket[1]} iteration {s_iter:.3f} s/iter, "
+          f"{n_img / s_iter:.2f} img/s; losses "
+          f"{', '.join(f'{v:.4f}' for v in losses)}; peak memory "
+          f"{peak / 2**30:.2f} GiB; loader {n_img / np.mean(asm):.2f} img/s "
+          f"({np.mean(asm):.3f} s a batch, {TRAIN_LOADER_PROCS} processes) "
+          f"beside the step's {n_img / s_iter:.2f} img/s; wall "
+          f"{wall:.1f} s for {TRAIN_ITERS} iterations with saves [{card}]",
+          flush=True)
+
+    from darknet_tpu_torch.graph.builder import build_graph
+    from darknet_tpu_torch.weights import io as wio
+
+    final = os.path.join(backup, "yolov4_final.weights")
+    trained, seen, _v = wio.load_weights(build_graph(cfg_text), final)
+    require(seen == TRAIN_ITERS * n_img, f"seen {seen}")
+    moved = sum(float(np.abs(p["mean"]).max()) > 0 for p in trained
+                if "mean" in p)
+    ck = np.load(os.path.join(backup, "yolov4_last.ckpt.npz"))
+    mom = sum(float(np.abs(ck[k]).max()) > 0 for k in ck.files
+              if k.startswith("opt/u/") and k.endswith("/w"))
+    print(f"trained: rolling means moved in {moved} layers, momentum "
+          f"nonzero in {mom} conv weights, avg loss {avg:.4f}", flush=True)
+    require(moved > 100 and mom > 100, "moved rolling statistics and "
+            "nonzero momentum buffers")
+
+    # (c) train to serve: the trained weights through the region kernel
+    with warnings.catch_warnings():
+        warnings.simplefilter("ignore")
+        net = Network.from_cfg(cfg_text, weights=final,
+                               compute_dtype=torch.bfloat16, device=DEVICE)
+    frame = np.random.default_rng(5).uniform(
+        0, 1, (SERVE_BATCH, SERVE_PX, SERVE_PX, 3)).astype(np.float32)
+    kfr.launches = 0
+    tb, ov, probs = net.submit_detect_device(frame)
+    dets = net.device_out_to_dets(tb, ov, probs)
+    served = kfr.launches
+    print(f"trained weights served: {sum(len(d) for d in dets)} detections "
+          f"over {SERVE_BATCH} images, region kernel launches {served}",
+          flush=True)
+    require(served == 1, "one region kernel launch serving the trained net")
+    require(bool(torch.isfinite(tb).all() & torch.isfinite(probs).all())
+            and len(dets) == SERVE_BATCH, "finite served outputs")
+    del net
+    return {"s_iter": s_iter, "img_s": n_img / s_iter, "peak": peak,
+            "bucket": bucket}
+
+
 def main() -> int:
     import torch
 
@@ -967,6 +1414,8 @@ def main() -> int:
     serve = phase_serve(card)
     phase_int8_kernel()
     int8 = phase_int8_serve(card, serve["img_s"])
+    phase_train_parity()
+    phase_train_full(card)
 
     print(card, flush=True)
     print(json.dumps({"kernels": [{

@@ -1,0 +1,266 @@
+"""Image I/O and the image operations of the training data path
+(`darknet_tpu/data/image.py`, and the OpenCV calls of
+`darknet_tpu/data/augment.py`), with no OpenCV or PIL needed.
+
+Images are HWC float32 RGB in [0, 1].  8-bit PNGs (gray, RGB, RGBA; not
+interlaced) are read and RGB PNGs written with the standard library
+(`zlib`, `struct`); any other file goes through cv2 or PIL where one is
+installed, and raises ImportError where neither is.  A file that cannot
+be read or decoded raises `ImageDecodeError` (or OSError), which the
+loader treats as a bad image.
+
+The five OpenCV operations, each matching OpenCV's float32 semantics:
+
+* `resize_linear`: cv::resize INTER_LINEAR (half-pixel centres, clamped
+  edges, no antialiasing), as torch's bilinear interpolate with
+  align_corners=False;
+* `pad_constant`: cv::copyMakeBorder BORDER_CONSTANT;
+* `flip_horizontal`: cv::flip(img, 1);
+* `rgb_to_hsv` / `hsv_to_rgb`: cv::cvtColor COLOR_RGB2HSV / COLOR_HSV2RGB
+  on float images (H in [0, 360), S and V in [0, 1]);
+* `gaussian_blur`: cv::GaussianBlur with a square kernel and sigma 0
+  (OpenCV's sigma rule and its fixed kernels up to 9 taps), reflect-101
+  border, as a separable depthwise conv.
+"""
+
+from __future__ import annotations
+
+import struct
+import zlib
+
+import numpy as np
+import torch
+import torch.nn.functional as F
+
+_PNG_SIG = b"\x89PNG\r\n\x1a\n"
+_FLT_EPS = np.float32(1.19209290e-07)
+
+
+class ImageDecodeError(ValueError):
+    """An image file that exists but cannot be decoded."""
+
+
+# ------------------------------------------------------------------ PNG
+
+def _paeth(a: int, b: int, c: int) -> int:
+    p = a + b - c
+    pa, pb, pc = abs(p - a), abs(p - b), abs(p - c)
+    if pa <= pb and pa <= pc:
+        return a
+    return b if pb <= pc else c
+
+
+def _unfilter(data: bytes, h: int, stride: int, bpp: int) -> np.ndarray:
+    """Undo the per-row PNG filters (None, Sub, Up, Average, Paeth)."""
+    out = np.zeros((h, stride), np.uint8)
+    prev = np.zeros(stride, np.uint8)
+    pos = 0
+    for y in range(h):
+        ft = data[pos]
+        line = np.frombuffer(data, np.uint8, stride, pos + 1)
+        pos += 1 + stride
+        if ft == 0:
+            cur = line.copy()
+        elif ft == 1:
+            cur = np.cumsum(line.reshape(-1, bpp).astype(np.int64),
+                            axis=0).astype(np.uint8).reshape(-1)
+        elif ft == 2:
+            cur = (line.astype(np.int32) + prev).astype(np.uint8)
+        elif ft in (3, 4):
+            cur = bytearray(line.tobytes())
+            up = prev.tobytes()
+            for i in range(stride):
+                a = cur[i - bpp] if i >= bpp else 0
+                b = up[i]
+                if ft == 3:
+                    cur[i] = (cur[i] + ((a + b) >> 1)) & 255
+                else:
+                    c = up[i - bpp] if i >= bpp else 0
+                    cur[i] = (cur[i] + _paeth(a, b, c)) & 255
+            cur = np.frombuffer(bytes(cur), np.uint8)
+        else:
+            raise ImageDecodeError(f"PNG filter type {ft}")
+        out[y] = cur
+        prev = cur
+    return out
+
+
+def read_png(path) -> np.ndarray | None:
+    """An 8-bit, non-interlaced PNG as an (H, W, C) uint8 array (C = 1, 3
+    or 4); None for any other PNG variant; ImageDecodeError for a file
+    that is not a PNG or is damaged."""
+    with open(path, "rb") as f:
+        blob = f.read()
+    if not blob.startswith(_PNG_SIG):
+        raise ImageDecodeError(f"{path}: not a PNG")
+    pos, idat, hdr = 8, [], None
+    try:
+        while pos < len(blob):
+            n, kind = struct.unpack(">I4s", blob[pos:pos + 8])
+            body = blob[pos + 8:pos + 8 + n]
+            if len(body) != n:
+                raise ImageDecodeError(f"{path}: truncated PNG")
+            pos += 12 + n
+            if kind == b"IHDR":
+                hdr = struct.unpack(">IIBBBBB", body)
+            elif kind == b"IDAT":
+                idat.append(body)
+            elif kind == b"IEND":
+                break
+        if hdr is None:
+            raise ImageDecodeError(f"{path}: PNG without IHDR")
+        w, h, depth, ctype, _comp, _filt, interlace = hdr
+        chans = {0: 1, 2: 3, 6: 4}.get(ctype)
+        if depth != 8 or chans is None or interlace:
+            return None
+        raw = zlib.decompress(b"".join(idat))
+    except (struct.error, zlib.error) as e:
+        raise ImageDecodeError(f"{path}: {e}") from e
+    if len(raw) < h * (1 + w * chans):
+        raise ImageDecodeError(f"{path}: truncated PNG data")
+    return _unfilter(raw, h, w * chans, chans).reshape(h, w, chans)
+
+
+def write_png(path, img: np.ndarray) -> None:
+    """An (H, W, 3) uint8 RGB array as an 8-bit PNG (filter None)."""
+    img = np.ascontiguousarray(img, np.uint8)
+    h, w, c = img.shape
+    if c != 3:
+        raise ValueError("write_png writes RGB images")
+
+    def chunk(kind, body):
+        return (struct.pack(">I", len(body)) + kind + body
+                + struct.pack(">I", zlib.crc32(kind + body) & 0xFFFFFFFF))
+    rows = np.concatenate([np.zeros((h, 1), np.uint8),
+                           img.reshape(h, w * 3)], axis=1)
+    with open(path, "wb") as f:
+        f.write(_PNG_SIG
+                + chunk(b"IHDR", struct.pack(">IIBBBBB", w, h, 8, 2, 0, 0, 0))
+                + chunk(b"IDAT", zlib.compress(rows.tobytes(), 6))
+                + chunk(b"IEND", b""))
+
+
+def load_image_rgb(path) -> np.ndarray:
+    """Load an image file -> HWC float32 RGB in [0,1]."""
+    path = str(path)
+    with open(path, "rb") as f:
+        is_png = f.read(8) == _PNG_SIG
+    m = read_png(path) if is_png else None
+    if m is not None:
+        if m.shape[2] == 1:
+            m = np.repeat(m, 3, axis=2)
+        return m[..., :3].astype(np.float32) / 255.0
+    try:
+        import cv2
+    except ImportError:
+        cv2 = None
+    if cv2 is not None:
+        m = cv2.imread(path, cv2.IMREAD_COLOR)
+        if m is None:
+            raise ImageDecodeError(f"{path}: cv2 cannot decode it")
+        return cv2.cvtColor(m, cv2.COLOR_BGR2RGB).astype(np.float32) / 255.0
+    try:
+        from PIL import Image
+    except ImportError as e:
+        raise ImportError(
+            f"{path}: only 8-bit PNGs are read without OpenCV or PIL") from e
+    try:
+        with Image.open(path) as im:
+            return np.asarray(im.convert("RGB"), dtype=np.float32) / 255.0
+    except OSError as e:
+        raise ImageDecodeError(f"{path}: {e}") from e
+
+
+# ------------------------------------------------------- the OpenCV ops
+
+def resize_linear(img: np.ndarray, w: int, h: int) -> np.ndarray:
+    """cv::resize(img, (w, h), INTER_LINEAR) on an HWC float32 image."""
+    t = torch.from_numpy(np.ascontiguousarray(img, np.float32))
+    y = F.interpolate(t.permute(2, 0, 1)[None], size=(h, w), mode="bilinear",
+                      align_corners=False, antialias=False)
+    return y[0].permute(1, 2, 0).contiguous().numpy()
+
+
+def pad_constant(img: np.ndarray, top: int, bottom: int, left: int,
+                 right: int, value) -> np.ndarray:
+    """cv::copyMakeBorder(BORDER_CONSTANT, value): one fill per channel."""
+    h, w, c = img.shape
+    out = np.empty((h + top + bottom, w + left + right, c), img.dtype)
+    out[:] = np.asarray(value, img.dtype)[:c]
+    out[top:top + h, left:left + w] = img
+    return out
+
+
+def flip_horizontal(img: np.ndarray) -> np.ndarray:
+    """cv::flip(img, 1)."""
+    return np.ascontiguousarray(img[:, ::-1])
+
+
+def rgb_to_hsv(img: np.ndarray) -> np.ndarray:
+    """cv::cvtColor(COLOR_RGB2HSV) on float32 (RGB2HSV_f)."""
+    r, g, b = (img[..., i].astype(np.float32) for i in range(3))
+    v = np.maximum(np.maximum(r, g), b)
+    diff = v - np.minimum(np.minimum(r, g), b)
+    s = diff / (np.abs(v) + _FLT_EPS)
+    diff = np.float32(60.0) / (diff + _FLT_EPS)
+    h = np.where(v == r, (g - b) * diff,
+                 np.where(v == g, (b - r) * diff + np.float32(120.0),
+                          (r - g) * diff + np.float32(240.0)))
+    h = np.where(h < 0, h + np.float32(360.0), h)
+    return np.stack([h, s, v], axis=-1).astype(np.float32)
+
+
+def hsv_to_rgb(img: np.ndarray) -> np.ndarray:
+    """cv::cvtColor(COLOR_HSV2RGB) on float32, as OpenCV's vector path
+    (HSV2RGB_simd) computes it for every pixel of an image whose pixel
+    count is a multiple of the vector width: sector = trunc(h * 6/360)
+    modulo 6 by truncation and f = h - trunc(h), so a negative hue (a
+    hue shift below 0) lands in sector 0 with a negative f, where the
+    scalar path would wrap it by 360.  S and V are not clamped."""
+    h, s, v = (img[..., i].astype(np.float32) for i in range(3))
+    h = h * np.float32(6.0 / 360.0)
+    pre = np.trunc(h)
+    f = h - pre
+    sector = pre - np.trunc(pre * np.float32(1.0 / 6.0)) * np.float32(6.0)
+    one = np.float32(1.0)
+    t0, t1 = v, v * (one - s)
+    t2, t3 = v * (one - s * f), v * (one - s * (one - f))
+    b = np.where(sector < 2, t1, np.where(sector <= 2, t3, np.where(
+        sector <= 4, t0, t2)))
+    g = np.where(sector < 1, t3, np.where(sector <= 2, t0, np.where(
+        sector <= 3, t2, t1)))
+    r = np.where(sector < 1, t0, np.where(sector < 2, t2, np.where(
+        sector < 4, t1, np.where(sector <= 4, t3, t0))))
+    return np.stack([r, g, b], axis=-1).astype(np.float32)
+
+
+# getGaussianKernel's fixed kernels for 1-9 taps when sigma <= 0
+_SMALL_GAUSS = {1: [1.0], 3: [0.25, 0.5, 0.25],
+                5: [0.0625, 0.25, 0.375, 0.25, 0.0625],
+                7: [0.03125, 0.109375, 0.21875, 0.28125, 0.21875, 0.109375,
+                    0.03125],
+                9: [0.015625, 0.05078125, 0.1171875, 0.19921875, 0.234375,
+                    0.19921875, 0.1171875, 0.05078125, 0.015625]}
+
+
+def gaussian_kernel(n: int) -> np.ndarray:
+    """cv::getGaussianKernel(n, 0, CV_32F)."""
+    if n in _SMALL_GAUSS:
+        return np.asarray(_SMALL_GAUSS[n], np.float32)
+    sigma = ((n - 1) * 0.5 - 1) * 0.3 + 0.8
+    x = np.arange(n, dtype=np.float64) - (n - 1) * 0.5
+    t = np.exp(x * x * (-0.5 / (sigma * sigma)))
+    return (t * (1.0 / t.sum())).astype(np.float32)
+
+
+def gaussian_blur(img: np.ndarray, k: int) -> np.ndarray:
+    """cv::GaussianBlur(img, (k, k), 0): separable, reflect-101 border."""
+    kern = torch.from_numpy(gaussian_kernel(k))
+    t = torch.from_numpy(np.ascontiguousarray(img, np.float32))
+    c = t.shape[2]
+    x = t.permute(2, 0, 1)[None]
+    r = k // 2
+    x = F.pad(x, (r, r, r, r), mode="reflect")
+    x = F.conv2d(x, kern.view(1, 1, 1, k).expand(c, 1, 1, k), groups=c)
+    x = F.conv2d(x, kern.view(1, 1, k, 1).expand(c, 1, k, 1), groups=c)
+    return x[0].permute(1, 2, 0).contiguous().numpy()

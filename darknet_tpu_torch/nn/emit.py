@@ -1,9 +1,10 @@
-"""Graph IR -> forward function, inference only (`darknet_tpu/nn/emit.py`).
+"""Graph IR -> forward function (`darknet_tpu/nn/emit.py`).
 
 `make_forward(graph)` returns `forward(params, x) -> {"heads", "raw_heads",
 "output"}` over NHWC tensors.  It keeps only the outputs that a later layer reads
 again (liveness over route/shortcut edges) and dispatches per layer for
-the kinds the yolo v3/v4 serving path uses.
+the kinds the yolo v3/v4 serving path uses.  `make_forward(graph,
+train=True)` is the training forward (`_make_train_forward`).
 
 Fused regions (`ops/fused_region.py`) run in the reference's "hybrid"
 form: the stride-1 step prefix of a region (`hybrid_prefix`; for yolov4
@@ -22,6 +23,7 @@ a region, a step whose layer carries a calibrated "x_scale" does too.
 from __future__ import annotations
 
 import torch
+from torch.utils.checkpoint import checkpoint
 
 from darknet_tpu_torch.ops import shapes as shapeops
 from darknet_tpu_torch.ops import yolo as yoloops
@@ -101,7 +103,8 @@ def region_conv_indices(graph) -> set:
 
 
 def make_forward(graph, *, compute_dtype=None, fuse_regions="hybrid",
-                 probe_conv_absmax: bool = False):
+                 probe_conv_absmax: bool = False, train: bool = False,
+                 train_act_dtype=None, remat: bool | str = False):
     """Build `forward(params, x) -> {"heads", "raw_heads", "output"}`:
     the activated heads, the head inputs before activation, and the last
     layer's output.  A conv whose params carry "w_q" runs the int8 conv
@@ -114,7 +117,14 @@ def make_forward(graph, *, compute_dtype=None, fuse_regions="hybrid",
     compute_dtype None (or float32) is the f32 parity path; bfloat16 is
     the serving path (convs on the tensor cores, activations stored in
     bf16, heads returned as computed).  params are post-BN-fold torch
-    params (`nn/params.params_to_torch`)."""
+    params (`nn/params.params_to_torch`).
+
+    train=True builds the training forward instead (`_make_train_forward`;
+    unfolded params from `nn/params.train_params_to_torch`)."""
+    if train:
+        return _make_train_forward(graph, compute_dtype=compute_dtype,
+                                   train_act_dtype=train_act_dtype,
+                                   remat=remat)
     from darknet_tpu_torch.ops.fused_region import plan_graph_regions
     from darknet_tpu_torch.ops.stem import stem_pattern
 
@@ -181,4 +191,93 @@ def make_forward(graph, *, compute_dtype=None, fuse_regions="hybrid",
         return r
 
     forward.region_plans = plans
+    return forward
+
+
+def _make_train_forward(graph, *, compute_dtype=None, train_act_dtype=None,
+                        remat: bool | str = False):
+    """The training forward (`darknet_tpu/nn/emit.py:100-464`, train=True):
+    `forward(params, x) -> {"heads", "raw_heads", "bn_stats", "output"}`,
+    with "bn_stats" {conv index: (batch mean, batch var)} detached for the
+    rolling update and "raw_heads" the head inputs the deltas apply to.
+
+    Every conv runs `ops/conv.conv_block(train=True)` (live batch norm, no
+    region plan, no stem fold: the JAX package plans regions for training
+    only on a TPU).  train_act_dtype (bf16: act16) carries the interlayer
+    tensors and the y_hat residuals at reduced precision, except the
+    outputs of convs that feed a head, which stay f32.  remat=True
+    recomputes each conv block in the backward pass
+    (`torch.utils.checkpoint`).  stopbackward/onlyforward detach a layer's
+    output; train_only_bn is the optimizer's gate.  Not ported: remat
+    "steps"/"all" (region-only levels), dropout and crop in training (they
+    need the JAX rng stream), layer kinds the serving path lacks, and heads
+    other than [yolo]."""
+    if remat not in (False, True):
+        raise NotImplementedError(
+            f"remat={remat!r}: only False and True are ported (the "
+            f"region-only levels have no region in the port's training)")
+    layers = graph.layers
+    live = _liveness(graph)
+    head_feed = {j - 1 for j, l in enumerate(layers) if l.kind in HEAD_KINDS}
+    for i, l in enumerate(layers):
+        if l.kind in HEAD_KINDS and l.kind != "yolo":
+            raise NotImplementedError(
+                f"layer {i}: training a {l.kind!r} head is not ported yet")
+        if l.kind in ("dropout", "crop"):
+            raise NotImplementedError(
+                f"layer {i}: {l.kind} in training is not ported yet")
+
+    def conv(cur, p, l, res_dt):
+        return conv_block(cur, p, l, train=True, compute_dtype=compute_dtype,
+                          res_dtype=res_dt)
+
+    def forward(params, x):
+        outs: dict = {}
+        bn_stats: dict = {}
+        heads: list = []
+        raw_heads: list = []
+        cur = x
+        for i, l in enumerate(layers):
+            k = l.kind
+            if k == "convolutional":
+                p = params[l.share_index if l.share_index is not None else i]
+                res_dt = train_act_dtype if i not in head_feed else None
+                if remat:
+                    cur, st = checkpoint(conv, cur, p, l, res_dt,
+                                         use_reentrant=False)
+                else:
+                    cur, st = conv(cur, p, l, res_dt)
+                if st is not None:
+                    bn_stats[i] = (st[0].detach(), st[1].detach())
+                if train_act_dtype is not None and i not in head_feed:
+                    cur = cur.to(train_act_dtype)
+            elif k == "maxpool":
+                cur = maxpool_block(cur, l, train=True)
+            elif k == "route":
+                cur = shapeops.route([outs[s] for s in l.layers],
+                                     l.groups, l.group_id)
+            elif k == "shortcut":
+                cur = shapeops.shortcut(cur, outs[l.from_layer],
+                                        l.activation)
+            elif k == "upsample" and not l.reverse:
+                cur = shapeops.upsample(cur, l.stride, l.scale)
+            elif k == "activation":
+                cur = apply_activation(cur, l.activation)
+            elif k == "yolo":
+                raw_heads.append(cur)
+                cur = yoloops.yolo_activate(cur, l)
+                heads.append(cur)
+            elif k in ("empty", "blank"):
+                pass
+            else:
+                raise NotImplementedError(
+                    f"layer {i}: kind {k!r} is not ported yet")
+            if l.stopbackward or l.onlyforward:
+                # BackwardNetwork stops here (network.cpp:179-181)
+                cur = cur.detach()
+            if i in live:
+                outs[i] = cur
+        return {"heads": heads, "raw_heads": raw_heads,
+                "bn_stats": bn_stats, "output": cur}
+
     return forward

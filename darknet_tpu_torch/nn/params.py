@@ -13,6 +13,9 @@ one dict per layer:
   {"w_q": int8 HWIO, "w_scale": (n,)} and optionally "x_scale";
 * connected / batchnorm / local as in the JAX package;
 * every other layer: {}.
+
+`train_params_to_torch` / `train_params_to_numpy` carry the unfolded
+params to torch leaf tensors for training and back.
 """
 
 from __future__ import annotations
@@ -198,6 +201,64 @@ def resolve_device(device) -> torch.device:
             "no CUDA card: the port runs on the card unless the caller "
             "passes device=\"cpu\"")
     return device
+
+
+TRAINABLE = ("w", "b", "scales")
+
+
+def _is_conv_w(l, k) -> bool:
+    return l.kind == "convolutional" and k == "w"
+
+
+def train_params_to_torch(graph, np_params: list, device="cuda") -> list:
+    """Unfolded numpy params (`init_params` or `weights/io.load_weights`:
+    "w", "b", "scales", "mean", "var") -> float32 leaf tensors on `device`
+    for training, copied: conv weights turn from HWIO into OIHW
+    (channels_last); "w", "b" and "scales" require grad, the rolling
+    "mean"/"var" do not.  Only the kinds the training forward runs are
+    carried: convolutional (every other layer keeps an empty dict)."""
+    out = numpy_to_train_layout(
+        graph, [p if l.kind == "convolutional" else {}
+                for l, p in zip(graph.layers, np_params)],
+        resolve_device(device))
+    for q in out:
+        for k, t in q.items():
+            t.requires_grad_(k in TRAINABLE)
+    return out
+
+
+def train_params_to_numpy(graph, params: list) -> list:
+    """The inverse of `train_params_to_torch` for any list of dicts shaped
+    like the params (the params themselves, or optimizer slots): float32
+    numpy copies, conv weights back in HWIO, for `weights/io.save_weights`,
+    checkpoints and comparison with the JAX package."""
+    out = []
+    for l, p in zip(graph.layers, params):
+        q = {}
+        for k, v in p.items():
+            a = v.detach().float().cpu().numpy()
+            q[k] = np.array(np.transpose(a, (2, 3, 1, 0))
+                            if _is_conv_w(l, k) else a)
+        out.append(q)
+    return out
+
+
+def numpy_to_train_layout(graph, np_dicts: list, device) -> list:
+    """HWIO numpy dicts shaped like the params (the params, or optimizer
+    slots from a checkpoint) -> float32 tensor copies in the training
+    layout on `device`."""
+    out = []
+    for l, p in zip(graph.layers, np_dicts):
+        q = {}
+        for k, v in p.items():
+            a = np.asarray(v, np.float32)
+            if _is_conv_w(l, k):
+                a = np.transpose(a, (3, 2, 0, 1))
+            t = torch.tensor(a, device=device)
+            q[k] = (t.contiguous(memory_format=torch.channels_last)
+                    if _is_conv_w(l, k) else t)
+        out.append(q)
+    return out
 
 
 def params_to_torch(graph, np_params: list, device="cuda",

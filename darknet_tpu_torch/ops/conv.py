@@ -1,4 +1,5 @@
-"""Inference convolution blocks (`darknet_tpu/ops/conv.py`) in torch.
+"""Convolution blocks (`darknet_tpu/ops/conv.py`) in torch: inference
+(`conv_block`, `conv_block_int8`) and training (`conv_block(train=True)`).
 
 Tensors are NHWC at every public function, as in the JAX package.  A NHWC
 tensor viewed as NCHW (`permute(0, 3, 1, 2)`) is a `channels_last` tensor,
@@ -138,9 +139,14 @@ def conv_block_int8(x, p, l, *, compute_dtype=None):
     return apply_activation(y, l.activation)
 
 
-def conv_block(x, p, l, *, compute_dtype=None):
+def conv_block(x, p, l, *, compute_dtype=None, train: bool = False,
+               res_dtype=None):
     """Inference darknet conv layer with folded BN: conv + bias, cast to
-    the compute dtype, activation."""
+    the compute dtype, activation.  train=True is the training layer
+    (`_conv_block_train`), which returns (y, bn_stats)."""
+    if train:
+        return _conv_block_train(x, p, l, compute_dtype=compute_dtype,
+                                 res_dtype=res_dtype)
     if getattr(l, "antialiasing", 0):
         raise NotImplementedError("antialiased conv is not ported yet")
     padding = darknet_conv_padding(
@@ -150,3 +156,53 @@ def conv_block(x, p, l, *, compute_dtype=None):
                    padding=padding, dilation=(l.dilation, l.dilation),
                    groups=l.groups, compute_dtype=compute_dtype)
     return apply_activation(y, l.activation)
+
+
+def batch_mean_var(y, dims):
+    """Batch statistics of mean_cpu/variance_cpu (blas.c:164-201): the
+    mean over `dims`, the variance with Bessel's 1/(N-1)."""
+    n = 1
+    for d in dims:
+        n *= y.shape[d]
+    mean = y.mean(dims, keepdim=True)
+    var = (y - mean).square().sum(dims) / max(n - 1, 1)
+    return mean.squeeze(dims), var
+
+
+def _conv_block_train(x, p, l, *, compute_dtype=None, res_dtype=None):
+    """Training darknet conv layer (`darknet_tpu/ops/conv.py:153-213`,
+    train=True): conv, then live batch norm + activation through
+    `ops/train_epilogue.bn_act_train`, or bias + activation.  Returns
+    (y, (batch mean, batch var) or None).
+
+    compute_dtype None (or float32) is full f32 with TF32 off.  bf16 runs a
+    bf16 conv (f32 accumulation, bf16 out; its backward is cuDNN's bf16
+    backward); the epilogue then runs in f32, unless `res_dtype` is set
+    on a batch-normalised conv (keep_lp): then the bf16 conv output goes
+    straight into the epilogue, which keeps y_hat and its output at
+    res_dtype.  p holds unfolded OIHW params ("w", "b"[, "scales"])."""
+    if getattr(l, "antialiasing", 0):
+        raise NotImplementedError("antialiased conv is not ported yet")
+    cd = None if compute_dtype in (None, torch.float32) else compute_dtype
+    padding = darknet_conv_padding(
+        l.size, l.pad, l.dilation, (l.h, l.w), (l.stride_y, l.stride_x),
+        (l.out_h, l.out_w))
+    w = p["w"]
+    xn = x.to(cd or torch.float32).permute(0, 3, 1, 2)
+    xn, pad = _nchw_padding(xn, padding, w.shape[2:], (l.stride_y, l.stride_x),
+                            l.dilation)
+    with precise(torch.float32):
+        y = F.conv2d(xn, w.to(cd or torch.float32), None,
+                     stride=(l.stride_y, l.stride_x), padding=pad,
+                     dilation=(l.dilation, l.dilation), groups=l.groups)
+    y = y.permute(0, 2, 3, 1)
+    bn = l.batch_normalize and "scales" in p
+    keep_lp = res_dtype is not None and cd is not None and bn
+    if cd is not None and not keep_lp:
+        y = y.float()
+    if bn:
+        from darknet_tpu_torch.ops.train_epilogue import bn_act_train
+
+        return bn_act_train(l.activation, res_dtype if keep_lp else None,
+                            res_dtype, y, p["scales"], p["b"])
+    return apply_activation(y + p["b"], l.activation), None

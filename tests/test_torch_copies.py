@@ -133,3 +133,20 @@ def test_entry_points_default_to_the_card():
     with warnings.catch_warnings():
         warnings.simplefilter("ignore")
         assert Network.from_cfg(cfg, device="cpu").device.type == "cpu"
+
+
+@pytest.mark.parametrize("module", ["config/metadata.py", "utils/metrics.py",
+                                    "data/labels.py", "train/schedule.py"])
+def test_verbatim_copies(module):
+    """The training slice's jax-free modules are copied whole: the same
+    code as the JAX package's, the module docstring aside."""
+    import ast
+
+    repo = pathlib.Path(__file__).resolve().parents[1]
+
+    def body(pkg):
+        tree = ast.parse((repo / pkg / module).read_text())
+        return [ast.dump(n) for n in tree.body
+                if not (isinstance(n, ast.Expr)
+                        and isinstance(n.value, ast.Constant))]
+    assert body("darknet_tpu_torch") == body("darknet_tpu")

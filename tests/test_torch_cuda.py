@@ -17,7 +17,10 @@ GEMM and the implicit-GEMM int8 conv equal their plain versions bitwise
 differences between devices (tests/test_torch_int8.py), so each card
 conv is held to the CPU's on the card's own input (rtol 1e-6, the mish
 tolerance), and the card's served kept set to the CPU serving program's
-on the card's heads.
+on the card's heads.  Training: two f32 steps (accum 2) of chip_smoke.py's
+narrow CSP + SPP graph on the card against the CPU (updates and rolling
+statistics within 1e-4 of the largest change after one step, 2e-3
+after two), and DetectorTrainer on its card defaults (bf16, act16).
 """
 
 import warnings
@@ -353,3 +356,47 @@ def test_int8_serving_on_card(cuda, monkeypatch, tmp_path):
     assert _kept(probs.cpu()) == kept
     np.testing.assert_allclose(a, b, rtol=1e-5, atol=1e-5)
     np.testing.assert_allclose(ov.cpu().numpy(), cv, atol=1e-5)
+
+
+@pytest.mark.cuda
+def test_train_steps_on_card_match_cpu(cuda):
+    cs = chip_smoke()
+    g = cs.quiet_graph(cs.TRAIN_CSP_CFG, train=True)
+    p0 = tparams.init_params(g, seed=0)
+    x, y = cs.train_batch(g, 4, seed=1)
+    card, c_card = cs.train_steps(g, p0, x, y, cuda)
+    cpu, c_cpu = cs.train_steps(g, p0, x, y, "cpu")
+    np.testing.assert_allclose(c_card, c_cpu, rtol=1e-5)
+    for n, tol in ((0, 1e-4), (1, 2e-3)):
+        for keys in (("w", "b", "scales"), ("mean", "var")):
+            err, scale = cs.update_gap(card[n], cpu[n], p0, keys)
+            assert scale > 0 and err <= tol * scale, (n, keys, err, scale)
+
+
+@pytest.mark.cuda
+def test_trainer_on_card_defaults(cuda, tmp_path):
+    """DetectorTrainer without device= trains on the card in bf16 with
+    bf16 interlayer tensors: finite losses, the weights and the state
+    saved, no kernel launched."""
+    from darknet_tpu_torch.data import synth
+    from darknet_tpu_torch.train.trainer import DetectorTrainer
+
+    cs = chip_smoke()
+    files = synth.generate(str(tmp_path / "data"), n_train=8, n_val=2,
+                           seed=3)
+    cfg = cs.TRAIN_CSP_CFG.replace("subdivisions=1", "subdivisions=2")
+    losses = []
+    before = cfr.launches
+    tr = DetectorTrainer(cfg, files["train_paths"], classes=4,
+                         save_dir=str(tmp_path / "out"), loader_processes=0,
+                         log=losses.append)
+    try:
+        assert tr.compute_dtype == torch.bfloat16 and tr.act16
+        assert tr.params[0]["w"].is_cuda
+        tr.train(max_iters=2)
+    finally:
+        tr.close()
+    assert cfr.launches == before
+    assert sum(line.startswith("[000") for line in losses) == 2
+    assert (tmp_path / "out" / "model_final.weights").exists()
+    assert (tmp_path / "out" / "model_last.ckpt.npz").exists()

@@ -1,9 +1,11 @@
 """darknet_tpu_torch stands alone: a subprocess blocks jax, jaxlib and the
 JAX package `darknet_tpu` with a meta-path finder, imports the port and
 serves yolov4 at 64 px on the CPU, in f32 and in int8 (quantized,
-calibrated); and no source of the port, nor the chip scripts
-(chip_smoke.py, chip_int8_shapes.py, chip_region_tiles.py), imports any
-of the three."""
+calibrated); another blocks OpenCV (cv2) and PIL too and trains 3
+iterations through `train_detector` on the port's synth set (nonzero
+image batches, non-empty truths, finite losses); and no source of the
+port, nor the chip scripts (chip_smoke.py, chip_int8_shapes.py,
+chip_region_tiles.py), imports any of the three."""
 
 import os
 import pathlib
@@ -63,16 +65,121 @@ print("SERVED", sum(len(d) for d in dets), len(host))
 """
 
 
-def test_port_serves_with_jax_blocked():
+BLOCKED_TRAIN = r"""
+import sys
+
+class Block:
+    def find_spec(self, name, path=None, target=None):
+        if name.split(".")[0] in ("jax", "jaxlib", "darknet_tpu", "cv2",
+                                  "PIL"):
+            raise ImportError(f"blocked: {name}")
+        return None
+
+sys.meta_path.insert(0, Block())
+import json, math, os, warnings
+import numpy as np
+import torch
+torch.set_num_threads(2)
+from darknet_tpu_torch.data import loader, synth
+from darknet_tpu_torch.train.trainer import train_detector
+
+seen = []
+next_batch = loader.DetectionLoader.next
+
+def spy(self):
+    x, y = next_batch(self)
+    seen.append(((x != 0).mean(), int((y[:, :, 0] > 0).sum())))
+    return x, y
+
+loader.DetectionLoader.next = spy
+root = sys.argv[1]
+files = synth.generate(os.path.join(root, "data"), n_train=12, n_val=2, seed=1)
+cfg = os.path.join(root, "m.cfg")
+with open(cfg, "w") as f:
+    f.write(CFG)
+data = os.path.join(root, "obj.data")
+with open(files["data"]) as f, open(data, "w") as g:
+    g.write(f.read() + "save = " + root + "\n")
+with warnings.catch_warnings():
+    warnings.simplefilter("ignore")
+    avg = train_detector(data, cfg, max_iters=3, device="cpu",
+                         metrics_path=os.path.join(root, "m.jsonl"))
+with open(os.path.join(root, "m.jsonl")) as f:
+    losses = [json.loads(l)["loss"] for l in f if '"loss"' in l]
+assert len(losses) == 3 and all(math.isfinite(v) for v in losses), losses
+assert math.isfinite(avg)
+assert len(seen) >= 3 and all(nz > 0.9 and n > 0 for nz, n in seen), seen
+assert os.path.exists(os.path.join(root, "m_final.weights"))
+bad = [m for m in sys.modules
+       if m.split(".")[0] in ("jax", "jaxlib", "darknet_tpu", "cv2", "PIL")]
+assert not bad, bad
+print("TRAINED", losses)
+"""
+
+TRAIN_CFG = """[net]
+batch=4
+subdivisions=2
+width=32
+height=32
+channels=3
+learning_rate=0.001
+burn_in=0
+mosaic=1
+hue=.1
+saturation=1.5
+exposure=1.5
+[convolutional]
+batch_normalize=1
+filters=8
+size=3
+stride=2
+pad=1
+activation=mish
+[maxpool]
+size=2
+stride=2
+[convolutional]
+batch_normalize=1
+filters=16
+size=3
+stride=1
+pad=1
+activation=leaky
+[convolutional]
+filters=27
+size=1
+stride=1
+pad=1
+activation=linear
+[yolo]
+mask=0,1,2
+anchors=8,8, 16,20, 28,24
+classes=4
+num=3
+iou_loss=ciou
+"""
+
+
+def run_blocked(script, *args):
     env = dict(os.environ)
     env["PYTHONPATH"] = os.pathsep.join(
         [str(REPO)] + [p for p in env.get("PYTHONPATH", "").split(os.pathsep)
                        if p])
-    proc = subprocess.run([sys.executable, "-c", BLOCKED_SERVE], cwd=REPO,
+    proc = subprocess.run([sys.executable, "-c", script, *args], cwd=REPO,
                           env=env, capture_output=True, text=True,
                           timeout=300)
     assert proc.returncode == 0, proc.stderr[-3000:]
-    assert "SERVED" in proc.stdout
+    return proc.stdout
+
+
+def test_port_serves_with_jax_blocked():
+    assert "SERVED" in run_blocked(BLOCKED_SERVE)
+
+
+def test_port_trains_without_jax_opencv_or_pil(tmp_path):
+    script = BLOCKED_TRAIN.replace("f.write(CFG)",
+                                   f"f.write({TRAIN_CFG!r})")
+    assert "TRAINED" in run_blocked(script, str(tmp_path))
 
 
 @pytest.mark.parametrize("path", sorted(
