@@ -135,11 +135,14 @@ TRAIN_PARITY_STEPS = 2
 TRAIN_ACCUM = 2
 TOL_TRAIN = 2e-3
 YARDSTICK = 3.0
+YARDSTICK_V4 = 10.0       # yolov4's bound: this times its yardstick, capped
+CAP = 0.3                 # at CAP of the update (see the CPU step test)
 TRAIN_IMAGES = 256
 TRAIN_IMAGE_PX = ((416, 640), (416, 640))   # synth image sizes (w, h)
 TRAIN_ITERS = 6
 TRAIN_LOADER_PROCS = 7
-TRAIN_PROFILED_ITER = TRAIN_ITERS     # the last; not in s/iter
+TRAIN_PROFILED_ITER = 3    # the second on the 896 bucket; the end-to-end
+                           # window is the iterations after it
 
 NARROW_CSP_CFG = """[net]
 width=200
@@ -1128,24 +1131,37 @@ def train_batch(graph, b, seed):
     return x, y
 
 
-def train_steps(graph, p0, x, y, device, dtype=None):
-    """Numpy params after each of TRAIN_PARITY_STEPS steps, and costs."""
+def train_state0(graph, p0):
+    """The numpy training state before the first step: (params, zero
+    momentum buffers, counter 0)."""
+    from darknet_tpu_torch.nn import params as paramlib
+    from darknet_tpu_torch.train.step import init_opt_state
+
+    o = init_opt_state(graph, paramlib.train_params_to_torch(graph, p0, "cpu"))
+    return p0, paramlib.train_params_to_numpy(graph, o["u"]), 0
+
+
+def train_stepper(graph, device, dtype=None):
+    """One training step on `device` from a numpy state (params, momentum
+    buffers, iteration counter): returns (the state after it, its cost)."""
     import torch
 
     from darknet_tpu_torch.nn import params as paramlib
-    from darknet_tpu_torch.train.step import init_opt_state, make_train_step
+    from darknet_tpu_torch.train.step import make_train_step
 
     step = make_train_step(graph, accum=TRAIN_ACCUM, compute_dtype=dtype,
                            train_act_dtype=dtype)
-    p = paramlib.train_params_to_torch(graph, p0, device)
-    o = init_opt_state(graph, p)
-    snaps, costs = [], []
-    for _ in range(TRAIN_PARITY_STEPS):
+
+    def run(state, x, y):
+        params, u, t = state
+        p = paramlib.train_params_to_torch(graph, params, device)
+        o = {"t": t, "u": paramlib.numpy_to_train_layout(graph, u, device)}
         p, o, c, _m = step(p, o, torch.from_numpy(x).to(device),
                            torch.from_numpy(y).to(device), graph.net.lr)
-        snaps.append(paramlib.train_params_to_numpy(graph, p))
-        costs.append(float(c))
-    return snaps, costs
+        return ((paramlib.train_params_to_numpy(graph, p),
+                 paramlib.train_params_to_numpy(graph, o["u"]), o["t"]),
+                float(c))
+    return run
 
 
 def update_gap(a, b, p0, keys):
@@ -1161,6 +1177,11 @@ def update_gap(a, b, p0, keys):
 
 
 def phase_train_parity():
+    """Phase 8 (a): each f32 step on the card from the state the CPU run
+    reached before it (params, momentum, counter), held to the CPU's step
+    from that state: updates, rolling statistics and momentum buffers.
+    Run freely, yolov4's steps diverge on f32 rounding alone (see the CPU
+    step test), so each step starts from the CPU's state."""
     import torch
 
     from darknet_tpu_torch import model_zoo
@@ -1174,45 +1195,54 @@ def phase_train_parity():
         x, y = train_batch(g, TRAIN_PARITY_BATCH, seed)
         noise = np.random.default_rng(99).standard_normal(x.shape)
         x_eps = (x * (1 + 1e-7 * noise)).astype(np.float32)
-        t0 = time.perf_counter()
-        cpu, c_cpu = train_steps(g, p0, x, y, "cpu")
-        t1 = time.perf_counter()
-        card, c_card = train_steps(g, p0, x, y, DEVICE)
-        card_eps, _ = train_steps(g, p0, x_eps, y, DEVICE)
-        t2 = time.perf_counter()
-        require(all(np.isfinite(c) for c in c_card), f"{name}: finite costs")
+        on_cpu, on_card = train_stepper(g, "cpu"), train_stepper(g, DEVICE)
+        state = state0 = train_state0(g, p0)
+        t_cpu = t_card = 0.0
         for n in range(TRAIN_PARITY_STEPS):
+            t0 = time.perf_counter()
+            cpu, c_cpu = on_cpu(state, x, y)
+            t1 = time.perf_counter()
+            card, c_card = on_card(state, x, y)
+            card_eps, _ = on_card(state, x_eps, y)
+            t_cpu, t_card = t_cpu + t1 - t0, t_card + time.perf_counter() - t1
+            require(np.isfinite(c_card) and card[2] == cpu[2] == n + 1,
+                    f"{name} step {n + 1}: a finite cost and the counter")
+            if n == 0:
+                first, c_first = card, c_card
             line = []
-            for keys in (trainable, stats):
-                err, scale = update_gap(card[n], cpu[n], p0, keys)
-                yard, _ = update_gap(card[n], card_eps[n], p0, keys)
-                tight = TOL_TRAIN if n else 1e-4
+            for what, i, keys in (("updates", 0, trainable),
+                                  ("stats", 0, stats),
+                                  ("momentum", 1, trainable)):
+                err, scale = update_gap(card[i], cpu[i], state[i], keys)
+                yard, _ = update_gap(card[i], card_eps[i], state[i], keys)
                 if name.startswith("yolov4"):
-                    ok = err <= YARDSTICK * yard + 1e-4 * scale
+                    ok = err <= min(YARDSTICK_V4 * yard + 1e-4 * scale,
+                                    CAP * scale)
                 else:
-                    ok = err <= max(tight * scale, YARDSTICK * yard)
-                line.append(f"{'updates' if keys == trainable else 'stats'} "
-                            f"err {err:.3g} of {scale:.3g} (1e-7 input "
-                            f"change: {yard:.3g})")
+                    ok = err <= max((TOL_TRAIN if n else 1e-4) * scale,
+                                    YARDSTICK * yard)
+                line.append(f"{what} err {err:.3g} of {scale:.3g} (1e-7 "
+                            f"input change: {yard:.3g})")
                 require(scale > 0 and ok, f"{name} step {n + 1}: the card's "
-                        f"{keys} agree with the CPU run")
-            print(f"train parity {name} step {n + 1}: cost card "
-                  f"{c_card[n]:.6g} cpu {c_cpu[n]:.6g}; " + "; ".join(line),
-                  flush=True)
+                        f"{what} agree with the CPU's")
+            print(f"train parity {name} step {n + 1} (from the CPU's state): "
+                  f"cost card {c_card:.6g} cpu {c_cpu:.6g}; "
+                  + "; ".join(line), flush=True)
+            state = cpu
         print(f"train parity {name}: {TRAIN_PARITY_STEPS} steps, CPU "
-              f"{t1 - t0:.1f} s, card (two runs) {t2 - t1:.1f} s", flush=True)
+              f"{t_cpu:.1f} s, card (two runs) {t_card:.1f} s", flush=True)
         if name.startswith("narrow"):
-            bf, c_bf = train_steps(g, p0, x, y, DEVICE, torch.bfloat16)
+            bf, c_bf = train_stepper(g, DEVICE, torch.bfloat16)(state0, x, y)
             ua = np.concatenate([(d[k] - d0[k]).ravel() for d, d0 in
-                                 zip(card[0], p0) for k in sorted(d0)
+                                 zip(first[0], p0) for k in sorted(d0)
                                  if k in trainable])
             ub = np.concatenate([(d[k] - d0[k]).ravel() for d, d0 in
                                  zip(bf[0], p0) for k in sorted(d0)
                                  if k in trainable])
             cos = float(ua @ ub / (np.linalg.norm(ua) * np.linalg.norm(ub)))
-            rel = abs(c_bf[0] - c_card[0]) / abs(c_card[0])
-            print(f"train bf16 step {name}: cost {c_bf[0]:.6g} against f32 "
-                  f"{c_card[0]:.6g} (rel {rel:.3g}), updates' cosine "
+            rel = abs(c_bf - c_first) / abs(c_first)
+            print(f"train bf16 step {name}: cost {c_bf:.6g} against f32 "
+                  f"{c_first:.6g} (rel {rel:.3g}), updates' cosine "
                   f"{cos:.6f}", flush=True)
             require(np.isfinite(ub).all() and rel <= 0.01 and cos >= 0.99,
                     "the bf16 step is finite and close to the f32 step")
@@ -1254,13 +1284,21 @@ def train_full(card, root):
         g.write(f.read() + f"save = {backup}\n")
 
     # spies: each batch's content, the loader's assembly time per batch,
-    # each step's time (synchronised) and one profiled step
-    batches, assembly, steps = [], [], []
+    # each step's time on the card's stream (CUDA events, no host sync),
+    # one profiled step, and the end-to-end window: from the loader call
+    # of the iteration after the profiled one (the card drained first) to
+    # the final save, the trainer's own loader waits, copies and metric
+    # drains inside it
+    batches, assembly, steps, marks = [], [], [], {}
     next_batch = loaderlib.DetectionLoader.next
     make_batch = loaderlib.DetectionLoader._make_batch
     make_step = trainerlib.make_train_step
+    save = trainerlib.DetectorTrainer.save
 
     def spy_next(self):
+        if len(batches) == TRAIN_PROFILED_ITER:
+            torch.cuda.synchronize()
+            marks["start"] = time.perf_counter()
         x, y = next_batch(self)
         batches.append((x.shape[1:3], float((x != 0).mean()),
                         int((y[:, :, 0] > 0).sum())))
@@ -1272,29 +1310,34 @@ def train_full(card, root):
         assembly.append(((h, w), time.perf_counter() - t))
         return out
 
+    def spy_save(self, suffix=""):
+        if suffix == "final":
+            marks["end"] = time.perf_counter()
+        return save(self, suffix)
+
     def spy_step(graph, **kw):
         step = make_step(graph, **kw)
 
         def timed(params, opt, x, y, lr):
-            def run():
-                return step(params, opt, x, y, lr)
-            torch.cuda.synchronize()
-            t = time.perf_counter()
+            hw = tuple(x.shape[1:3])
             if len(steps) + 1 == TRAIN_PROFILED_ITER:
                 res = []
-                trace_summary(lambda: res.append(run()),
-                              f"train iteration {len(steps) + 1} "
-                              f"({tuple(x.shape[1:3])})", card, 10)
-                out = res[0]
-            else:
-                out = run()
-            torch.cuda.synchronize()
-            steps.append((tuple(x.shape[1:3]), time.perf_counter() - t))
+                trace_summary(lambda: res.append(step(params, opt, x, y, lr)),
+                              f"train iteration {len(steps) + 1} ({hw})",
+                              card, 10)
+                steps.append((hw, None))
+                return res[0]
+            ev = [torch.cuda.Event(enable_timing=True) for _ in range(2)]
+            ev[0].record()
+            out = step(params, opt, x, y, lr)
+            ev[1].record()
+            steps.append((hw, ev))
             return out
         return timed
 
     loaderlib.DetectionLoader.next = spy_next
     loaderlib.DetectionLoader._make_batch = spy_make
+    trainerlib.DetectorTrainer.save = spy_save
     trainerlib.make_train_step = spy_step
     logs = []
 
@@ -1314,6 +1357,7 @@ def train_full(card, root):
     finally:
         loaderlib.DetectionLoader.next = next_batch
         loaderlib.DetectionLoader._make_batch = make_batch
+        trainerlib.DetectorTrainer.save = save
         trainerlib.make_train_step = make_step
     torch.cuda.synchronize()
     wall = time.perf_counter() - t0
@@ -1330,25 +1374,31 @@ def train_full(card, root):
     require(len(batches) >= TRAIN_ITERS and all(
         nz > 0.5 and n > 0 for _s, nz, n in batches[:TRAIN_ITERS]),
         f"nonzero batches with truths {batches}")
-    # s/iter over the bucket's iterations after its first (cuDNN's
-    # algorithm choice, allocations), the profiled one left out
-    big = [t for i, (hw, t) in enumerate(steps)
-           if hw != (SERVE_PX, SERVE_PX) and i + 1 != TRAIN_PROFILED_ITER]
-    require(len(big) >= 2, f"iterations on the multi-scale bucket: {steps}")
-    bucket = [hw for hw, _t in steps if hw != (SERVE_PX, SERVE_PX)][0]
-    s_iter = float(np.mean(big[1:]))
+    window = steps[TRAIN_PROFILED_ITER:]
+    bucket = window[0][0] if window else None
+    require(len(window) >= 2 and all(hw == bucket != (SERVE_PX, SERVE_PX)
+                                     for hw, _ev in window),
+            f"the window's iterations on the multi-scale bucket: {steps}")
+    ms = [ev[0].elapsed_time(ev[1]) if ev else None for _hw, ev in steps]
+    e2e = len(window) * n_img / (marks["end"] - marks["start"])
+    step_ms = float(np.mean(ms[TRAIN_PROFILED_ITER:]))
     asm = [t for hw, t in assembly if hw == bucket]
+    each = ", ".join(f"{hw[1]}:{t / 1e3:.3f}s" if t else f"{hw[1]}:profiled"
+                     for (hw, _ev), t in zip(steps, ms))
     print(f"train yolov4-{SERVE_PX} batch={n_img} subdivisions="
-          f"{net_cfg.subdiv} mosaic bf16 "
-          f"act16: bucket {bucket[1]}x{bucket[0]}; steps "
-          f"{', '.join(f'{hw[1]}:{t:.3f}s' for hw, t in steps)}; after the "
-          f"first {bucket[1]} iteration {s_iter:.3f} s/iter, "
-          f"{n_img / s_iter:.2f} img/s; losses "
+          f"{net_cfg.subdiv} mosaic bf16 act16: bucket {bucket[1]}x"
+          f"{bucket[0]}; steps by CUDA events {each}; "
+          f"end to end over iterations {TRAIN_PROFILED_ITER + 1}-"
+          f"{len(steps)}: {len(window) * n_img} images in "
+          f"{marks['end'] - marks['start']:.3f} s, {e2e:.2f} img/s; the "
+          f"step {step_ms / 1e3:.3f} s by CUDA events, "
+          f"{n_img * 1e3 / step_ms:.2f} img/s; losses "
           f"{', '.join(f'{v:.4f}' for v in losses)}; peak memory "
-          f"{peak / 2**30:.2f} GiB; loader {n_img / np.mean(asm):.2f} img/s "
-          f"({np.mean(asm):.3f} s a batch, {TRAIN_LOADER_PROCS} processes) "
-          f"beside the step's {n_img / s_iter:.2f} img/s; wall "
-          f"{wall:.1f} s for {TRAIN_ITERS} iterations with saves [{card}]",
+          f"{peak / 2**30:.2f} GiB; loader {n_img / np.mean(asm):.2f} "
+          f"img/s ({np.mean(asm):.3f} s a batch, {TRAIN_LOADER_PROCS} "
+          f"processes); wall {wall:.1f} s for {TRAIN_ITERS} iterations, "
+          f"{t0 + wall - marks['end']:.1f} s of it after the window (the "
+          f"final saves, the loader's close) [{card}]",
           flush=True)
 
     from darknet_tpu_torch.graph.builder import build_graph
@@ -1385,8 +1435,7 @@ def train_full(card, root):
     require(bool(torch.isfinite(tb).all() & torch.isfinite(probs).all())
             and len(dets) == SERVE_BATCH, "finite served outputs")
     del net
-    return {"s_iter": s_iter, "img_s": n_img / s_iter, "peak": peak,
-            "bucket": bucket}
+    return {"img_s": e2e, "step_ms": step_ms, "peak": peak, "bucket": bucket}
 
 
 def main() -> int:

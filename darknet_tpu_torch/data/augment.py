@@ -240,29 +240,6 @@ def blend_truth_mosaic(new_truth, old_truth, w, h, cut_x, cut_y, i_quad,
             new_t += 1
 
 
-def save_augmented_sample(img, truth, path: str) -> None:
-    """`-show_imgs` equivalent (data.cpp:631-666): dump the augmented image
-    with its transformed truth boxes drawn (1-pixel outlines), as a PNG."""
-    out = (np.clip(img, 0, 1) * 255).astype(np.uint8).copy()
-    h, w = out.shape[:2]
-    color = np.asarray((150, 100, 50), np.uint8)
-    for t in truth:
-        if not t[0]:
-            break
-        x, y, bw, bh = t[0], t[1], t[2], t[3]
-        x0, x1 = int((x - bw / 2) * w), int((x + bw / 2) * w)
-        y0, y1 = int((y - bh / 2) * h), int((y + bh / 2) * h)
-        xs = slice(max(x0, 0), min(x1, w - 1) + 1)
-        ys = slice(max(y0, 0), min(y1, h - 1) + 1)
-        for yy in (y0, y1):
-            if 0 <= yy < h:
-                out[yy, xs] = color
-        for xx in (x0, x1):
-            if 0 <= xx < w:
-                out[ys, xx] = color
-    imageops.write_png(path, out)
-
-
 def load_detection_sample(path, w, h, boxes, classes, *, jitter=0.3,
                           hue=0.1, saturation=1.5, exposure=1.5,
                           use_flip=True, use_blur=0, use_gaussian_noise=0,

@@ -79,8 +79,7 @@ class DetectionLoader:
     def __init__(self, paths, *, w, h, batch, boxes=90, classes=80,
                  jitter=0.3, hue=0.1, saturation=1.5, exposure=1.5,
                  flip=True, blur=0, gaussian_noise=0, mixup=0,
-                 threads=6, processes=0, seed=0, show_imgs=0,
-                 show_imgs_dir="."):
+                 threads=6, processes=0, seed=0, bad_dir="."):
         # cutmix: the reference refuses it for detection training
         # (data.cpp:428-432 prints and exits); mosaic+cutmix degrades to
         # plain mosaic with a warning
@@ -95,11 +94,7 @@ class DetectionLoader:
                           " using mosaic only (reference data.cpp:430)")
             mixup = 3
         self.paths = list(paths)
-        self.show_imgs = show_imgs          # dump N augmented samples/batch
-        self.show_imgs_dir = show_imgs_dir
-        self._show_counter = 0
-        if show_imgs:
-            os.makedirs(show_imgs_dir, exist_ok=True)
+        self.bad_dir = bad_dir              # where bad.list is written
         self.w, self.h = w, h
         self.batch = batch
         self.boxes = boxes
@@ -116,7 +111,7 @@ class DetectionLoader:
                 initializer=_init_worker,
                 initargs=({"paths": self.paths, "boxes": boxes,
                            "classes": classes, "aug": self.aug,
-                           "bad_dir": show_imgs_dir},))
+                           "bad_dir": bad_dir},))
             self._submit = lambda seed, w, h: self.pool.submit(
                 _worker_sample, seed, w, h)
         else:
@@ -140,7 +135,7 @@ class DetectionLoader:
     def _sample(self, seed, w, h):
         return _sample_one({"paths": self.paths, "boxes": self.boxes,
                             "classes": self.classes, "aug": self.aug,
-                            "bad_dir": self.show_imgs_dir}, seed, w, h)
+                            "bad_dir": self.bad_dir}, seed, w, h)
 
     def _make_batch(self, seed, w, h):
         rng = np.random.default_rng(seed)
@@ -206,19 +201,6 @@ class DetectionLoader:
                                              ls:ls + (w - cx)]
                     blend_truth_mosaic(y[i], truth, w, h, cx, cy, quad,
                                        ls, rs, ts, bs)
-        if self.show_imgs:
-            # -show_imgs (data.cpp:631-666): dump augmented samples with
-            # their transformed truth drawn
-            import os
-
-            from darknet_tpu_torch.data.augment import save_augmented_sample
-
-            for i in range(min(self.show_imgs, self.batch)):
-                self._show_counter += 1
-                save_augmented_sample(
-                    x[i], y[i],
-                    os.path.join(self.show_imgs_dir,
-                                 f"aug_{self._show_counter:05d}.png"))
         return x, y
 
     # ------------------------------------------------------------------

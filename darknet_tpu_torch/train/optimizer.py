@@ -95,8 +95,7 @@ def _lr_over(lr, l, batch):
 
 
 @torch.no_grad()
-def sgd_update(graph, params, grads, state, *, lr, momentum, decay, batch,
-               scrub_nan: bool = True):
+def sgd_update(graph, params, grads, state, *, lr, momentum, decay, batch):
     """One SGD + momentum step over the params list, in place; `grads` is
     a list of dicts of ascent directions (a missing entry is zero).
     Returns (params, state)."""
@@ -113,9 +112,8 @@ def sgd_update(graph, params, grads, state, *, lr, momentum, decay, batch,
             if gate is False:
                 continue                   # backlog accumulates
             if k == "w":
-                if scrub_nan:
-                    _scrub_(uk)
-                    _scrub_(pk)
+                _scrub_(uk)
+                _scrub_(pk)
                 uk -= decay * batch * pk
             pk += step * uk
             uk *= momentum
@@ -126,8 +124,7 @@ def sgd_update(graph, params, grads, state, *, lr, momentum, decay, batch,
 
 
 @torch.no_grad()
-def adam_update(graph, params, grads, state, *, lr, B1, B2, eps, decay, batch,
-                scrub_nan: bool = True):
+def adam_update(graph, params, grads, state, *, lr, B1, B2, eps, decay, batch):
     t = state["t"] + 1
     bias_corr_m = float(np.float32(1.0) - np.power(np.float32(B1),
                                                    np.float32(t)))
@@ -150,7 +147,7 @@ def adam_update(graph, params, grads, state, *, lr, B1, B2, eps, decay, batch,
             if gate is False:
                 continue                   # uk holds the backlog
             d = acc.clone()
-            if k == "w" and scrub_nan:
+            if k == "w":
                 _scrub_(d)
                 _scrub_(pk)
             d -= decay * batch * pk

@@ -49,9 +49,8 @@ def aggregate_micro_metrics(m_stk):
     return m
 
 
-def make_train_step(graph, *, compute_dtype=None, use_adam: bool | None = None,
-                    remat: bool | str = False, accum: int = 1,
-                    train_act_dtype=None):
+def make_train_step(graph, *, compute_dtype=None, remat: bool | str = False,
+                    accum: int = 1, train_act_dtype=None):
     """Build `train_step(params, opt_state, x, truths, lr)`, which updates
     `params` (from `nn/params.train_params_to_torch`) and `opt_state` in
     place and returns (params, opt_state, cost, metrics).
@@ -62,8 +61,6 @@ def make_train_step(graph, *, compute_dtype=None, use_adam: bool | None = None,
     residuals in bf16, the head-feeding convs' outputs excepted.
     remat=True recomputes each conv block in the backward pass."""
     net = graph.net
-    if use_adam is None:
-        use_adam = net.adam
     # the training forward refuses heads other than [yolo]
     heads = [l for l in graph.layers if l.kind in HEAD_KINDS]
     fwd = make_forward(graph, train=True, compute_dtype=compute_dtype,
@@ -114,7 +111,7 @@ def make_train_step(graph, *, compute_dtype=None, use_adam: bool | None = None,
                     g[k] = v.grad / loss_scale if loss_scale != 1.0 else v.grad
             grads.append(g)
 
-        if use_adam:
+        if net.adam:
             opt.adam_update(graph, params, grads, opt_state, lr=lr, B1=net.B1,
                             B2=net.B2, eps=net.eps, decay=net.decay,
                             batch=net.optimizer_batch)
@@ -154,12 +151,9 @@ def make_train_step(graph, *, compute_dtype=None, use_adam: bool | None = None,
     return step
 
 
-def init_opt_state(graph, params, use_adam: bool | None = None, *,
-                   iter0: int = 0):
+def init_opt_state(graph, params, *, iter0: int = 0):
     """Optimizer slots for `params`; iter0 is the current iteration when
     resuming from weights (seen / optimizer_batch), which the update gates
-    compare against."""
-    if use_adam is None:
-        use_adam = graph.net.adam
+    compare against.  SGD or Adam as the cfg's [net] says."""
     return opt.init_adam_state(params, iter0=iter0, graph=graph) \
-        if use_adam else opt.init_sgd_state(params, iter0=iter0)
+        if graph.net.adam else opt.init_sgd_state(params, iter0=iter0)

@@ -52,8 +52,8 @@ class DetectorTrainer:
                  clear=False, mesh=None, compute_dtype=None, seed=0,
                  calc_map=False, save_dir="backup",
                  save_name="model", loader_threads=6, loader_processes=-1,
-                 log=print, metrics_path=None, show_imgs=0, remat=False,
-                 act16=None, full_state=True, resume=False,
+                 log=print, metrics_path=None, remat=False,
+                 act16=None, resume=False,
                  metric_lag=None, device="cuda"):
         if mesh is not None:
             raise NotImplementedError("training on a mesh is not ported yet")
@@ -95,7 +95,6 @@ class DetectorTrainer:
         self.opt_state = init_opt_state(self.graph, self.params,
                                         iter0=self.curr_iter)
 
-        self.full_state = full_state
         # the JAX package's PRNG key: no ported layer draws from it yet
         # (dropout and crop in training are not ported), but its state is
         # checkpointed with the rest
@@ -126,7 +125,7 @@ class DetectorTrainer:
             gaussian_noise=self.net.gaussian_noise, mixup=self.net.mixup,
             threads=loader_threads, processes=self._auto_procs(
                 loader_processes, loader_threads), seed=seed,
-            show_imgs=show_imgs, show_imgs_dir=save_dir)
+            bad_dir=save_dir)
 
         self._step_cache: dict = {}
         self._graph_cache: dict = {}
@@ -288,8 +287,7 @@ class DetectorTrainer:
                     iter_save = it
                     _drain_all()
                     self.save(suffix=str(it))
-                    if self.full_state:
-                        self.save_state()
+                    self.save_state()
             _drain_all()
         finally:
             for sig, h in prev_handlers.items():
@@ -298,12 +296,10 @@ class DetectorTrainer:
             self.log(f"Preempted at iteration {self.curr_iter}: "
                      f"saving resumable state")
             self.save(suffix="preempt")
-            if self.full_state:
-                self.save_state()
+            self.save_state()
             return avg_loss
         self.save(suffix="final")
-        if self.full_state:
-            self.save_state()
+        self.save_state()
         return avg_loss
 
     # ------------------------------------------------------------------

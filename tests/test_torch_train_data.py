@@ -151,7 +151,7 @@ def test_loader_zeros_an_undecodable_image(tmp_path):
     bad = tmp_path / "bad.png"
     bad.write_bytes(b"\x89PNG\r\n\x1a\n" + b"\x00" * 40)
     ld = DetectionLoader([str(bad)], w=32, h=32, batch=2, boxes=4,
-                         show_imgs_dir=str(tmp_path))
+                         bad_dir=str(tmp_path))
     try:
         x, y = ld.next()
     finally:
@@ -172,7 +172,7 @@ def test_loader_raises_without_a_decoder(tmp_path, monkeypatch):
     with pytest.raises(ImportError):
         load_image_rgb(path)
     ld = DetectionLoader([path], w=32, h=32, batch=2, boxes=4,
-                         show_imgs_dir=str(tmp_path))
+                         bad_dir=str(tmp_path))
     try:
         with pytest.raises(ImportError):
             ld.next()

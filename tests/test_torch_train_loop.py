@@ -1,12 +1,15 @@
 """The port's `train/trainer` against the JAX package's on the CPU:
 `train_detector` for 3 iterations on the same synth files at 64 px (the
 logged losses within 1e-5 relative at the first iteration and 2e-3
-after; the final `.weights` within 5e-3 of the largest weight: after one
-iteration they agree to 2e-7, and the difference grows ~50x an
-iteration through BN statistics over two-image micro-batches, to 1e-3
-after three), the multi-scale bucket picks, an exact resume (4 straight
-iterations against 2, save, load, 2: equal to the bit), and the entry
-points' refusals: no card without device="cpu", calc_map and a mesh.
+after; the updates in the final `.weights` (final - init), the trainable
+ones within 1e-3 of the largest trainable update and the rolling
+statistics within 5e-3 of their largest change: after one iteration
+both agree to 4e-6, and the difference grows through BN statistics over
+two-image micro-batches, to 1.2e-4 and 1.6e-3 after three), the
+multi-scale bucket picks, an exact resume (4 straight
+iterations against 2, save, load, 2: equal to the bit), a start from a
+`.weights` file with and without clear, and the entry points' refusals:
+no card without device="cpu", calc_map and a mesh.
 
 The cfg has no maxpool: on synth images (flat colour regions) a
 maxpool's windows hold exact ties, and which positions tie exactly
@@ -26,6 +29,8 @@ import torch
 from darknet_tpu.train.trainer import DetectorTrainer as JTrainer
 from darknet_tpu.train.trainer import train_detector as jtrain_detector
 from darknet_tpu_torch.data import synth
+from darknet_tpu_torch.graph.builder import build_graph
+from darknet_tpu_torch.nn.params import init_params
 from darknet_tpu_torch.train.trainer import DetectorTrainer, train_detector
 from darknet_tpu_torch.weights import io as wio
 
@@ -166,9 +171,17 @@ def test_train_detector_matches_jax(data):
     with open(jw, "rb") as fj, open(tw, "rb") as ft:
         bj, bt = fj.read(), ft.read()
     assert bj[:20] == bt[:20] and len(bj) == len(bt)   # header, seen
-    wj = np.frombuffer(bj[20:], np.float32)
-    wt = np.frombuffer(bt[20:], np.float32)
-    assert np.abs(wt - wj).max() <= 5e-3 * np.abs(wj).max()
+    graph = build_graph(CFG.format(random=0), train=True)
+    p0 = init_params(graph, seed=0)         # what both trainers start from
+    pj, pt = wio.load_weights(graph, jw)[0], wio.load_weights(graph, tw)[0]
+    for keys, tol in ((("w", "b", "scales"), 1e-3), (("mean", "var"), 5e-3)):
+        err = scale = 0.0
+        for dj, dt, d0 in zip(pj, pt, p0):
+            for k in keys:
+                if k in d0:
+                    err = max(err, float(np.abs(dt[k] - dj[k]).max()))
+                    scale = max(scale, float(np.abs(dj[k] - d0[k]).max()))
+        assert scale > 0 and err <= tol * scale, (keys, err, scale)
 
 
 def test_multiscale_buckets_match_jax(data):
@@ -237,3 +250,27 @@ def test_entry_points_refuse(data):
         DetectorTrainer(cfg, files["train_paths"], classes=4, device="cpu",
                         mesh=object())
     assert not os.path.exists(os.path.join(_out, "m_final.weights"))
+
+
+@pytest.mark.parametrize("clear", [False, True])
+def test_weights_and_clear_match_jax(data, clear):
+    """Starting from a .weights file: its `seen` carries over (and sets
+    the iteration counter) unless clear=True, as in the JAX package."""
+    root, files = data
+    out, cfg, _d = setup_run(root, files, f"clear{int(clear)}")
+    graph = build_graph(CFG.format(random=0), train=True)
+    path = str(out / "start.weights")
+    wio.save_weights(graph, init_params(graph, seed=7), path, seen=48)
+    kw = dict(weights=path, clear=clear, classes=4, loader_processes=0,
+              log=lambda *_: None)
+    tt = DetectorTrainer(cfg, files["train_paths"], device="cpu", **kw)
+    jt = JTrainer(cfg, files["train_paths"], **kw)
+    try:
+        assert tt.seen == jt.seen == (0 if clear else 48)
+        assert tt.opt_state["t"] == int(jt.opt_state["t"]) == tt.curr_iter
+        np.testing.assert_array_equal(
+            tt.params[0]["w"].detach().permute(2, 3, 1, 0).numpy(),
+            init_params(graph, seed=7)[0]["w"])
+    finally:
+        tt.close()
+        jt.close()
