@@ -1,7 +1,7 @@
 """Smoke run of darknet_tpu_torch on one CUDA card: build the region
 kernel and the int8 GEMM, check each against its plain version, serve
-yolov4-608 through the public API in bf16 and in int8, train it, and
-report.
+yolov4-608 through the public API in bf16 and in int8, train it,
+validate it and the rest of the yolo zoo, and report.
 
     python3 chip_smoke.py
 
@@ -17,8 +17,10 @@ Phases, each of which fails the run (non-zero exit) on any error:
      weight passes; each check prints its error and the share of elements
      that differ;
   4. yolov4-608 serving at b=8 in bf16 through Network.submit_detect_device
-     and device_out_to_dets (one request uint8), with the kernel's launch
-     count rising on every request; one f32 request against the same
+     and device_out_to_dets, with the kernel's launch count rising on
+     every request; one request uint8 (divided by 255 on the card) and
+     one of its f32 copy divided on the host, whose served triples must
+     be bitwise equal; one f32 request against the same
      network with the plain region; bf16 img/s (median and spread of 5
      windows of 100 requests after 30 untimed ones); at b=8, the serving
      shape, the bf16 kernel held to its plain version (one ulp, with the
@@ -47,7 +49,7 @@ Phases, each of which fails the run (non-zero exit) on any error:
      torch._int_mm's on the same operands and the bound; int8 img/s beside
      the bf16 rate of phase 4; a profile of one request;
   7. a JSON line of the kernels, then {"ok": true, "device": ...} last
-     (printed after phase 8);
+     (printed after phase 9);
   8. training (train/step, train/trainer), which launches neither kernel,
      as in the JAX package:
      (a) parity on the card: the narrow CSP + SPP graph (TRAIN_CSP_CFG,
@@ -70,7 +72,25 @@ Phases, each of which fails the run (non-zero exit) on any error:
          launch are required;
      (c) train to serve: the saved .weights load through
          Network.from_cfg(compute_dtype=bf16) and serve one request, the
-         region kernel's count rising by one.
+         region kernel's count rising by one;
+  9. validation (eval/map, the CLI, in-training mAP), at full width:
+     (a) yolov3, yolov3-spp, yolov3-tiny and yolov4-tiny at 416 px, b=8:
+         one bf16 request each, and one f32 request through the kernel
+         against the plain region on probe params (equal kept sets once
+         slots are matched by box); each cfg's region launches;
+     (b) yolov4-608 `-mode valid` through the CLI's main over 64 synth
+         images (a cut: synthetic images, and probe weights written as
+         .weights whose objectness threshold .005 sits in a gap of the
+         whole set's logits, 24 candidates an image and head, since at
+         random init all 22,743 pass and the host NMS never ends): one
+         region launch a batch of 8, the same net through the plain
+         region giving the same MapResult; the mAP, the prediction rate
+         and the whole call's rate, and a bf16 network's beside them;
+     (c) the same with -int8 -int8_calib 4 -calib_file: 91 int8 launches
+         a batch;
+     (d) DetectorTrainer.evaluate_map (f32, batch 4) over 16 of the
+         images, before and after one training iteration: 4 region
+         launches a call, a finite mAP, the time of each call.
 
 Weights are random (numpy, seed 0); the training images are drawn from a
 seed into a temporary directory; no file outside the checkout is read.
@@ -143,6 +163,19 @@ TRAIN_ITERS = 6
 TRAIN_LOADER_PROCS = 7
 TRAIN_PROFILED_ITER = 3    # the second on the 896 bucket; the end-to-end
                            # window is the iterations after it
+# validation (phase 9): the zoo at ZOO_PX, b=8 (BN scale of its lively
+# params: the deep leaky graphs saturate at 1.5), then yolov4-608 over a
+# synth set through the CLI at its batch of 8, and in-training mAP
+ZOO = {"yolov3": 1.2, "yolov3-spp": 1.2, "yolov3-tiny": 1.5,
+       "yolov4-tiny": 1.5}
+ZOO_PX = 416
+VALID_IMAGES = 64
+VALID_BATCH = 8
+VALID_THRESH = 0.005      # validate_detector's detection threshold
+VALID_PASS = 24           # objectness candidates an image and head over it
+VALID_CLASSES = 80        # the published head width; synth labels use 0-3
+MAP_VALID_IMAGES = 16
+MAP_BATCH = 4             # DetectorTrainer.evaluate_map's batch
 
 NARROW_CSP_CFG = """[net]
 width=200
@@ -385,25 +418,27 @@ def quiet_graph(cfg, train=False):
 PROBE_PASS = 24          # candidates per head that pass the threshold
 
 
-def probe_params(graph, seed=0, obj_bias=None):
+def probe_params(graph, seed=0, obj_bias=None, gains=(30.0, 280.0, 1300.0),
+                 bn_scale=1.5):
     """Numpy params (BN folded) for the f32 kernel-vs-plain request.
 
     At random init yolov4's heads sit at sigmoid(~0), where every score
     ties and the kept set is decided by f32 noise.  Here the trunk runs
-    with BN scales 1.5, each head's x/y/obj channels are scaled up, its
-    w/h and class channels read no input (w/h bias 0: anchor-sized boxes;
-    one class per anchor at bias +12, the rest at -12), and `obj_bias`
-    (one value per head) places the score threshold in a wide gap of the
-    objectness logits, so that no decision sits within noise of it."""
+    with BN scales `bn_scale`, each head's x/y/obj channels are scaled by
+    its gain (yolov4's by default), its w/h and class channels read no
+    input (w/h bias 0: anchor-sized boxes; one class per anchor at bias
+    +12, the rest at -12), and `obj_bias` (one value per head) places the
+    score threshold in a wide gap of the objectness logits, so that no
+    decision sits within noise of it."""
     from darknet_tpu_torch.nn import params as paramlib
 
     p = paramlib.init_params(graph, seed=seed)
     for d in p:
         if "scales" in d:
-            d["scales"] = d["scales"] * np.float32(1.5)
+            d["scales"] = d["scales"] * np.float32(bn_scale)
     p = paramlib.fuse_conv_batchnorm(graph, p)
     heads = [l for l in graph.layers if l.kind == "yolo"]
-    for hi, (l, gain) in enumerate(zip(heads, (30.0, 280.0, 1300.0))):
+    for hi, (l, gain) in enumerate(zip(heads, gains)):
         d = p[l.index - 1]
         w, b = d["w"] * np.float32(gain), np.zeros_like(d["b"])
         e = 5 + l.classes
@@ -712,15 +747,18 @@ def phase_serve(card):
     shape = (SERVE_BATCH, SERVE_PX, SERVE_PX, 3)
     frames = [rng.uniform(0, 1, shape).astype(
         np.float32) for _ in range(3)]
-    frames[1] = (frames[1] * 255).astype(np.uint8)
+    # one uint8 batch, and its f32 copy divided on the host
+    u8 = (frames[1] * 255).astype(np.uint8)
+    frames[1:2] = [u8, u8.astype(np.float32) / 255]
 
     # the main path, counted: reset just before, read just after
     kfr.launches = 0
-    counts, results = [], []
+    counts, results, triples = [], [], []
     for f in frames:
         tb, ov, probs = net.submit_detect_device(f)
         dets = net.device_out_to_dets(tb, ov, probs)
         counts.append(kfr.launches)
+        triples.append((tb, ov, probs))
         require(tb.shape[0] == SERVE_BATCH and tb.shape[2] == 4,
                 f"boxes shape {tuple(tb.shape)}")
         require(bool(torch.isfinite(tb).all() & torch.isfinite(probs).all()),
@@ -730,8 +768,17 @@ def phase_serve(card):
     launches = kfr.launches
     print("serve requests", len(frames), "launch counts", counts,
           "detections", results, flush=True)
-    require(counts == [1, 2, 3],
+    require(counts == [1, 2, 3, 4],
             f"one region kernel launch per request, got {counts}")
+    # uint8 divided by 255 on the card and on the host: both correctly
+    # rounded f32 divisions, so the same input and the same triple
+    diff = max(float((a.float() - b.float()).abs().max())
+               for a, b in zip(triples[1], triples[2]))
+    same = all(torch.equal(a, b) for a, b in zip(triples[1], triples[2]))
+    print(f"uint8 request against its host-divided f32 copy: bitwise equal "
+          f"{same} (largest difference {diff})", flush=True)
+    require(same, "the uint8 and the f32 requests serve the same triple")
+    del triples
 
     img_s, spread, rates = serve_rate(net, frames[0])
 
@@ -794,7 +841,7 @@ def phase_serve(card):
     # whose score threshold sits in a gap of the plain path's logits
     g = net.graph
     del net
-    x2 = torch.from_numpy(frames[2]).to(DEVICE)
+    x2 = torch.from_numpy(frames[3]).to(DEVICE)
 
     def f32_net(params, mode):
         return Network(g, paramlib.params_to_torch(g, params, DEVICE,
@@ -810,7 +857,7 @@ def phase_serve(card):
         del probe, raw
         for mode in ("hybrid", "plain"):
             f32[mode] = f32_net(npar, mode).submit_detect_device(
-                frames[2], thresh=0.25, top_k=256)
+                frames[3], thresh=0.25, top_k=256)
     (ka, oa, pa), (kb, ob, pb) = f32["hybrid"], f32["plain"]
     box_err = float((ka - kb).abs().max())
     n_cand = int((ob > 0).sum())
@@ -1438,6 +1485,295 @@ def train_full(card, root):
     return {"img_s": e2e, "step_ms": step_ms, "peak": peak, "bucket": bucket}
 
 
+def kept_matched(a, b):
+    """(kept (image, slot, class) set of triple a, the same of triple b
+    with each slot of a matched to b's slot of the nearest box, the
+    largest box difference over a's candidates over the threshold)."""
+    ta, tb = a[0].float().cpu().numpy(), b[0].float().cpu().numpy()
+    slot = np.abs(ta[:, :, None, :] - tb[:, None, :, :]).max(-1).argmin(-1)
+    pb = np.take_along_axis(b[2].float().cpu().numpy(), slot[..., None], 1)
+    box = np.take_along_axis(tb, slot[..., None], 1)
+    live = a[1].float().cpu().numpy() > 0
+    err = float(np.abs(ta - box)[live].max()) if live.any() else 0.0
+    return kept(a[2]), set(zip(*np.nonzero(pb > 0))), err
+
+
+def phase_zoo(card):
+    """Phase 9 (a): the rest of the yolo zoo at ZOO_PX, b=8: one bf16
+    request each, and one f32 request with the kernel against the plain
+    region on probe params (heads scaled to an objectness spread of about
+    2, the threshold in a gap of the logits); equal kept sets."""
+    import torch
+
+    from darknet_tpu_torch import Network, model_zoo
+    from darknet_tpu_torch.nn import params as paramlib
+    from darknet_tpu_torch.ops.cuda import fused_region as kfr
+
+    x = np.random.default_rng(9).uniform(
+        0, 1, (SERVE_BATCH, ZOO_PX, ZOO_PX, 3)).astype(np.float32)
+    xt = torch.from_numpy(x).to(DEVICE)
+    for name, bn_scale in ZOO.items():
+        fn = model_zoo.yolov3_spp_cfg if name == "yolov3-spp" else \
+            model_zoo.MODELS[name]
+        with warnings.catch_warnings():
+            warnings.simplefilter("ignore")
+            net = Network.from_cfg(fn(ZOO_PX, ZOO_PX), seed=0,
+                                   compute_dtype=torch.bfloat16,
+                                   device=DEVICE)
+        kfr.launches = 0
+        tb, ov, probs = net.submit_detect_device(x)
+        dets = net.device_out_to_dets(tb, ov, probs)
+        bf16_launches = kfr.launches
+        require(bool(torch.isfinite(tb).all() & torch.isfinite(probs).all())
+                and tb.shape[0] == SERVE_BATCH and tb.shape[2] == 4
+                and len(dets) == SERVE_BATCH, f"{name} bf16 request")
+        g = net.graph
+        del net
+
+        def f32_net(params, mode, g=g):
+            return Network(g, paramlib.params_to_torch(g, params, DEVICE),
+                           device=DEVICE, fuse_regions=mode)
+
+        n_heads = sum(l.kind == "yolo" for l in g.layers)
+        with torch.backends.cudnn.flags(enabled=True, allow_tf32=False), \
+                torch.inference_mode():
+            p = probe_params(g, gains=(1.0,) * n_heads, bn_scale=bn_scale)
+            net = f32_net(p, "plain")
+            raw = net._fwd(net.params, xt)["raw_heads"]
+            gains = [2.0 / float(h.reshape(-1, 3, h.shape[-1] // 3)[..., 4]
+                                 .std()) for h in raw]
+            net = f32_net(probe_params(g, gains=gains, bn_scale=bn_scale),
+                          "plain")
+            raw = net._fwd(net.params, xt)["raw_heads"]
+            npar = probe_params(g, gains=gains, bn_scale=bn_scale,
+                                obj_bias=obj_bias_for(raw, 0.25))
+            del net, raw
+            kfr.launches = 0
+            a = f32_net(npar, "hybrid").submit_detect_device(x, thresh=0.25)
+            f32_launches = kfr.launches
+            b = f32_net(npar, "plain").submit_detect_device(x, thresh=0.25)
+        ka, kb, err = kept_matched(a, b)
+        print(f"zoo {name}-{ZOO_PX} b={SERVE_BATCH}: region launches bf16 "
+              f"{bf16_launches}, f32 {f32_launches}; bf16 detections "
+              f"{sum(len(d) for d in dets)}; f32 kernel kept {len(ka)} vs "
+              f"plain {len(kb)} (slots matched), box max err {err:.3g} "
+              f"[{card}]", flush=True)
+        require(ka == kb and len(ka) > 0 and err <= 1e-4,
+                f"{name}: the f32 kernel path keeps what the plain path "
+                f"keeps")
+        require(f32_launches == bf16_launches,
+                f"{name}: one launch per planned region in both dtypes")
+
+
+def unfolded(graph, params):
+    """Folded numpy params as `.weights` params: identity BN (scales 1,
+    mean 0, var 1 - 1e-5 in f32, whose fold divides by exactly 1), so a
+    load that folds BN gives `params` back exactly."""
+    one = np.float32(1) - np.float32(1e-5)
+    out = []
+    for l, p in zip(graph.layers, params):
+        p = dict(p)
+        if l.kind == "convolutional" and l.batch_normalize:
+            n = p["b"].shape[0]
+            p.update(scales=np.ones(n, np.float32),
+                     mean=np.zeros(n, np.float32),
+                     var=np.full(n, one, np.float32))
+        out.append(p)
+    return out
+
+
+def phase_validate(card):
+    root = tempfile.mkdtemp(prefix="chip_smoke_valid_")
+    try:
+        return validate(card, root)
+    finally:
+        shutil.rmtree(root, ignore_errors=True)
+
+
+def validate(card, root):
+    """Phase 9 (b)-(d), the data and the weights under `root`."""
+    import torch
+
+    from darknet_tpu_torch import Network, model_zoo
+    from darknet_tpu_torch.apps import cli
+    from darknet_tpu_torch.data import synth
+    from darknet_tpu_torch.data.image import (load_image_rgb,
+                                              resize_image_darknet)
+    from darknet_tpu_torch.eval import map as maplib
+    from darknet_tpu_torch.ops import nms as nmslib
+    from darknet_tpu_torch.ops import quant_matmul as qm
+    from darknet_tpu_torch.ops.cuda import fused_region as kfr
+    from darknet_tpu_torch.train.trainer import DetectorTrainer
+    from darknet_tpu_torch.weights import io as wio
+
+    files = synth.generate(os.path.join(root, "data"),
+                           n_train=MAP_VALID_IMAGES, n_val=VALID_IMAGES,
+                           seed=1)
+    names = os.path.join(root, "all.names")
+    with open(names, "w") as f:
+        f.write("\n".join(synth.NAMES + [f"c{i}" for i in range(
+            len(synth.NAMES), VALID_CLASSES)]) + "\n")
+    data = os.path.join(root, "obj.data")
+    with open(data, "w") as f:
+        f.write(f"classes = {VALID_CLASSES}\ntrain = {files['train_list']}\n"
+                f"valid = {files['val_list']}\nnames = {names}\n"
+                f"save = {os.path.join(root, 'backup')}\n")
+    cfg_text = model_zoo.yolov4_cfg(SERVE_PX, SERVE_PX)
+    cfg = os.path.join(root, "yolov4.cfg")
+    with open(cfg, "w") as f:
+        f.write(cfg_text)
+    g = quiet_graph(cfg_text)
+    weights = os.path.join(root, "probe.weights")
+
+    # probe weights whose threshold sits in a gap of the objectness logits
+    # of the whole set (VALID_PASS candidates an image and head), so that
+    # no decision of any image lies within f32 noise of it
+    wio.save_weights(g, unfolded(g, probe_params(g)), weights)
+    with warnings.catch_warnings():
+        warnings.simplefilter("ignore")
+        net = Network.from_cfg(cfg, weights=weights, device=DEVICE,
+                               fuse_regions="plain")
+    raw = []
+    with torch.inference_mode():
+        for s in range(0, VALID_IMAGES, VALID_BATCH):
+            x = np.stack([resize_image_darknet(load_image_rgb(p), SERVE_PX,
+                                               SERVE_PX)
+                          for p in files["val_paths"][s:s + VALID_BATCH]])
+            raw.append(net._fwd(net.params, torch.from_numpy(x).to(
+                DEVICE))["raw_heads"])
+    raw = [torch.cat(h) for h in zip(*raw)]
+    bias = obj_bias_for(raw, VALID_THRESH, VALID_PASS * VALID_IMAGES)
+    del net, raw
+    wio.save_weights(g, unfolded(g, probe_params(g, obj_bias=bias)), weights)
+
+    # spies: each validate_detector run with the kernels' counts set to 0
+    # just before it and read just after, and the host NMS's time
+    runs, nms_s = [], [0.0]
+    validate_detector, nms_numpy = maplib.validate_detector, nmslib.nms_numpy
+
+    def spy_validate(net, *a, **kw):
+        kfr.launches = qm.launches = 0
+        res = validate_detector(net, *a, **kw)
+        runs.append({"net": net, "res": res, "region": kfr.launches,
+                     "int8": qm.launches})
+        return res
+
+    def spy_nms(*a, **kw):
+        t = time.perf_counter()
+        out = nms_numpy(*a, **kw)
+        nms_s[0] += time.perf_counter() - t
+        return out
+
+    def report(label, run, wall, nms):
+        r = run["res"]
+        print(f"valid {label}: mAP@0.5 {r.map:.6g}, {r.n_pred} predictions, "
+              f"{r.n_gt} GT; prediction {r.imgs_per_s:.2f} img/s "
+              f"({r.pred_time_s:.3f} s: forward, decode, host NMS; host "
+              f"NMS {nms:.3f} s), whole call {VALID_IMAGES / wall:.2f} img/s "
+              f"({wall:.3f} s, loading included); region launches "
+              f"{run['region']}, int8 {run['int8']} [{card}]", flush=True)
+
+    argv = ["-mode", "valid", "-data_file", data, "-model_file", cfg,
+            "-weights_file", weights, "-device", DEVICE]
+    calib = os.path.join(root, "yolov4-608.scales")
+    batches = VALID_IMAGES // VALID_BATCH
+    maplib.validate_detector, nmslib.nms_numpy = spy_validate, spy_nms
+    try:
+        # (b) the CLI, f32 (its default), then the same net with the plain
+        # region, and a bf16 network beside it
+        nms_s[0] = 0.0
+        t0 = time.perf_counter()
+        cli.main(argv)
+        wall = time.perf_counter() - t0
+        f32 = runs[-1]
+        report(f"yolov4-{SERVE_PX} f32 (-mode valid)", f32, wall, nms_s[0])
+        require(f32["region"] == batches and f32["int8"] == 0,
+                f"one region launch a batch of {VALID_BATCH}: {f32['region']}")
+        plain = Network(f32["net"].graph, f32["net"].params, device=DEVICE,
+                        fuse_regions="plain")
+        res_p = spy_validate(plain, files["val_paths"], VALID_CLASSES,
+                             batch=VALID_BATCH, resize="darknet",
+                             progress=False)
+        del plain
+        a, p = f32["res"], res_p
+        print(f"valid kernel against plain: n_gt {a.n_gt} / {p.n_gt}, n_pred "
+              f"{a.n_pred} / {p.n_pred}, mAP {a.map!r} / {p.map!r}, plain "
+              f"launches {runs[-1]['region']}", flush=True)
+        require(a.n_gt == p.n_gt and a.n_pred == p.n_pred > 0
+                and a.map == p.map, "the kernel path's MapResult equals the "
+                "plain path's")
+        with warnings.catch_warnings():
+            warnings.simplefilter("ignore")
+            bnet = Network.from_cfg(cfg, weights=weights, device=DEVICE,
+                                    compute_dtype=torch.bfloat16)
+        nms_s[0] = 0.0
+        t0 = time.perf_counter()
+        spy_validate(bnet, files["val_paths"], VALID_CLASSES,
+                     batch=VALID_BATCH, resize="darknet", progress=False)
+        report(f"yolov4-{SERVE_PX} bf16 Network", runs[-1],
+               time.perf_counter() - t0, nms_s[0])
+        require(runs[-1]["region"] == batches, "bf16: a launch a batch")
+        del bnet
+        runs[:] = runs[-1:]
+
+        # (c) int8, calibrated on the first 4 images, the scales cached
+        nms_s[0] = 0.0
+        t0 = time.perf_counter()
+        cli.main(argv + ["-int8", "-int8_calib", str(INT8_CALIB_FRAMES),
+                         "-calib_file", calib])
+        wall = time.perf_counter() - t0
+        q = runs[-1]
+        report(f"yolov4-{SERVE_PX} int8 (-mode valid -int8, f32 between "
+               f"convs)", q, wall, nms_s[0])
+        require(q["int8"] == INT8_CONVS * batches and q["region"] == batches
+                and os.path.exists(calib), f"{INT8_CONVS} int8 launches a "
+                f"batch: {q['int8']} over {batches} batches")
+        require(np.isfinite(q["res"].map), "a finite int8 mAP")
+        runs.clear()
+
+        # (d) in-training mAP: DetectorTrainer.evaluate_map on the probe
+        # weights, then once more after a training iteration (the
+        # trainer's own first mAP would come at burn_in, iteration 1000),
+        # which copies the trained weights to the cached inference net
+        calls = []
+        trainer = DetectorTrainer(
+            cfg_text, files["train_paths"], weights=weights,
+            classes=VALID_CLASSES, calc_map=True,
+            val_paths=files["val_paths"][:MAP_VALID_IMAGES],
+            save_dir=os.path.join(root, "train"), device=DEVICE,
+            loader_processes=TRAIN_LOADER_PROCS, log=lambda *_: None)
+        evaluate = trainer.evaluate_map
+
+        def timed_evaluate(*a, **kw):
+            nms_s[0] = 0.0
+            t = time.perf_counter()
+            m = evaluate(*a, **kw)
+            calls.append((m, runs[-1], time.perf_counter() - t, nms_s[0]))
+            return m
+        trainer.evaluate_map = timed_evaluate
+        try:
+            trainer.evaluate_map()
+            trainer.train(max_iters=1)
+            trainer.evaluate_map()
+        finally:
+            trainer.close()
+    finally:
+        maplib.validate_detector, nmslib.nms_numpy = validate_detector, \
+            nms_numpy
+    print("in-training mAP (evaluate_map, f32, batch 4, "
+          f"{MAP_VALID_IMAGES} images): " + "; ".join(
+              f"call {i + 1}: mAP {m:.6g}, region launches {r['region']}, "
+              f"{s:.3f} s ({r['res'].n_pred} predictions, prediction "
+              f"{r['res'].pred_time_s:.3f} s, host NMS {n:.3f} s)"
+              for i, (m, r, s, n) in enumerate(calls)) + f" [{card}]",
+          flush=True)
+    want = MAP_VALID_IMAGES // MAP_BATCH
+    require(len(calls) == 2 and all(r["region"] == want and np.isfinite(m)
+                                    for m, r, _s, _n in calls),
+            "evaluate_map launches the region kernel a batch: "
+            f"{[(m, r['region']) for m, r, _s, _n in calls]}")
+
+
 def main() -> int:
     import torch
 
@@ -1465,6 +1801,8 @@ def main() -> int:
     int8 = phase_int8_serve(card, serve["img_s"])
     phase_train_parity()
     phase_train_full(card)
+    phase_zoo(card)
+    phase_validate(card)
 
     print(card, flush=True)
     print(json.dumps({"kernels": [{

@@ -1,6 +1,7 @@
-"""Image I/O and the image operations of the training data path
-(`darknet_tpu/data/image.py`, and the OpenCV calls of
-`darknet_tpu/data/augment.py`), with no OpenCV or PIL needed.
+"""Image I/O, the inference resizes and letterbox, and the image
+operations of the training data path (`darknet_tpu/data/image.py`, and
+the OpenCV calls of `darknet_tpu/data/augment.py`), with no OpenCV or PIL
+needed.
 
 Images are HWC float32 RGB in [0, 1].  8-bit PNGs (gray, RGB, RGBA; not
 interlaced) are read and RGB PNGs written with the standard library
@@ -179,6 +180,79 @@ def resize_linear(img: np.ndarray, w: int, h: int) -> np.ndarray:
     y = F.interpolate(t.permute(2, 0, 1)[None], size=(h, w), mode="bilinear",
                       align_corners=False, antialias=False)
     return y[0].permute(1, 2, 0).contiguous().numpy()
+
+
+# ------------------------------------------- inference resize, letterbox
+
+def resize_image_darknet(im: np.ndarray, w: int, h: int) -> np.ndarray:
+    """Exact port of the reference's two-pass bilinear `resize_image`
+    (image.cpp): first horizontal, then vertical, with edge clamping on the
+    last column.  im is HWC float32."""
+    ih, iw, c = im.shape
+    if (iw, ih) == (w, h):
+        return im.copy()
+    w_scale = np.float32((iw - 1) / (w - 1)) if w > 1 else np.float32(0)
+    h_scale = np.float32((ih - 1) / (h - 1)) if h > 1 else np.float32(0)
+
+    # horizontal pass -> (ih, w, c): last output column (or 1-wide input)
+    # copies the input's last column verbatim (image.cpp:594-597)
+    sx = np.arange(w, dtype=np.float32) * w_scale
+    ix = sx.astype(np.int64)
+    dx = (sx - ix).astype(np.float32)
+    ix1 = np.minimum(ix + 1, iw - 1)
+    part = (1 - dx)[None, :, None] * im[:, np.minimum(ix, iw - 1), :] + \
+        dx[None, :, None] * im[:, ix1, :]
+    last_col = (np.arange(w) == w - 1) | (iw == 1)
+    part[:, last_col, :] = im[:, iw - 1:iw, :]
+
+    # vertical pass -> (h, w, c): second tap skipped on the last row
+    # (image.cpp:619-626)
+    sy = np.arange(h, dtype=np.float32) * h_scale
+    iy = sy.astype(np.int64)
+    dy = (sy - iy).astype(np.float32)
+    iy0 = np.minimum(iy, ih - 1)
+    iy1 = np.minimum(iy + 1, ih - 1)
+    out = (1 - dy)[:, None, None] * part[iy0, :, :]
+    skip = (np.arange(h) == h - 1) | (ih == 1)
+    out += np.where(skip[:, None, None], 0.0,
+                    dy[:, None, None] * part[iy1, :, :])
+    return out.astype(np.float32)
+
+
+def resize_image_cv(im: np.ndarray, w: int, h: int) -> np.ndarray:
+    """cv::resize INTER_LINEAR, the reference CLI's inference resize
+    (`resize_linear`; no OpenCV needed)."""
+    return resize_linear(im, w, h)
+
+
+def correct_boxes_letterbox(boxes, img_w: int, img_h: int, net_w: int,
+                            net_h: int):
+    """Map relative center-format boxes from letterboxed net coords back to
+    original-image relative coords (the upstream correct_yolo_boxes
+    analogue, for the optional letterbox path)."""
+    boxes = np.asarray(boxes, dtype=np.float32).copy()
+    scale = min(net_w / img_w, net_h / img_h)
+    nw, nh = img_w * scale, img_h * scale
+    dx = (net_w - nw) / 2 / net_w
+    dy = (net_h - nh) / 2 / net_h
+    boxes[..., 0] = (boxes[..., 0] - dx) / (nw / net_w)
+    boxes[..., 1] = (boxes[..., 1] - dy) / (nh / net_h)
+    boxes[..., 2] = boxes[..., 2] / (nw / net_w)
+    boxes[..., 3] = boxes[..., 3] / (nh / net_h)
+    return boxes
+
+
+def letterbox_image(im: np.ndarray, w: int, h: int) -> np.ndarray:
+    """Aspect-preserving resize with 0.5-gray padding (upstream darknet's
+    letterbox)."""
+    ih, iw, c = im.shape
+    scale = min(w / iw, h / ih)
+    nw, nh = int(iw * scale), int(ih * scale)
+    resized = resize_image_cv(im, nw, nh)
+    out = np.full((h, w, c), 0.5, dtype=np.float32)
+    dy, dx = (h - nh) // 2, (w - nw) // 2
+    out[dy:dy + nh, dx:dx + nw, :] = resized
+    return out
 
 
 def pad_constant(img: np.ndarray, top: int, bottom: int, left: int,

@@ -103,8 +103,9 @@ def region_conv_indices(graph) -> set:
 
 
 def make_forward(graph, *, compute_dtype=None, fuse_regions="hybrid",
-                 probe_conv_absmax: bool = False, train: bool = False,
-                 train_act_dtype=None, remat: bool | str = False):
+                 fused_bn: bool = True, probe_conv_absmax: bool = False,
+                 train: bool = False, train_act_dtype=None,
+                 remat: bool | str = False):
     """Build `forward(params, x) -> {"heads", "raw_heads", "output"}`:
     the activated heads, the head inputs before activation, and the last
     layer's output.  A conv whose params carry "w_q" runs the int8 conv
@@ -134,7 +135,7 @@ def make_forward(graph, *, compute_dtype=None, fuse_regions="hybrid",
     if fuse_regions not in ("hybrid", "plain"):
         raise ValueError(f"fuse_regions must be 'hybrid' or 'plain', "
                          f"got {fuse_regions!r}")
-    plans = {} if probe_conv_absmax else plan_graph_regions(
+    plans = {} if probe_conv_absmax or not fused_bn else plan_graph_regions(
         graph, stem=stem_pattern(graph) and 0 not in live)
     runners = {a: region_runner(p, compute_dtype=cd, mode=fuse_regions)
                for a, p in plans.items()}

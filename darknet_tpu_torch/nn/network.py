@@ -7,17 +7,20 @@
 
 `from_cfg` parses the cfg with the port's graph builder, loads `.weights`
 through the port's `weights/io` (or draws the numpy init from `seed`),
-folds BN, and moves the params to `device`: the CUDA card unless the
-caller names the CPU (without a card, a call that does not name the CPU
-raises).  The serving program runs on
+folds BN (unless fuse=False, or train=True), and moves the params to
+`device`: the CUDA card unless the caller names the CPU (without a card,
+a call that does not name the CPU raises).  The serving program runs on
 `device`: forward, native-order decode, objectness threshold, a stable
 top-k, probabilities, and device NMS; only the top-k candidates per image
-leave the device.
+leave the device.  An unfused network saves its `.weights`
+(`save_weights`, SaveWeights); a train=True network runs the training
+forward (batch statistics), as the JAX package's does.
 """
 
 from __future__ import annotations
 
 import dataclasses
+import json
 
 import numpy as np
 import torch
@@ -48,18 +51,59 @@ class Detection:
         return float(self.prob[self.best_class])
 
 
+def detections_to_json(dets: list, frame_id: int = 0,
+                       names: list | None = None,
+                       filename: str | None = None) -> str:
+    """Detection2Json (network.cpp:531-593): classes named `dont_show*`
+    are skipped and the filename rides in the header when given."""
+    objects = []
+    for d in dets:
+        for j in np.nonzero(d.prob > 0)[0]:
+            name = (str(names[j]) if names and j < len(names)
+                    else str(int(j)))
+            if name.startswith("dont_show"):
+                continue                       # network.cpp:556-558
+            x, y, w, h = d.bbox
+            objects.append({
+                "class_id": int(j),
+                "name": name,
+                "relative_coordinates": {
+                    "center_x": float(x), "center_y": float(y),
+                    "width": float(w), "height": float(h),
+                },
+                "confidence": float(d.prob[j]),
+            })
+    out: dict = {"frame_id": frame_id}
+    if filename is not None:
+        out["filename"] = filename             # network.cpp:542-545
+    out["objects"] = objects
+    return json.dumps(out, indent=1)
+
+
 class Network:
-    def __init__(self, graph: Graph, params: list, *, compute_dtype=None,
-                 device="cuda", seen: int = 0, fuse_regions="hybrid"):
+    def __init__(self, graph: Graph, params: list, *, fused: bool = True,
+                 train: bool = False, compute_dtype=None, device="cuda",
+                 seen: int = 0, fuse_regions="hybrid"):
+        """`params`: the port's torch params (`nn/params.params_to_torch`),
+        BN folded unless fused=False.  train=True runs the training
+        forward (BN from the batch statistics)."""
         self.graph = graph
         self.net = graph.net
         self.params = params
+        self.fused = fused
+        self.train = train
         self.compute_dtype = compute_dtype
         self.device = paramlib.resolve_device(device)
         self.seen = seen
         self._calib_absmax: dict | None = None
+        self._cfg_text: str | None = None
+        # uint8 v -> v / 255, the host's correctly rounded f32 quotients
+        self._u8_unit = torch.from_numpy(
+            np.arange(256, dtype=np.float32) / np.float32(255)).to(
+                self.device)
         self._fwd = make_forward(graph, compute_dtype=compute_dtype,
-                                 fuse_regions=fuse_regions)
+                                 fuse_regions=fuse_regions, fused_bn=fused,
+                                 train=train)
         heads = [l for l in graph.heads() if l.kind == "yolo"]
         if any(l.kind != "yolo" for l in graph.heads()):
             raise NotImplementedError("only [yolo] heads are ported yet")
@@ -68,28 +112,59 @@ class Network:
         self._nms_beta = heads[0].beta_nms if heads else 0.6
 
     @classmethod
-    def from_cfg(cls, cfg, weights=None, *, seed: int = 0,
-                 compute_dtype=None, device="cuda",
+    def from_cfg(cls, cfg, weights=None, *, train: bool = False,
+                 clear: bool = False, fuse: bool | None = None,
+                 seed: int = 0, compute_dtype=None, device="cuda",
                  fuse_regions="hybrid", int8: bool = False) -> "Network":
-        """LoadNetwork (parser.cpp:1852-1876) for inference: parse, load
-        or init, fold BN, move to `device` in the compute dtype.  int8=True
-        also quantizes the eligible convs (`nn/params.quantize_conv_params`)
-        for the int8 path (`ops/conv.conv_block_int8`)."""
+        """LoadNetwork (parser.cpp:1852-1876): parse (train=True parses the
+        training batch), load or init, fold BN unless fuse=False (default:
+        fold when not training), move to `device` in the compute dtype.
+        clear=True resets `seen`.  int8=True also quantizes the eligible
+        convs (`nn/params.quantize_conv_params`) for the int8 path
+        (`ops/conv.conv_block_int8`); it needs folded inference params."""
         device = paramlib.resolve_device(device)
-        graph = build_graph(cfg)
+        graph = build_graph(cfg, train=train)
         seen = 0
-        init = paramlib.init_params(graph, seed=seed)
+        params = paramlib.init_params(graph, seed=seed)
         if weights is not None:
             loaded, seen, _version = wio.load_weights(graph, weights)
             # layers the file did not cover keep the init
-            init = [p if p else ip for p, ip in zip(loaded, init)]
-        params = paramlib.fuse_conv_batchnorm(graph, init)
+            params = [p if p else ip for p, ip in zip(loaded, params)]
+        if fuse is None:
+            fuse = not train
+        if fuse:
+            params = paramlib.fuse_conv_batchnorm(graph, params)
         if int8:
+            if train or not fuse:
+                raise ValueError("int8 is an inference mode: it needs "
+                                 "train=False and fused BN")
             params = paramlib.quantize_conv_params(graph, params)
+        if clear:
+            seen = 0
         tparams = paramlib.params_to_torch(
             graph, params, device, compute_dtype or torch.float32)
-        return cls(graph, tparams, compute_dtype=compute_dtype,
-                   device=device, seen=seen, fuse_regions=fuse_regions)
+        net = cls(graph, tparams, fused=fuse, train=train,
+                  compute_dtype=compute_dtype, device=device, seen=seen,
+                  fuse_regions=fuse_regions)
+        if isinstance(cfg, str) and "\n" in cfg:
+            net._cfg_text = cfg
+        else:
+            with open(cfg) as f:
+                net._cfg_text = f.read()
+        return net
+
+    @property
+    def curr_iter(self) -> int:
+        return self.seen // max(self.net.optimizer_batch, 1)
+
+    def save_weights(self, path, cutoff: int | None = None) -> None:
+        """SaveWeights: the unfolded params (float32; a bf16 network's
+        weights as rounded to bf16) and `seen`, up to layer `cutoff`."""
+        if self.fused:
+            raise ValueError(
+                "params have fused BN; reload with fuse=False to save")
+        wio.save_weights(self.graph, paramlib.train_params_to_numpy(
+            self.graph, self.params), path, seen=self.seen, cutoff=cutoff)
 
     # -------------------------------------------------------- int8 scales
     def calibrate_int8(self, images, *, region_int8: bool = False) -> None:
@@ -144,7 +219,7 @@ class Network:
             raise ValueError(
                 f"input must be (H,W,C)=({self.net.h},{self.net.w},"
                 f"{self.net.c}) — got {tuple(x.shape[1:])}; resize first "
-                f"(data.image.resize_image_cv)")
+                f"(darknet_tpu_torch.data.image.resize_image_cv)")
 
     def _prep_input(self, image) -> np.ndarray:
         """Host input: uint8 frames are [0,255] and divide by 255 here."""
@@ -231,8 +306,11 @@ class Network:
         probs (B,K,classes)) on the device."""
         if x.dtype == torch.uint8:
             # frames upload as raw uint8 (1/4 of the f32 bytes) and
-            # normalize on the device
-            x = x.float() / 255.0
+            # normalize on the device through the host's own quotients:
+            # x / 255 by multiplication with a rounded reciprocal (as
+            # torch's CUDA division by a scalar computes it) differs from
+            # the host's division by one ulp for half of the 256 values
+            x = self._u8_unit[x.int()]
         r = self._fwd(self.params, x)
         boxes, obj, cls, _ = self._decode([h.float() for h in r["heads"]],
                                           order="native",

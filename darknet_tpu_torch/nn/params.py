@@ -263,15 +263,17 @@ def numpy_to_train_layout(graph, np_dicts: list, device) -> list:
 
 def params_to_torch(graph, np_params: list, device="cuda",
                     dtype=torch.float32) -> list:
-    """Numpy params (BN folded) -> the port's torch params on `device`
-    (the card unless the caller names the CPU).
+    """Numpy params (BN folded, or unfolded for `make_forward(fused_bn=
+    False)`) -> the port's torch params on `device` (the card unless the
+    caller names the CPU).
 
     Conv weights turn from HWIO into OIHW, rounded to `dtype` (the compute
     dtype) and stored channels_last as cuDNN prefers; biases stay float32.
     A bf16 network keeps its rounded weights in float32, once: the plain
     bf16 conv sums their exact products in f32 (`ops/conv.conv2d_raw`),
     and the region kernel's bf16 copy (`ops/fused_region.step_weights`)
-    is exact.  A quantized conv also carries "w_q"
+    is exact.  Unfolded BN's "scales", "mean" and "var" stay float32.  A
+    quantized conv also carries "w_q"
     as int8 (n, kh*kw*c), K ordered (kh, kw, c) (HWIO `reshape(-1, n).T`:
     both operands of the int8 GEMM K-contiguous), "w_scale" (n,) f32 and,
     when calibrated, "x_scale" (1,) f32; the float "w" stays (a region
@@ -283,17 +285,16 @@ def params_to_torch(graph, np_params: list, device="cuda",
     for l, p in zip(graph.layers, np_params):
         q = {}
         if l.kind == "convolutional" and "w" in p:
-            if "scales" in p:
-                raise ValueError(
-                    f"layer {l.index}: fold BN before params_to_torch")
             w = torch.from_numpy(np.ascontiguousarray(
                 np.transpose(np.asarray(p["w"], np.float32), (3, 2, 0, 1))))
             w = w.to(device=device, dtype=dtype)
             if dtype == torch.bfloat16:
                 w = w.float()
             q["w"] = w.contiguous(memory_format=torch.channels_last)
-            q["b"] = torch.from_numpy(
-                np.asarray(p["b"], np.float32).copy()).to(device)
+            for k in ("b", "scales", "mean", "var"):
+                if k in p:
+                    q[k] = torch.from_numpy(
+                        np.asarray(p[k], np.float32).copy()).to(device)
             if "w_q" in p:
                 w_q = np.asarray(p["w_q"], np.int8)
                 q["w_q"] = torch.from_numpy(np.ascontiguousarray(

@@ -10,7 +10,8 @@ Numerics:
 * darknet padding is asymmetric: explicit (lo, hi) pairs per edge;
 * the f32 path is full float32: TF32 is switched off around every f32
   conv (the JAX f32 path is `Precision.HIGHEST`);
-* BN is folded into w/b beforehand (`nn/params.fuse_conv_batchnorm`);
+* BN is folded into w/b beforehand (`nn/params.fuse_conv_batchnorm`), or
+  applied from its rolling statistics after the conv (`fuse=False`);
 * conv, then the bias added in f32 and the sum cast to the compute dtype
   once, then the activation (`ops/conv.py:200-210` of the reference).  In
   bf16 the conv runs on f32 copies of the bf16-rounded input and weights
@@ -35,6 +36,8 @@ import torch.nn.functional as F
 from darknet_tpu_torch.ops.activations import apply_activation
 from darknet_tpu_torch.ops.quant_matmul import (input_scale, int8_conv,
                                                 quantize_int8)
+
+BN_EPS = 1e-5
 
 
 def darknet_conv_padding(size: int, pad: int, dilation: int,
@@ -78,14 +81,14 @@ def _nchw_padding(x, padding, k, stride, dilation):
 
 
 def conv2d_raw(x, w, b=None, *, stride=(1, 1), padding=((0, 0), (0, 0)),
-               dilation=(1, 1), groups=1, compute_dtype=None):
+               dilation=(1, 1), groups=1, compute_dtype=None, out_dtype=None):
     """NHWC x OIHW -> NHWC.  compute_dtype None runs full f32 (the parity
     path).  bf16 rounds x to bf16 and sums the exact products of bf16
     values in f32 (TF32 tensor cores over f32 copies); `w` must hold bf16
     values already: a bf16 tensor, or the f32 copy that
     `nn/params.params_to_torch` keeps for a bf16 network.  `b` (optional)
-    is added to the f32 sum, which then rounds once to the compute
-    dtype."""
+    is added to the f32 sum, which then rounds once to out_dtype (the
+    compute dtype unless given)."""
     cd = compute_dtype or torch.float32
     if cd == torch.bfloat16:
         xn, wn = x.to(cd).float(), w.float()
@@ -98,7 +101,7 @@ def conv2d_raw(x, w, b=None, *, stride=(1, 1), padding=((0, 0), (0, 0)),
                      dilation=dilation, groups=groups)
     if b is not None:
         y.add_(b.float().view(-1, 1, 1))
-    return y.to(cd).permute(0, 2, 3, 1)
+    return y.to(out_dtype or cd).permute(0, 2, 3, 1)
 
 
 def conv2d_int8(x, p, *, size, stride, padding, out_hw,
@@ -141,9 +144,12 @@ def conv_block_int8(x, p, l, *, compute_dtype=None):
 
 def conv_block(x, p, l, *, compute_dtype=None, train: bool = False,
                res_dtype=None):
-    """Inference darknet conv layer with folded BN: conv + bias, cast to
-    the compute dtype, activation.  train=True is the training layer
-    (`_conv_block_train`), which returns (y, bn_stats)."""
+    """Inference darknet conv layer: conv + bias with folded BN, or, when
+    `p` carries the unfolded "scales"/"mean"/"var" of a batch-normalised
+    conv, conv then the rolling-statistics BN in f32
+    (`darknet_tpu/ops/conv.py:200-202`); cast to the compute dtype,
+    activation.  train=True is the training layer (`_conv_block_train`),
+    which returns (y, bn_stats)."""
     if train:
         return _conv_block_train(x, p, l, compute_dtype=compute_dtype,
                                  res_dtype=res_dtype)
@@ -152,9 +158,15 @@ def conv_block(x, p, l, *, compute_dtype=None, train: bool = False,
     padding = darknet_conv_padding(
         l.size, l.pad, l.dilation, (l.h, l.w), (l.stride_y, l.stride_x),
         (l.out_h, l.out_w))
-    y = conv2d_raw(x, p["w"], p["b"], stride=(l.stride_y, l.stride_x),
-                   padding=padding, dilation=(l.dilation, l.dilation),
-                   groups=l.groups, compute_dtype=compute_dtype)
+    geom = dict(stride=(l.stride_y, l.stride_x), padding=padding,
+                dilation=(l.dilation, l.dilation), groups=l.groups,
+                compute_dtype=compute_dtype)
+    if l.batch_normalize and "scales" in p:
+        y = conv2d_raw(x, p["w"], out_dtype=torch.float32, **geom)
+        y = ((y - p["mean"]) * torch.rsqrt(p["var"] + BN_EPS) * p["scales"]
+             + p["b"]).to(compute_dtype or torch.float32)
+    else:
+        y = conv2d_raw(x, p["w"], p["b"], **geom)
     return apply_activation(y, l.activation)
 
 

@@ -26,9 +26,7 @@ from __future__ import annotations
 import torch
 
 from darknet_tpu_torch.ops.activations import apply_activation
-from darknet_tpu_torch.ops.conv import batch_mean_var
-
-BN_EPS = 1e-5
+from darknet_tpu_torch.ops.conv import BN_EPS, batch_mean_var
 
 
 def batch_stats(y):

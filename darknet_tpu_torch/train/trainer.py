@@ -14,8 +14,12 @@ Reproduced behaviours:
 * the EMA loss 0.9/0.1 and the reference's log line; `.weights` every
   1000 iterations and at the end, each with the full resumable state
   (`<save_name>_last.ckpt.npz`: params, optimizer slots, seen, the torch
-  Generator state, EMA loss, bucket, chart history); `resume=` restores
-  it exactly, the loader's seed stream included;
+  Generator state, EMA loss, best mAP, bucket, loss and mAP history);
+  `resume=` restores it exactly, the loader's seed stream included;
+* in-training mAP (calc_map with val_paths): from iteration
+  max(burn_in, start) every ``map_step = max(100, iter_per_epoch)``
+  iterations and at max_iter, on an inference copy of the weights
+  (`evaluate_map`), with `<save_name>_best.weights` when it improves;
 * SIGTERM/SIGINT finish the iteration, save, and return;
 * `metric_lag`: iteration i's metrics are read once i + metric_lag steps
   have been queued, so the host does not wait for the card every step.
@@ -25,9 +29,8 @@ The device is the CUDA card unless the caller passes device="cpu"
 JAX package's accelerator defaults: bf16 compute, act16 and metric_lag 3;
 on the CPU f32, no act16 and metric_lag 0.
 
-Not ported, each refused or left out: calc_map (needs `eval/map`), the
-loss chart's rendering (the history is kept), a mesh, and the sharded
-checkpoints.
+Not ported, each refused or left out: the loss chart's rendering (the
+history is kept), a mesh, and the sharded checkpoints.
 """
 
 from __future__ import annotations
@@ -50,16 +53,13 @@ from darknet_tpu_torch.weights import io as wio
 class DetectorTrainer:
     def __init__(self, cfg, train_paths, *, weights=None, classes=80,
                  clear=False, mesh=None, compute_dtype=None, seed=0,
-                 calc_map=False, save_dir="backup",
+                 calc_map=False, val_paths=None, save_dir="backup",
                  save_name="model", loader_threads=6, loader_processes=-1,
                  log=print, metrics_path=None, remat=False,
                  act16=None, resume=False,
                  metric_lag=None, device="cuda"):
         if mesh is not None:
             raise NotImplementedError("training on a mesh is not ported yet")
-        if calc_map:
-            raise NotImplementedError(
-                "calc_map needs eval/map, which is not ported yet")
         self.device = paramlib.resolve_device(device)
         on_card = self.device.type == "cuda"
         self.graph = build_graph(cfg, train=True)
@@ -81,6 +81,9 @@ class DetectorTrainer:
         self.log = log
         self.save_dir = save_dir
         self.save_name = save_name
+        self.calc_map = calc_map
+        self.val_paths = val_paths or []
+        self.classes = classes
 
         self.seen = 0
         init = paramlib.init_params(self.graph, seed=seed)
@@ -100,8 +103,11 @@ class DetectorTrainer:
         # checkpointed with the rest
         self._gen = torch.Generator().manual_seed(0)
         self._avg_loss = -1.0
+        self._best_map = 0.0
         self._dims = None
-        self._chart = {"iters": [], "losses": []}
+        self._chart = {"iters": [], "losses": [], "map_iters": [],
+                       "maps": []}
+        self._map_net = None
         self.state_path = os.path.join(save_dir,
                                        f"{save_name}_last.ckpt.npz")
 
@@ -197,12 +203,16 @@ class DetectorTrainer:
         return max(dim_w, step), max(dim_h, step)
 
     # ------------------------------------------------------------------
-    def train(self, max_iters: int | None = None) -> float:
-        """Run the training loop.  Returns the final avg loss."""
+    def train(self, max_iters: int | None = None, map_hook=None) -> float:
+        """Run the training loop.  Returns the final avg loss.  map_hook(it,
+        mAP) is called after each in-training mAP."""
         net = self.net
         avg_loss = self._avg_loss
         avg_time = -1.0
+        best_map = self._best_map
         iter_save = self.curr_iter
+        iter_map = max(net.burn_in, self.curr_iter)
+        map_step = max(100, self.iter_per_epoch)
         end_iter = net.max_iter if max_iters is None else \
             min(net.max_iter, self.curr_iter + max_iters)
         dim_w, dim_h = self._dims if self._dims else (net.w, net.h)
@@ -283,6 +293,22 @@ class DetectorTrainer:
                 while len(pending) > self.metric_lag:
                     _drain_one()
 
+                if self.calc_map and self.val_paths and \
+                        (it >= iter_map or it == net.max_iter):
+                    _drain_all()
+                    m = self.evaluate_map()
+                    self.log(f"mAP@0.5 = {m * 100:.2f}%")
+                    self.metrics.map_event(it, m)
+                    self._chart["map_iters"].append(it)
+                    self._chart["maps"].append(m)
+                    if m > best_map:
+                        best_map = m
+                        self._best_map = m
+                        self.save(suffix="best")
+                    iter_map = it + map_step
+                    if map_hook:
+                        map_hook(it, m)
+
                 if it >= iter_save + 1000 or it % 1000 == 0:
                     iter_save = it
                     _drain_all()
@@ -303,6 +329,33 @@ class DetectorTrainer:
         return avg_loss
 
     # ------------------------------------------------------------------
+    def evaluate_map(self, iou_thresh: float = 0.5) -> float:
+        """In-training mAP on a weight-copied inference net (net_map /
+        CopyNetWeights, detector.cpp:218-253).  The inference Network is
+        built once from the inference graph and cached; every call folds
+        the current weights again and copies them to the device.  It
+        computes in f32, the JAX package's default (on the card the f32
+        region kernel), at batch 4 with the reference's own bilinear
+        resize."""
+        from darknet_tpu_torch.eval.map import validate_detector
+        from darknet_tpu_torch.nn.network import Network
+
+        net = self._map_net
+        graph = build_graph(self.cfg, train=False) if net is None else \
+            net.graph
+        params = paramlib.params_to_torch(graph, paramlib.fuse_conv_batchnorm(
+            graph, paramlib.train_params_to_numpy(self.graph, self.params)),
+            self.device)
+        if net is None:
+            net = self._map_net = Network(graph, params, device=self.device)
+        else:
+            net.params = params
+        batch = 4 if len(self.val_paths) >= 4 else 1
+        res = validate_detector(net, self.val_paths, self.classes,
+                                iou_thresh=iou_thresh, progress=False,
+                                batch=batch, resize="darknet")
+        return res.map
+
     def _numpy_state(self):
         to_np = lambda tree: paramlib.train_params_to_numpy(self.graph, tree)
         opt = {k: (v if k == "t" else to_np(v))
@@ -313,13 +366,17 @@ class DetectorTrainer:
         """Write the full resumable state (one `.ckpt.npz`)."""
         os.makedirs(self.save_dir, exist_ok=True)
         path = path or self.state_path
-        extra = {"avg_loss": self._avg_loss}
+        extra = {"avg_loss": self._avg_loss, "best_map": self._best_map}
         if self._dims:
             extra["dim_w"], extra["dim_h"] = self._dims
         if self._chart["iters"]:
             extra["chart_iters"] = np.asarray(self._chart["iters"], np.int64)
             extra["chart_losses"] = np.asarray(self._chart["losses"],
                                                np.float32)
+        if self._chart["map_iters"]:
+            extra["chart_map_iters"] = np.asarray(self._chart["map_iters"],
+                                                  np.int64)
+            extra["chart_maps"] = np.asarray(self._chart["maps"], np.float32)
         params, opt = self._numpy_state()
         ck.save_checkpoint(path, params, opt, seen=self.seen,
                            rng_key=self._gen.get_state().numpy(),
@@ -343,9 +400,15 @@ class DetectorTrainer:
         if rng is not None:
             self._gen.set_state(torch.from_numpy(np.asarray(rng, np.uint8)))
         self._avg_loss = float(extra.get("avg_loss", -1.0))
+        self._best_map = float(extra.get("best_map", 0.0))
         if "chart_iters" in extra:
-            self._chart["iters"] = [int(v) for v in extra["chart_iters"]]
-            self._chart["losses"] = [float(v) for v in extra["chart_losses"]]
+            self._chart = {
+                "iters": [int(v) for v in extra["chart_iters"]],
+                "losses": [float(v) for v in extra["chart_losses"]],
+                "map_iters": [int(v) for v in
+                              extra.get("chart_map_iters", [])],
+                "maps": [float(v) for v in extra.get("chart_maps", [])],
+            }
         if "dim_w" in extra:
             self._dims = (int(extra["dim_w"]), int(extra["dim_h"]))
             self.loader.resize(*self._dims)
@@ -382,11 +445,14 @@ def train_detector(data_file: str, model_file: str,
 
     md = Metadata.from_file(data_file)
     train_paths = md.load_paths("train")
+    val_paths = (md.load_paths("valid")
+                 if (calc_map and md.valid_list) else [])
     weights = (weights_file
                if weights_file and os.path.exists(weights_file) else None)
     trainer = DetectorTrainer(
         model_file, train_paths, weights=weights, classes=md.classes,
-        clear=clear, calc_map=calc_map, save_dir=md.backup_dir,
+        clear=clear, calc_map=calc_map and bool(val_paths),
+        val_paths=val_paths, save_dir=md.backup_dir,
         save_name=os.path.splitext(os.path.basename(model_file))[0]
         or "model", loader_processes=loader_processes, **kw)
     try:

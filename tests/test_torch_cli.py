@@ -1,0 +1,137 @@
+"""The port's CLI (`darknet_tpu_torch/apps/cli.py`) against the JAX
+package's on the CPU: `-mode train` for 2 iterations writes its weights;
+`-mode valid` of both CLIs on the same synth set, cfg (yolov4 at 64 px,
+4 classes) and `.weights` prints the same report, exactly (prediction
+count, GT count, recall, precision, per-class AP, mAP and the COCO sweep;
+only the timing lines differ: the detections are the same, as in
+tests/test_torch_eval.py); int8 validation with a calibration cache; and
+the refusals: every mode and flag not ported yet raises
+NotImplementedError and writes nothing, and without a card `-device cpu`
+is required.
+"""
+
+import os
+import warnings
+
+import pytest
+import torch
+
+from darknet_tpu.apps import cli as jcli
+from darknet_tpu_torch import model_zoo
+from darknet_tpu_torch.apps import cli
+from darknet_tpu_torch.data import synth
+from darknet_tpu_torch.graph.builder import build_graph
+from darknet_tpu_torch.weights import io as wio
+from tests.test_torch_train_loop import CFG
+from tests.torch_params import lively_params
+
+torch.set_num_threads(2)
+TIMING = ("Total prediction time", "Prediction per second")
+
+
+@pytest.fixture(scope="module")
+def run_dir(tmp_path_factory):
+    """A synth set (8 training, 10 validation images), a 64 px cfg that
+    trains for one epoch of 2 iterations, and its .data file."""
+    root = tmp_path_factory.mktemp("cli")
+    files = synth.generate(str(root / "data"), n_train=8, n_val=10, seed=4)
+    cfg = root / "m.cfg"
+    cfg.write_text(CFG.format(random=0).replace("burn_in=0",
+                                                "burn_in=0\nmax_epoch=1"))
+    data = root / "obj.data"
+    with open(files["data"]) as f:
+        data.write_text(f.read() + f"save = {root / 'backup'}\n")
+    return root, str(cfg), str(data)
+
+
+def zoo_model(root, name):
+    """A 4-class zoo cfg at 64 px and lively .weights for it (yolov4: the
+    weights of tests/test_torch_eval.py's exact validation parity)."""
+    cfg = model_zoo.MODELS[name](64, 64, classes=4)
+    path = root / f"{name}.cfg"
+    path.write_text(cfg)
+    with warnings.catch_warnings():
+        warnings.simplefilter("ignore")
+        g = build_graph(cfg)
+    weights = root / f"{name}.weights"
+    wio.save_weights(g, lively_params(g), str(weights))
+    return str(path), str(weights)
+
+
+def args(mode, cfg, data, weights, *extra):
+    return ["-mode", mode, "-model_file", cfg, "-data_file", data,
+            "-weights_file", weights, *extra]
+
+
+def report(out):
+    return [line for line in out.splitlines()
+            if line.strip() and not line.strip().startswith(TIMING)]
+
+
+def test_train_writes_weights(run_dir, capsys):
+    root, cfg, data = run_dir
+    cli.main(args("train", cfg, data, "none", "-device", "cpu",
+                  "-loader_processes", "0"))
+    with warnings.catch_warnings():
+        warnings.simplefilter("ignore")
+        g = build_graph(CFG.format(random=0))
+    _params, seen, _v = wio.load_weights(
+        g, str(root / "backup" / "m_final.weights"))
+    assert seen == 8                       # 2 iterations of 4 images
+    assert "mAP@0.5" in capsys.readouterr().out     # -calc_map's default
+
+
+def test_valid_matches_jax(run_dir, capsys, monkeypatch):
+    root, _cfg, data = run_dir
+    cfg, weights = zoo_model(root, "yolov4")
+    # the JAX CLI would turn on a compile cache under HOME
+    monkeypatch.setattr("darknet_tpu.utils.cache.enable_persistent_cache",
+                        lambda *a, **k: None)
+    out = {}
+    for name, main, extra in (("port", cli.main, ["-device", "cpu"]),
+                              ("jax", jcli.main, [])):
+        main(args("valid", cfg, data, weights, "-coco_map", *extra))
+        out[name] = capsys.readouterr().out
+    assert report(out["port"]) == report(out["jax"])
+    assert any(line.startswith(" mAP@0.5") for line in report(out["port"]))
+    assert any("AP@[.5:.95]" in line for line in report(out["port"]))
+    n_pred = [int(line.split(":")[1]) for line in report(out["port"])
+              if line.startswith(" # of pred:")]
+    assert n_pred[0] > 0
+
+
+def test_valid_int8_calibration_cache(run_dir, capsys):
+    root, _cfg, data = run_dir
+    calib = root / "scales.npz"
+    cfg, weights = zoo_model(root, "yolov3-tiny")
+    cli.main(args("valid", cfg, data, weights, "-device", "cpu",
+                  "-int8", "-int8_calib", "2", "-calib_file", str(calib)))
+    assert calib.exists()
+    cli.main(args("valid", cfg, data, weights, "-device", "cpu",
+                  "-int8", "-calib_file", str(calib)))
+    outs = capsys.readouterr().out.split("mAP@0.5")
+    assert len(outs) == 3
+
+
+@pytest.mark.parametrize("extra", [
+    ["-mode", "image"], ["-mode", "video"], ["-mode", "multi-video"],
+    ["-mode", "bench"], ["-num_chips", "2"], ["-benchmark_layers", "1"],
+    ["-dbg_sync", "1"], ["-show_imgs"]])
+def test_unported_refused(run_dir, tmp_path, extra):
+    _root, cfg, data = run_dir
+    argv = args("valid", cfg, data, "none", "-device", "cpu")
+    argv = [a for a in argv if a not in ("-mode", "valid")] + extra
+    if "-mode" not in extra:
+        argv += ["-mode", "train" if "-show_imgs" in extra else "valid"]
+    before = sorted(os.listdir(_root))
+    with pytest.raises(NotImplementedError, match="ROADMAP A[67]"):
+        cli.main(argv)
+    assert sorted(os.listdir(_root)) == before
+
+
+def test_valid_needs_a_card_or_cpu(run_dir):
+    if torch.cuda.is_available():
+        pytest.skip("a CUDA card is present: the default runs there")
+    _root, cfg, data = run_dir
+    with pytest.raises(RuntimeError, match="no CUDA card"):
+        cli.main(args("valid", cfg, data, "none"))

@@ -6,7 +6,9 @@ The copies must build the same graphs and read and write the same bytes:
 every cfg of the model zoo and every cfg text of the port's tests builds
 the same layers in both packages, compared field by field; `.weights`
 files written by either package are byte-equal and load back to equal
-arrays in the other.
+arrays in the other.  The copies of `resize_image_darknet`,
+`detections_to_json` and the eval PR math give the originals' results
+on seeded inputs, exactly.
 """
 
 import dataclasses
@@ -150,3 +152,47 @@ def test_verbatim_copies(module):
                 if not (isinstance(n, ast.Expr)
                         and isinstance(n.value, ast.Constant))]
     assert body("darknet_tpu_torch") == body("darknet_tpu")
+
+
+def _copied_outputs(pkg_image, pkg_network, pkg_map, seed):
+    """The copied functions' results on inputs drawn from `seed`."""
+    rng = np.random.default_rng(seed)
+    shape = tuple(int(v) for v in rng.integers(2, 40, 2)) + (3,)
+    im = rng.uniform(0, 1, shape).astype(np.float32)
+    out = [pkg_image.resize_image_darknet(im, *(int(v) for v in
+                                                rng.integers(1, 50, 2)))]
+    dets = []
+    for _ in range(int(rng.integers(0, 5))):
+        prob = (rng.uniform(0, 1, 4) * (rng.uniform(0, 1, 4) > 0.5)).astype(
+            np.float32)
+        dets.append(pkg_network.Detection(
+            bbox=tuple(float(v) for v in rng.uniform(0, 1, 4)),
+            objectness=float(prob.max(initial=0.0)), prob=prob))
+    out.append(pkg_network.detections_to_json(
+        dets, frame_id=seed, names=["a", "dont_show", "c", "d"],
+        filename=f"f{seed}.png"))
+    rows = [(float(rng.uniform()), int(rng.integers(0, 3)),
+             bool(m), int(rng.integers(0, 9)) if m else -1)
+            for m in rng.uniform(0, 1, int(rng.integers(0, 60))) < 0.5]
+    r = pkg_map._pr_from_valboxes(rows, np.asarray([3, 4, 2], np.int64), 9,
+                                  3, 1.0, 5)
+    out.append((r.map, r.recall, r.precision, r.n_pred, r.n_gt,
+                r.per_class_ap.tolist()))
+    return out
+
+
+@pytest.mark.parametrize("seed", range(5))
+def test_copied_functions_agree(seed):
+    """resize_image_darknet, detections_to_json and the eval PR math give
+    the originals' results, exactly, on seeded inputs."""
+    from darknet_tpu.data import image as jimage
+    from darknet_tpu.eval import map as jmap
+    from darknet_tpu.nn import network as jnetwork
+    from darknet_tpu_torch.data import image as timage
+    from darknet_tpu_torch.eval import map as tmap
+    from darknet_tpu_torch.nn import network as tnetwork
+
+    got = _copied_outputs(timage, tnetwork, tmap, seed)
+    want = _copied_outputs(jimage, jnetwork, jmap, seed)
+    np.testing.assert_array_equal(got[0], want[0])
+    assert got[1:] == want[1:]

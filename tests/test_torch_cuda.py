@@ -17,7 +17,10 @@ GEMM and the implicit-GEMM int8 conv equal their plain versions bitwise
 differences between devices (tests/test_torch_int8.py), so each card
 conv is held to the CPU's on the card's own input (rtol 1e-6, the mish
 tolerance), and the card's served kept set to the CPU serving program's
-on the card's heads.  Training: two f32 steps (accum 2) of chip_smoke.py's
+on the card's heads.  uint8 frames divided on the card serve exactly
+what their host-divided f32 copy serves.  Validation of a lively f32
+yolov4 at 64 px: the kernel path's MapResult equals the plain path's.
+Training: two f32 steps (accum 2) of chip_smoke.py's
 narrow CSP + SPP graph on the card against the CPU (updates and rolling
 statistics within 1e-4 of the largest change after one step, 2e-3
 after two), and DetectorTrainer on its card defaults (bf16, act16).
@@ -229,6 +232,60 @@ def test_serving_on_card_matches_cpu(thresh, nms, cuda):
     dets = Network.device_out_to_dets(tb, ov, probs)
     assert [len(d) for d in dets] == [
         len(d) for d in Network.device_out_to_dets(ctb, cov, cprobs)]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+def test_uint8_ingest_equals_host_division(dtype, cuda):
+    """uint8 frames divided by 255 on the card and their f32 copy divided
+    on the host are the same input (both correctly rounded f32
+    divisions): the served triples are equal, bitwise."""
+    dt = getattr(torch, dtype)
+    with warnings.catch_warnings():
+        warnings.simplefilter("ignore")
+        g = build_graph(model_zoo.yolov4_cfg(64, 64))
+    net = Network(g, tparams.params_to_torch(
+        g, tparams.fuse_conv_batchnorm(g, lively_params(g)), cuda, dt),
+        compute_dtype=dt, device=cuda)
+    frames = (np.random.default_rng(5).uniform(0, 1, (2, 64, 64, 3))
+              * 255).astype(np.uint8)
+    a = net.submit_detect_device(frames, thresh=0.25)
+    b = net.submit_detect_device(frames.astype(np.float32) / 255,
+                                 thresh=0.25)
+    for u, v in zip(a, b):
+        assert torch.equal(u, v)
+
+
+@pytest.mark.cuda
+def test_validate_detector_kernel_matches_plain(cuda, tmp_path):
+    """validate_detector of a lively f32 yolov4 at 64 px on a synth set:
+    one region launch a batch, and the kernel path's MapResult equals the
+    plain path's."""
+    from darknet_tpu_torch.data import synth
+    from darknet_tpu_torch.eval.map import validate_detector
+
+    # the set and weights of tests/test_torch_eval.py's exact parity
+    files = synth.generate(str(tmp_path), n_train=0, n_val=6, seed=3)
+    with warnings.catch_warnings():
+        warnings.simplefilter("ignore")
+        g = build_graph(model_zoo.yolov4_cfg(64, 64, classes=4))
+    tp = tparams.params_to_torch(
+        g, tparams.fuse_conv_batchnorm(g, lively_params(g)), cuda)
+    res = {}
+    with torch.backends.cudnn.flags(enabled=True, allow_tf32=False):
+        for name in ("kernel", "plain"):
+            net = Network(g, tp, device=cuda, fuse_regions=(
+                "hybrid" if name == "kernel" else "plain"))
+            before = cfr.launches
+            res[name] = validate_detector(net, files["val_paths"], 4,
+                                          batch=4, progress=False,
+                                          resize="darknet")
+            res[name + "_launches"] = cfr.launches - before
+    assert res["kernel_launches"] == 2 and res["plain_launches"] == 0
+    a, b = res["kernel"], res["plain"]
+    assert a.n_gt == b.n_gt > 0 and a.n_pred == b.n_pred > 0
+    assert a.map == b.map
+    np.testing.assert_array_equal(a.per_class_ap, b.per_class_ap)
 
 
 @pytest.mark.cuda

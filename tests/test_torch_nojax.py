@@ -3,9 +3,11 @@ JAX package `darknet_tpu` with a meta-path finder, imports the port and
 serves yolov4 at 64 px on the CPU, in f32 and in int8 (quantized,
 calibrated); another blocks OpenCV (cv2) and PIL too and trains 3
 iterations through `train_detector` on the port's synth set (nonzero
-image batches, non-empty truths, finite losses); and no source of the
-port, nor the chip scripts (chip_smoke.py, chip_int8_shapes.py,
-chip_region_tiles.py), imports any of the three."""
+image batches, non-empty truths, finite losses), and a third, with the
+same five blocked, runs `validate_detector` (both resizes) and the CLI's
+`-mode valid` on a synth set; and no source of the port (`eval/` and
+`apps/` included), nor the chip scripts (chip_smoke.py,
+chip_int8_shapes.py, chip_region_tiles.py), imports any of the three."""
 
 import os
 import pathlib
@@ -116,6 +118,49 @@ assert not bad, bad
 print("TRAINED", losses)
 """
 
+BLOCKED_VALID = r"""
+import sys
+
+class Block:
+    def find_spec(self, name, path=None, target=None):
+        if name.split(".")[0] in ("jax", "jaxlib", "darknet_tpu", "cv2",
+                                  "PIL"):
+            raise ImportError(f"blocked: {name}")
+        return None
+
+sys.meta_path.insert(0, Block())
+import contextlib, io, os, warnings
+import torch
+torch.set_num_threads(2)
+from darknet_tpu_torch import Network
+from darknet_tpu_torch.apps import cli
+from darknet_tpu_torch.data import synth
+from darknet_tpu_torch.eval.map import validate_detector
+
+root = sys.argv[1]
+files = synth.generate(os.path.join(root, "data"), n_train=0, n_val=5, seed=2)
+cfg = os.path.join(root, "m.cfg")
+with open(cfg, "w") as f:
+    f.write(CFG)
+with warnings.catch_warnings():
+    warnings.simplefilter("ignore")
+    net = Network.from_cfg(cfg, device="cpu")
+for resize in ("cv", "darknet"):
+    r = validate_detector(net, files["val_paths"], 4, batch=2,
+                          progress=False, resize=resize)
+    assert r.n_gt > 0 and r.n_pred > 0, r
+out = io.StringIO()
+with contextlib.redirect_stdout(out), warnings.catch_warnings():
+    warnings.simplefilter("ignore")
+    cli.main(["-mode", "valid", "-data_file", files["data"], "-model_file",
+              cfg, "-weights_file", "none", "-device", "cpu"])
+assert " mAP@0.5" in out.getvalue(), out.getvalue()
+bad = [m for m in sys.modules
+       if m.split(".")[0] in ("jax", "jaxlib", "darknet_tpu", "cv2", "PIL")]
+assert not bad, bad
+print("VALIDATED", r.n_pred)
+"""
+
 TRAIN_CFG = """[net]
 batch=4
 subdivisions=2
@@ -180,6 +225,12 @@ def test_port_trains_without_jax_opencv_or_pil(tmp_path):
     script = BLOCKED_TRAIN.replace("f.write(CFG)",
                                    f"f.write({TRAIN_CFG!r})")
     assert "TRAINED" in run_blocked(script, str(tmp_path))
+
+
+def test_port_validates_without_jax_opencv_or_pil(tmp_path):
+    script = BLOCKED_VALID.replace("f.write(CFG)",
+                                   f"f.write({TRAIN_CFG!r})")
+    assert "VALIDATED" in run_blocked(script, str(tmp_path))
 
 
 @pytest.mark.parametrize("path", sorted(

@@ -77,9 +77,12 @@ def test_params_to_torch_layout():
     w = p[5]["w"]                                       # HWIO
     np.testing.assert_array_equal(t[5]["w"].permute(2, 3, 1, 0).numpy(), w)
     assert t[5]["b"].dtype == torch.float32
-    with pytest.raises(ValueError):
-        tparams.params_to_torch(TINY, tparams.init_params(TINY, seed=0),
-                                "cpu")
+    # unfolded params keep their BN (make_forward(fused_bn=False)), f32
+    raw = tparams.init_params(TINY, seed=0)
+    u = tparams.params_to_torch(TINY, raw, "cpu", torch.bfloat16)
+    for k in ("scales", "mean", "var"):
+        assert u[5][k].dtype == torch.float32
+        np.testing.assert_array_equal(u[5][k].numpy(), raw[5][k])
 
 
 @pytest.mark.parametrize("act", sorted(set(tact.ACTIVATION_FNS)

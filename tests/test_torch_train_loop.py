@@ -9,7 +9,8 @@ two-image micro-batches, to 1.2e-4 and 1.6e-3 after three), the
 multi-scale bucket picks, an exact resume (4 straight
 iterations against 2, save, load, 2: equal to the bit), a start from a
 `.weights` file with and without clear, and the entry points' refusals:
-no card without device="cpu", calc_map and a mesh.
+no card without device="cpu", and a mesh (in-training mAP is
+tests/test_torch_train_map.py).
 
 The cfg has no maxpool: on synth images (flat colour regions) a
 maxpool's windows hold exact ties, and which positions tie exactly
@@ -243,9 +244,6 @@ def test_entry_points_refuse(data):
             DetectorTrainer(cfg, files["train_paths"], classes=4)
         with pytest.raises(RuntimeError, match="no CUDA card"):
             train_detector(data_file, cfg, max_iters=1)
-    with pytest.raises(NotImplementedError, match="calc_map"):
-        DetectorTrainer(cfg, files["train_paths"], classes=4, device="cpu",
-                        calc_map=True)
     with pytest.raises(NotImplementedError, match="mesh"):
         DetectorTrainer(cfg, files["train_paths"], classes=4, device="cpu",
                         mesh=object())

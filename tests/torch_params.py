@@ -18,14 +18,17 @@ from darknet_tpu_torch.nn import params as tparams
 HEAD_GAIN = {138: 30.0, 149: 280.0, 160: 1300.0}     # yolov4's head convs
 
 
-def lively_params(graph, seed=0):
-    """Unfused numpy params whose heads are not saturated at 0.5."""
+def lively_params(graph, seed=0, bn_scale=1.5, head_gain=None):
+    """Unfused numpy params whose heads are not saturated at 0.5: BN
+    scales times `bn_scale`, head conv i's weights times head_gain[i]
+    (default: yolov4's HEAD_GAIN)."""
+    head_gain = HEAD_GAIN if head_gain is None else head_gain
     p = tparams.init_params(graph, seed=seed)
     for i, d in enumerate(p):
         if "scales" in d:
-            d["scales"] = d["scales"] * np.float32(1.5)
-        if i in HEAD_GAIN:
-            d["w"] = d["w"] * np.float32(HEAD_GAIN[i])
+            d["scales"] = d["scales"] * np.float32(bn_scale)
+        if i in head_gain:
+            d["w"] = d["w"] * np.float32(head_gain[i])
     return p
 
 
