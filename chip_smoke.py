@@ -1,7 +1,8 @@
 """Smoke run of darknet_tpu_torch on one CUDA card: build the region
 kernel and the int8 GEMM, check each against its plain version, serve
 yolov4-608 through the public API in bf16 and in int8, train it,
-validate it and the rest of the yolo zoo, and report.
+validate it and the rest of the yolo zoo, stream video through the CLI,
+and report.
 
     python3 chip_smoke.py
 
@@ -49,7 +50,7 @@ Phases, each of which fails the run (non-zero exit) on any error:
      torch._int_mm's on the same operands and the bound; int8 img/s beside
      the bf16 rate of phase 4; a profile of one request;
   7. a JSON line of the kernels, then {"ok": true, "device": ...} last
-     (printed after phase 9);
+     (printed after phase 10);
   8. training (train/step, train/trainer), which launches neither kernel,
      as in the JAX package:
      (a) parity on the card: the narrow CSP + SPP graph (TRAIN_CSP_CFG,
@@ -90,7 +91,32 @@ Phases, each of which fails the run (non-zero exit) on any error:
          a batch;
      (d) DetectorTrainer.evaluate_map (f32, batch 4) over 16 of the
          images, before and after one training iteration: 4 region
-         launches a call, a finite mAP, the time of each call.
+         launches a call, a finite mAP, the time of each call;
+ 10. the video pipeline through the CLI's main (apps/cli, apps/tracker,
+     apps/geo, apps/visualize, data/video), yolov4-608 f32 (the CLI's
+     default) on 1280x720 4:2:0 y4m clips at 30 fps that the phase writes
+     (moving rectangles over a textured background), probe weights whose
+     threshold .25 sits in a gap of the clip's objectness logits:
+     (a) -mode video, tracking, the device path: the plain path
+         (fuse_regions="plain", driven through the same CLI), then the
+         kernel path at -pipeline_depth 2 and 1, one FFMA region launch a
+         frame, each frame's detections (matched by box, rtol 1e-4) and
+         track labels and statuses equal to the plain path's;
+     (b) -int8 with a calibration file written first: 91 int8 launches a
+         frame, finite detections;
+     (c) -mode multi-video, two cameras, -letter_box, a P1 parking lot and
+         a HANDOVER zone per camera: one region launch a frame set, the
+         card's letterbox equal to the CPU's (within 2e-6);
+     (d) -mode image on a 1280x720 PNG: det_still.png written and read
+         back at 1280x720;
+     (e) -save_output with cv2 blocked raises before any work;
+     frames (frame sets) a second from the first to the last finalize,
+     the median proc time, a synchronised frame split (decode, resize,
+     serve, copy back, track, draw) and one profiled frame's device busy
+     share.
+
+`python3 chip_smoke.py --only video` builds the kernels and runs phase
+10 alone (its last line is then not the contract's).
 
 Weights are random (numpy, seed 0); the training images are drawn from a
 seed into a temporary directory; no file outside the checkout is read.
@@ -176,6 +202,17 @@ VALID_PASS = 24           # objectness candidates an image and head over it
 VALID_CLASSES = 80        # the published head width; synth labels use 0-3
 MAP_VALID_IMAGES = 16
 MAP_BATCH = 4             # DetectorTrainer.evaluate_map's batch
+# video (phase 10): the CLI's streaming modes on 1280x720 4:2:0 clips at
+# 30 fps, probe weights whose threshold passes VIDEO_PASS candidates a
+# frame and head; the card's letterbox held to the CPU's at the CPU
+# test's tolerance (tests/test_torch_apps_io.py)
+VIDEO_W, VIDEO_H, VIDEO_FPS = 1280, 720, 30
+VIDEO_FRAMES = 64
+VIDEO_SETS = 32           # multi-video frame sets (two cameras)
+VIDEO_THRESH = 0.25
+VIDEO_PASS = 8
+VIDEO_SPLIT_FRAMES = 17   # the first is left out of the medians
+LETTERBOX_TOL = 2e-6
 
 NARROW_CSP_CFG = """[net]
 width=200
@@ -1774,9 +1811,390 @@ def validate(card, root):
             f"{[(m, r['region']) for m, r, _s, _n in calls]}")
 
 
-def main() -> int:
+def video_frames(n, seed, w=VIDEO_W, h=VIDEO_H):
+    """n BGR frames of a synthetic clip: a fixed textured background (the
+    synth set's grey noise over a coarse colour field) and three
+    rectangles of the synth set's colours moving on straight lines."""
+    from darknet_tpu_torch.data import synth
+
+    rng = np.random.default_rng(seed)
+    field = rng.integers(60, 200, (h // 80 + 1, w // 80 + 1, 3))
+    bg = (np.repeat(np.repeat(field, 80, 0), 80, 1)[:h, :w] // 2
+          + rng.integers(45, 65, (h, w, 3))).astype(np.uint8)
+    movers = []
+    for k in range(3):
+        bw, bh = (int(v) for v in rng.integers(120, 260, 2))
+        x0, y0 = int(rng.integers(0, w - bw)), int(rng.integers(0, h - bh))
+        vx, vy = (float(v) for v in rng.uniform(-6, 6, 2))
+        movers.append((bw, bh, x0, y0, vx, vy, synth.COLORS[k % 4][::-1]))
+    out = []
+    for t in range(n):
+        f = bg.copy()
+        for bw, bh, x0, y0, vx, vy, col in movers:
+            x = int(np.clip(x0 + vx * t, 0, w - bw))
+            y = int(np.clip(y0 + vy * t, 0, h - bh))
+            f[y:y + bh, x:x + bw] = col
+        out.append(f)
+    return out
+
+
+VIDEO_GEO = """<polygons>
+  <polygon><name>P1</name><num>4</num>
+    <x0>0.05</x0><y0>0.1</y0><x1>0.45</x1><y1>0.1</y1>
+    <x2>0.45</x2><y2>0.6</y2><x3>0.05</x3><y3>0.6</y3></polygon>
+  <polygon><name>HANDOVER</name><num>4</num>
+    <x0>0.55</x0><y0>0.3</y0><x1>0.98</x1><y1>0.3</y1>
+    <x2>0.98</x2><y2>0.95</y2><x3>0.55</x3><y3>0.95</y3></polygon>
+</polygons>
+"""
+
+
+class BlockCv2:
+    """A meta-path finder that makes `import cv2` fail."""
+
+    def find_spec(self, name, path=None, target=None):
+        if name.split(".")[0] == "cv2":
+            raise ImportError(f"blocked: {name}")
+        return None
+
+
+def phase_video(card):
+    root = tempfile.mkdtemp(prefix="chip_smoke_video_")
+    try:
+        return stream(card, root)
+    finally:
+        shutil.rmtree(root, ignore_errors=True)
+
+
+def stream(card, root):
+    """Phase 10: the CLI's video, image and multi-video modes on
+    yolov4-608, the clips and weights under `root`."""
     import torch
 
+    from darknet_tpu_torch import Network, model_zoo
+    from darknet_tpu_torch.apps import cli
+    from darknet_tpu_torch.apps import visualize as viz
+    from darknet_tpu_torch.apps.tracker import (ConfParam, Track,
+                                                TrackManager,
+                                                get_most_prob_dets)
+    from darknet_tpu_torch.data import synth, video
+    from darknet_tpu_torch.data.image import (make_letterbox_device,
+                                              read_png, resize_image_cv,
+                                              write_png)
+    from darknet_tpu_torch.nn import params as paramlib
+    from darknet_tpu_torch.ops import quant_matmul as qm
+    from darknet_tpu_torch.ops.cuda import fused_region as kfr
+    from darknet_tpu_torch.weights import io as wio
+
+    t_setup = time.perf_counter()
+    names = os.path.join(root, "all.names")
+    with open(names, "w") as f:
+        f.write("\n".join(synth.NAMES + [f"c{i}" for i in range(
+            len(synth.NAMES), VALID_CLASSES)]) + "\n")
+    data = os.path.join(root, "obj.data")
+    with open(data, "w") as f:
+        f.write(f"classes = {VALID_CLASSES}\nnames = {names}\n")
+    cfg_text = model_zoo.yolov4_cfg(SERVE_PX, SERVE_PX)
+    cfg = os.path.join(root, "yolov4.cfg")
+    with open(cfg, "w") as f:
+        f.write(cfg_text)
+    clip = os.path.join(root, "clip.y4m")
+    frames = video_frames(VIDEO_FRAMES, 1)
+    video.write_y4m(clip, frames, VIDEO_FPS)
+    cams = []
+    for i in range(2):
+        cams.append(os.path.join(root, f"cam{i}.y4m"))
+        video.write_y4m(cams[-1], video_frames(VIDEO_SETS, 2 + i),
+                        VIDEO_FPS)
+        with open(os.path.join(root, f"cam{i}.xml"), "w") as f:
+            f.write(VIDEO_GEO)
+    png = os.path.join(root, "still.png")
+    write_png(png, frames[0][..., ::-1])
+
+    # probe weights whose threshold sits in a gap of the objectness logits
+    # of the whole clip (VIDEO_PASS candidates a frame and head)
+    g = quiet_graph(cfg_text)
+    weights = os.path.join(root, "probe.weights")
+    plain_net = Network(g, paramlib.params_to_torch(
+        g, probe_params(g), DEVICE, torch.float32), device=DEVICE,
+        fuse_regions="plain")
+    raw = []
+    with torch.inference_mode():
+        for s in range(0, VIDEO_FRAMES, VALID_BATCH):
+            x = np.stack([resize_image_cv(f[..., ::-1].copy(), SERVE_PX,
+                                          SERVE_PX)
+                          for f in frames[s:s + VALID_BATCH]])
+            raw.append(plain_net._fwd(plain_net.params, plain_net._u8_unit[
+                torch.from_numpy(x).to(DEVICE).int()])["raw_heads"])
+    raw = [torch.cat(h) for h in zip(*raw)]
+    bias = obj_bias_for(raw, VIDEO_THRESH, VIDEO_PASS * VIDEO_FRAMES)
+    del plain_net, raw
+    wio.save_weights(g, unfolded(g, probe_params(g, obj_bias=bias)), weights)
+    print(f"video setup: {VIDEO_FRAMES} frames {VIDEO_W}x{VIDEO_H} 4:2:0 "
+          f"and 2 cameras x {VIDEO_SETS}, probe weights, "
+          f"{time.perf_counter() - t_setup:.1f} s", flush=True)
+
+    base = ["-data_file", data, "-model_file", cfg, "-weights_file", weights,
+            "-thresh", str(VIDEO_THRESH), "-out_dir",
+            os.path.join(root, "out"), "-device", DEVICE]
+
+    def drive(argv, load=None, cams=1):
+        """cli.main(argv) with the kernels' counts set to 0 just before and
+        read just after, every frame's most-prob detections and tracks,
+        the proc times, and the rate of frames (frame sets of `cams`
+        frames) between the first and the last one's finalize; `load`
+        replaces the CLI's network loader."""
+        log, procs, stamps = [], [], []
+        tail, load_net = cli._host_tail, cli._load_network
+        proc_time = viz.draw_proc_time
+
+        def spy_tail(net, md, frame, dets, args, track_manager=None):
+            out = tail(net, md, frame, dets, args, track_manager)
+            stamps.append(time.perf_counter())
+            log.append(([(d.bbox, d.cid, d.prob) for d in out[1]],
+                        [] if track_manager is None else [
+                            (t.bbox, t.label, t.status)
+                            for t in track_manager.get_tracks()]))
+            return out
+
+        def spy_proc(img, ms):
+            procs.append(ms)
+            return proc_time(img, ms)
+
+        cli._host_tail, viz.draw_proc_time = spy_tail, spy_proc
+        if load is not None:
+            cli._load_network = load
+        try:
+            with warnings.catch_warnings():
+                warnings.simplefilter("ignore")
+                Track._shared_label = 0       # labels count from 0 a run
+                kfr.launches = qm.launches = 0
+                for k in kfr.variant_launches:
+                    kfr.variant_launches[k] = 0
+                t0 = time.perf_counter()
+                cli.main(base + argv)
+                wall = time.perf_counter() - t0
+                counts = {"region": kfr.launches, "int8": qm.launches,
+                          **kfr.variant_launches}
+        finally:
+            cli._host_tail, viz.draw_proc_time = tail, proc_time
+            cli._load_network = load_net
+        sets = stamps[cams - 1::cams]     # a frame set's last finalize
+        fps = (len(sets) - 1) / (sets[-1] - sets[0]) if len(sets) > 1 \
+            else float("nan")
+        return {"log": log, "counts": counts, "procs": procs, "wall": wall,
+                "fps": fps, "frames": len(sets)}
+
+    def report(label, r, per):
+        p = np.asarray(r["procs"])
+        print(f"video {label}: {r['frames']} {per}, {r['fps']:.2f} {per}/s "
+              f"end to end (first to last frame's finalize: decode, "
+              f"upload, serve, track, draw, the reader thread), proc time "
+              f"median {np.median(p):.2f} ms (p10 {np.percentile(p, 10):.2f},"
+              f" p90 {np.percentile(p, 90):.2f}), the call "
+              f"{r['wall']:.2f} s with the network's load; launches "
+              f"{r['counts']} [{card}]", flush=True)
+
+    def same_frames(a, b, label):
+        """Frame by frame: the detections matched by box (rtol 1e-4), the
+        same classes, and the same track labels and statuses."""
+        require(len(a["log"]) == len(b["log"]) == VIDEO_FRAMES,
+                f"{label}: {len(a['log'])} and {len(b['log'])} frames")
+        n_det = n_trk = 0
+        for i, ((da, ta), (db, tb)) in enumerate(zip(a["log"], b["log"])):
+            require(len(da) == len(db), f"{label} frame {i}: {len(da)} and "
+                    f"{len(db)} detections")
+            for bbox, cid, prob in da:
+                hit = [d for d in db if np.allclose(bbox, d[0], rtol=1e-4,
+                                                    atol=1e-6)]
+                require(len(hit) == 1 and hit[0][1] == cid
+                        and abs(hit[0][2] - prob) <= 1e-4,
+                        f"{label} frame {i}: detection {bbox} unmatched")
+            require([t[1:] for t in ta] == [t[1:] for t in tb],
+                    f"{label} frame {i}: track labels and statuses differ")
+            for x, y in zip(ta, tb):
+                require(np.allclose(x[0], y[0], rtol=1e-4, atol=1e-6),
+                        f"{label} frame {i}: track boxes differ")
+            n_det += len(da)
+            n_trk += len(ta)
+        require(n_det > 0 and n_trk > 0, f"{label}: detections and tracks "
+                f"({n_det}, {n_trk})")
+        return n_det, n_trk
+
+    clip_argv = ["-mode", "video", "-input_file", clip]
+
+    def load_plain(args, train=False):
+        with warnings.catch_warnings():
+            warnings.simplefilter("ignore")
+            return Network.from_cfg(args.model_file,
+                                    weights=args.weights_file,
+                                    device=DEVICE, fuse_regions="plain")
+    # (a) f32 (the CLI's default), tracking, the device path (auto): first
+    # the plain path (the region prefix as torch convs), which warms the
+    # process up, then the kernel path at depths 2 and 1
+    plain = drive(clip_argv + ["-pipeline_depth", "2"], load=load_plain)
+    report("(a) plain path (fuse_regions=\"plain\"), -pipeline_depth 2",
+           plain, "frames")
+    require(plain["counts"]["region"] == 0, "the plain path launches no "
+            "region kernel")
+    results = {}
+    for depth in (2, 1):
+        r = results[depth] = drive(clip_argv + ["-pipeline_depth",
+                                                str(depth)])
+        report(f"(a) yolov4-608 f32, -pipeline_depth {depth}", r, "frames")
+        require(r["counts"]["region"] == VIDEO_FRAMES
+                and r["counts"]["region_kernel"] == VIDEO_FRAMES
+                and r["counts"]["int8"] == 0,
+                f"one FFMA region launch a frame: {r['counts']}")
+        n_det, n_trk = same_frames(r, plain, f"(a) depth {depth} against "
+                                   f"plain")
+        print(f"video (a) depth {depth}, kernel path against plain path: "
+              f"{VIDEO_FRAMES} frames, {n_det} detections and {n_trk} "
+              f"visible tracks, equal frame by frame (boxes rtol 1e-4; "
+              f"labels, statuses) [{card}]", flush=True)
+    d2, d1 = results[2], results[1]
+
+    # (b) int8 with calibrated scales
+    calib = os.path.join(root, "yolov4-608.scales")
+    with warnings.catch_warnings():
+        warnings.simplefilter("ignore")
+        qnet = Network.from_cfg(cfg, weights=weights, int8=True,
+                                device=DEVICE)
+    qnet.calibrate_int8([resize_image_cv(f[..., ::-1].astype(np.float32)
+                                         / 255.0, SERVE_PX, SERVE_PX)
+                         for f in frames[:INT8_CALIB_FRAMES]])
+    qnet.save_calibration(calib)
+    del qnet
+    q = drive(clip_argv + ["-int8", "-calib_file", calib])
+    report("(b) yolov4-608 -int8 (calibrated, f32 between convs)", q,
+           "frames")
+    require(q["counts"]["int8"] == INT8_CONVS * VIDEO_FRAMES
+            and q["counts"]["region"] == VIDEO_FRAMES,
+            f"{INT8_CONVS} int8 launches a frame: {q['counts']}")
+    require(all(np.isfinite(b).all() for dets, _t in q["log"]
+                for b, _c, _p in dets) and sum(len(d) for d, _t in q["log"]),
+            "finite int8 detections")
+
+    # (c) two cameras, letterboxed on the card, zones, handover
+    boxes = []
+    letterbox = cli._device_letterbox
+
+    def spy_letterbox(net, frames_u8):
+        out = letterbox(net, frames_u8)
+        if len(boxes) < 3:
+            boxes.append((np.array(frames_u8), out.cpu().numpy()))
+        return out
+    cli._device_letterbox = spy_letterbox
+    try:
+        mv = drive(["-mode", "multi-video", "-input_file", ",".join(cams),
+                    "-letter_box"], cams=2)
+    finally:
+        cli._device_letterbox = letterbox
+    report("(c) multi-video, 2 cameras, -letter_box, zones", mv,
+           "frame sets")
+    require(mv["counts"]["region"] == VIDEO_SETS and mv["frames"] ==
+            VIDEO_SETS, f"one region launch a frame set: {mv['counts']}")
+    lbx_err = 0.0
+    for fr, got in boxes:
+        want = make_letterbox_device(VIDEO_H, VIDEO_W, SERVE_PX, SERVE_PX,
+                                     device="cpu")(fr).numpy()
+        lbx_err = max(lbx_err, float(np.abs(got - want).max()))
+    print(f"video (c) the card's letterbox against the CPU's on "
+          f"{len(boxes)} frame sets: max abs error {lbx_err:.3g}", flush=True)
+    require(len(boxes) == 3 and lbx_err <= LETTERBOX_TOL,
+            "the card's letterbox equals the CPU's")
+
+    # (d) one 1280x720 PNG
+    img = drive(["-mode", "image", "-input_file", png])
+    out_png = os.path.join(root, "out", "det_still.png")
+    require(os.path.exists(out_png) and read_png(out_png).shape ==
+            (VIDEO_H, VIDEO_W, 3) and img["counts"]["region"] == 1,
+            "-mode image writes det_still.png at 1280x720")
+    print(f"video (d) -mode image: {len(img['log'][0][0])} objects, "
+          f"det_still.png {VIDEO_W}x{VIDEO_H}", flush=True)
+
+    # (e) -save_output without cv2 raises before any work
+    opened = []
+    open_video, load_net = video.open_video, cli._load_network
+    blocker, saved = BlockCv2(), sys.modules.pop("cv2", None)
+    sys.meta_path.insert(0, blocker)
+    video.open_video = lambda p: opened.append(p) or open_video(p)
+    cli._load_network = lambda *a, **k: opened.append("net") or \
+        load_net(*a, **k)
+    try:
+        cli.main(base + clip_argv + ["-save_output"])
+        raised = None
+    except video.VideoFormatError as e:
+        raised = str(e)
+    finally:
+        sys.meta_path.remove(blocker)
+        video.open_video, cli._load_network = open_video, load_net
+        if saved is not None:
+            sys.modules["cv2"] = saved
+    require(raised is not None and not opened,
+            f"-save_output without cv2 raises before any work: {raised}, "
+            f"{opened}")
+    print(f"video (e) -save_output without cv2: raised before any work "
+          f"({raised})", flush=True)
+
+    # where a frame's time goes: the same stages one after the other,
+    # synchronised, on the kernel path's f32 network; one profiled frame
+    args = cli.build_parser().parse_args(base + clip_argv)
+    md = cli._load_metadata(args)
+    with warnings.catch_warnings():
+        warnings.simplefilter("ignore")
+        net = Network.from_cfg(cfg, weights=weights, device=DEVICE)
+    tm = TrackManager(ConfParam.from_fps(VIDEO_FPS), VIDEO_FPS, 0.3)
+    reader = video.open_video(clip)
+    split = {k: [] for k in ("decode", "resize", "serve", "copy_back",
+                             "track", "draw")}
+    for i in range(VIDEO_SPLIT_FRAMES):
+        t = [time.perf_counter()]
+        _ok, frame = reader.read()
+        t.append(time.perf_counter())
+        x = resize_image_cv(cli._bgr_to_rgb(frame), SERVE_PX, SERVE_PX)
+        t.append(time.perf_counter())
+        out = net.submit_detect_device(x, thresh=args.thresh,
+                                       nms=args.nms_thresh, top_k=args.top_k)
+        torch.cuda.synchronize()
+        t.append(time.perf_counter())
+        dets = net.device_out_to_dets(*out)[0]
+        t.append(time.perf_counter())
+        tm.track(get_most_prob_dets(dets))
+        t.append(time.perf_counter())
+        rgb = cli._bgr_to_rgb(frame)
+        viz.draw_trackings(rgb, tm.get_tracks(), md.names)
+        viz.draw_proc_time(rgb, 10.0)
+        viz.draw_frame_info(rgb, i, VIDEO_FRAMES)
+        cli._bgr_to_rgb(rgb)
+        t.append(time.perf_counter())
+        for k, a, b in zip(split, t, t[1:]):
+            split[k].append((b - a) * 1e3)
+    reader.release()
+    med = {k: float(np.median(v[1:])) for k, v in split.items()}
+    print("video frame split, synchronised, median ms over "
+          f"{VIDEO_SPLIT_FRAMES - 1} frames (f32, the kernel path): "
+          + ", ".join(f"{k} {v:.3f}" for k, v in med.items())
+          + f"; sum {sum(med.values()):.3f} [{card}]", flush=True)
+    _ok, frame = video.open_video(clip).read()
+    tm = TrackManager(ConfParam.from_fps(VIDEO_FPS), VIDEO_FPS, 0.3)
+    busy = trace_summary(lambda: cli._proc_frame(net, md, frame, args, tm),
+                         "video frame (_proc_frame, f32)", card)
+    require(busy is not None, "the profiled frame ran on the card")
+    return {"fps_d2": d2["fps"], "fps_d1": d1["fps"], "fps_int8": q["fps"],
+            "fps_multi": mv["fps"]}
+
+
+def main(argv=None) -> int:
+    import argparse
+
+    import torch
+
+    parser = argparse.ArgumentParser(description="smoke run on one card")
+    parser.add_argument("--only", choices=["video"],
+                        help="build the kernels and run this phase alone "
+                             "(no kernels line, no contract line)")
+    only = parser.parse_args(argv).only
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA card", file=sys.stderr)
         return 1
@@ -1795,6 +2213,11 @@ def main() -> int:
               f"{log['so']}", flush=True)
         print(log["ptxas"].strip(), flush=True)
 
+    if only == "video":
+        phase_video(card)
+        print(card, flush=True)
+        print(json.dumps({"only": only, "ok": True}), flush=True)
+        return 0
     phase_kernels()
     serve = phase_serve(card)
     phase_int8_kernel()
@@ -1803,6 +2226,7 @@ def main() -> int:
     phase_train_full(card)
     phase_zoo(card)
     phase_validate(card)
+    phase_video(card)
 
     print(card, flush=True)
     print(json.dumps({"kernels": [{

@@ -1,15 +1,20 @@
 """Command-line interface, the `yolo_core` executable
-(yolo_core.cpp:139-399; `darknet_tpu/apps/cli.py`): the train and valid
-modes on torch.
+(yolo_core.cpp:139-399; `darknet_tpu/apps/cli.py`) on torch: the train,
+valid, image, video and multi-video modes.
 
-    python -m darknet_tpu_torch.apps.cli -mode valid -data_file obj.data \
-        -model_file yolov4.cfg -weights_file yolov4.weights
+    python -m darknet_tpu_torch.apps.cli -mode video -data_file obj.data \
+        -model_file yolov4.cfg -weights_file yolov4.weights \
+        -input_file clip.y4m
 
 Flags mirror the JAX package's (`-flag value` or `--flag=value`); -device
-chooses the CUDA card (the default) or the CPU.  Not ported yet, each
-raising NotImplementedError before any work: the image, video,
-multi-video and bench modes, -benchmark_layers, -dbg_sync and -show_imgs
-(ROADMAP A6), and -num_chips above 1 (ROADMAP A7).
+chooses the CUDA card (the default) or the CPU.  The streaming modes read
+`.y4m` clips and PNG images with the port's own code, and other formats
+through OpenCV where it is installed (`data/video`, `data/image`); they
+draw with the port's own raster primitives; -save_output needs OpenCV's
+mp4 writer and raises before any work without it.  Not ported yet, each
+raising NotImplementedError before any work: the bench mode,
+-benchmark_layers, -dbg_sync and -show_imgs (ROADMAP A6), and -num_chips
+above 1 (ROADMAP A7).
 """
 
 from __future__ import annotations
@@ -17,8 +22,11 @@ from __future__ import annotations
 import argparse
 import os
 import sys
+import time
 
-UNPORTED_MODES = ("image", "video", "multi-video", "bench")
+import numpy as np
+
+UNPORTED_MODES = ("bench",)
 UNPORTED_FLAGS = ("benchmark_layers", "dbg_sync", "show_imgs")
 
 
@@ -27,10 +35,15 @@ def build_parser() -> argparse.ArgumentParser:
         prog="yolo_core", description=__doc__, prefix_chars="-",
         formatter_class=argparse.ArgumentDefaultsHelpFormatter)
     p.add_argument("-mode", "--mode", default="video",
-                   choices=["train", "valid", *UNPORTED_MODES])
+                   choices=["train", "valid", "image", "video",
+                            "multi-video", *UNPORTED_MODES])
     p.add_argument("-data_file", "--data_file", default="yolo.data")
     p.add_argument("-model_file", "--model_file", default="yolo.cfg")
     p.add_argument("-weights_file", "--weights_file", default="yolo.weights")
+    p.add_argument("-input_file", "--input_file", default="test.avi",
+                   help="comma-separated for multiple files")
+    p.add_argument("-thresh", "--thresh", type=float, default=0.5)
+    p.add_argument("-nms_thresh", "--nms_thresh", type=float, default=0.45)
     p.add_argument("-device", "--device", default="cuda",
                    choices=["cuda", "cpu"],
                    help="the CUDA card, or the CPU when named")
@@ -39,6 +52,10 @@ def build_parser() -> argparse.ArgumentParser:
                    help="restore the rolling full-state checkpoint "
                         "(<model>_last.ckpt.npz in the backup dir)")
     p.add_argument("-show_imgs", "--show_imgs", action="store_true")
+    p.add_argument("-save_output", "--save_output", action="store_true",
+                   help="write <name>_out.mp4 (mp4v; needs OpenCV)")
+    p.add_argument("-disable_tracking", "--disable_tracking",
+                   action="store_true")
     p.add_argument("-calc_map", "--calc_map", action="store_true",
                    default=True)
     p.add_argument("-no_calc_map", "--no_calc_map", dest="calc_map",
@@ -76,8 +93,28 @@ def build_parser() -> argparse.ArgumentParser:
                    default=-1,
                    help="data-loader process workers (spawn pool); -1 = "
                    "auto, 0 = thread pool")
+    p.add_argument("-geo_info_file", "--geo_info_file", default="")
+    p.add_argument("-out_dir", "--out_dir", default="output")
+    p.add_argument("-letter_box", "--letter_box", action="store_true",
+                   help="aspect-preserving letterbox resize at inference")
     p.add_argument("-metrics_file", "--metrics_file", default="",
                    help="JSONL per-step training metrics output")
+    p.add_argument("-device_nms", "--device_nms", default="auto",
+                   choices=["auto", "on", "off"],
+                   help="serve through the device program (decode, top-k, "
+                        "NMS); auto = on when the network is on the card. "
+                        "The device path keeps the top_k objectness "
+                        "candidates per frame before NMS")
+    p.add_argument("-top_k", "--top_k", type=int, default=256,
+                   help="device serving path: candidates kept per image")
+    p.add_argument("-pipeline_depth", "--pipeline_depth", type=int,
+                   default=2,
+                   help="video/multi-video: frames submitted to the device "
+                        "before the oldest is finalized; results are "
+                        "finalized strictly in order")
+    p.add_argument("-latency", "--latency", action="store_true",
+                   help="low-latency streaming preset: top_k=64, "
+                        "pipeline_depth=1")
     return p
 
 
@@ -172,8 +209,477 @@ def mode_valid(args):
     return res.map
 
 
+# ------------------------------------------------------------ streaming
+
+def _use_device_nms(args, net) -> bool:
+    """-device_nms: on, off, or (auto) on when the network is on the
+    card."""
+    if args.device_nms != "auto":
+        return args.device_nms == "on"
+    return net.device.type == "cuda"
+
+
+def _bgr_to_rgb(frame):
+    """The channels reversed (BGR <-> RGB) into a new contiguous array, a
+    channel at a time (a strided copy of all three is several times
+    slower)."""
+    out = np.empty_like(frame)
+    n = frame.shape[-1]
+    for c in range(n):
+        out[..., c] = frame[..., n - 1 - c]
+    return out
+
+
+def _host_tail(net, md, frame_bgr, dets, args, track_manager=None):
+    """Shared per-frame host tail: letterbox box correction -> most-prob
+    dets -> track -> draw.  The synchronous, pipelined and batched paths
+    all delegate here."""
+    from darknet_tpu_torch.apps import visualize as viz
+    from darknet_tpu_torch.apps.tracker import get_most_prob_dets
+
+    if args.letter_box and dets:
+        from darknet_tpu_torch.data.image import correct_boxes_letterbox
+
+        ih, iw = frame_bgr.shape[:2]
+        for d in dets:
+            d.bbox = tuple(correct_boxes_letterbox(
+                np.asarray(d.bbox), iw, ih, net.net.w, net.net.h))
+    most_prob = get_most_prob_dets(dets)
+    disp_rgb = _bgr_to_rgb(frame_bgr)
+    if track_manager is not None:
+        track_manager.track(most_prob)
+        viz.draw_trackings(disp_rgb, track_manager.get_tracks(), md.names)
+    else:
+        viz.draw_detections(disp_rgb, most_prob, md.names)
+    return _bgr_to_rgb(disp_rgb), most_prob
+
+
+def _host_input(net, frame_bgr, args):
+    """The host path's network input: f32 RGB in [0, 1], resized (cv's
+    bilinear) or letterboxed on the host."""
+    from darknet_tpu_torch.data.image import letterbox_image, resize_image_cv
+
+    rgb = frame_bgr[..., ::-1].astype(np.float32) / 255.0
+    if args.letter_box:
+        return letterbox_image(rgb, net.net.w, net.net.h)
+    return resize_image_cv(rgb, net.net.w, net.net.h)
+
+
+def _proc_frame(net, md, frame_bgr, args, track_manager=None):
+    """ProcImage (yolo_core.cpp:104-137): resize -> predict -> NMS ->
+    most-prob dets -> track/draw.  The device path is submit + finalize
+    (the streaming halves); the host path shares _host_tail."""
+    if _use_device_nms(args, net):
+        return _finalize_frame(net, md, frame_bgr,
+                               _submit_frame(net, frame_bgr, args), args,
+                               track_manager=track_manager)
+    dets = net.detect(_host_input(net, frame_bgr, args), thresh=args.thresh,
+                      nms=args.nms_thresh)
+    return _host_tail(net, md, frame_bgr, dets, args, track_manager)
+
+
+def _device_letterbox(net, frames_u8):
+    """Shared on-device letterbox: (N,H,W,C) uint8 RGB frames -> an f32
+    [0,1] letterboxed batch on the network's device; one letterbox per
+    input geometry, cached on the Network."""
+    from darknet_tpu_torch.data.image import make_letterbox_device
+
+    _n, ih, iw, c = frames_u8.shape
+    key = (ih, iw, net.net.w, net.net.h)
+    cache = net.__dict__.setdefault("_lbx_cache", {})
+    if key not in cache:
+        cache[key] = make_letterbox_device(ih, iw, net.net.w, net.net.h, c,
+                                           device=net.device)
+    return cache[key](frames_u8)
+
+
+def _submit_frame(net, frame_bgr, args):
+    """Streaming half 1: run the device serving program for one frame and
+    return its device triple without copying it to the host, so that the
+    previous frame's track/draw/write overlaps the device.  The frame
+    uploads as uint8 (resized on the host in cv's fixed point), or, with
+    -letter_box, camera-native for the letterbox on the device."""
+    from darknet_tpu_torch.data.image import resize_image_cv
+
+    if args.letter_box:
+        x = _device_letterbox(net, _bgr_to_rgb(frame_bgr)[None])
+    else:
+        x = resize_image_cv(_bgr_to_rgb(frame_bgr), net.net.w,
+                            net.net.h)[None]
+    return net.submit_detect_device(x, thresh=args.thresh,
+                                    nms=args.nms_thresh, top_k=args.top_k)
+
+
+def _finalize_frame(net, md, frame_bgr, out, args, track_manager=None):
+    """Streaming half 2: copy a _submit_frame result to the host and run
+    the shared host tail."""
+    dets = net.device_out_to_dets(*out)[0]
+    return _host_tail(net, md, frame_bgr, dets, args, track_manager)
+
+
+def _proc_frames_batch(net, md, frames_bgr, args, track_managers=None):
+    """Batched ProcImage for N cameras: one network predict per frame set
+    (the reference's multi-video loop runs each camera at batch 1,
+    yolo_core.cpp:276-392)."""
+    sub = _submit_frames_batch(net, frames_bgr, args)
+    return _finalize_frames_batch(net, md, frames_bgr, sub, args,
+                                  track_managers)
+
+
+def _submit_frames_batch(net, frames_bgr, args):
+    """Streaming half 1 for N cameras: preprocess and run the batched
+    device program (device path); the host path resolves synchronously."""
+    from darknet_tpu_torch.data.image import resize_image_cv
+
+    device = _use_device_nms(args, net)
+    if args.letter_box and len({f.shape for f in frames_bgr}) == 1:
+        # one resolution: letterbox on the device; the result stays there
+        x = _device_letterbox(net, np.stack([_bgr_to_rgb(f)
+                                             for f in frames_bgr]))
+    elif not args.letter_box and device:
+        x = np.stack([resize_image_cv(_bgr_to_rgb(f), net.net.w, net.net.h)
+                      for f in frames_bgr])
+    else:
+        x = np.stack([_host_input(net, f, args) for f in frames_bgr])
+    if device:
+        return ("dev", net.submit_detect_device(
+            x, thresh=args.thresh, nms=args.nms_thresh, top_k=args.top_k))
+    if not isinstance(x, np.ndarray):
+        x = x.cpu().numpy()
+    return ("host", net.detect_batch(x, thresh=args.thresh,
+                                     nms=args.nms_thresh))
+
+
+def _finalize_frames_batch(net, md, frames_bgr, sub, args,
+                           track_managers=None):
+    """Streaming half 2 for N cameras: copy to the host and run the shared
+    host tail per camera."""
+    kind, payload = sub
+    dets_b = net.device_out_to_dets(*payload) if kind == "dev" else payload
+    return [
+        _host_tail(net, md, frame, dets, args,
+                   track_managers[i] if track_managers else None)
+        for i, (frame, dets) in enumerate(zip(frames_bgr, dets_b))
+    ]
+
+
+def _read_image(path):
+    """A BGR uint8 image: PNG by the port's codec, another format through
+    cv2 where it imports; None where the file cannot be read."""
+    from darknet_tpu_torch.data.image import ImageDecodeError, read_png
+
+    try:
+        m = read_png(path)
+    except (OSError, ImageDecodeError):
+        m = None
+    if m is not None:
+        if m.shape[2] == 1:
+            m = np.repeat(m, 3, axis=2)
+        return np.ascontiguousarray(m[..., 2::-1])
+    try:
+        import cv2
+    except ImportError:
+        if not os.path.exists(path):
+            return None
+        raise RuntimeError(f"{path}: only 8-bit PNGs are read without "
+                           f"OpenCV (cv2 is not installed)") from None
+    return cv2.imread(path)
+
+
+def _write_image(path, img_bgr) -> None:
+    """PNG by the port's codec, another format through cv2 (raises
+    without it)."""
+    from darknet_tpu_torch.data.image import write_png
+
+    if path.lower().endswith(".png"):
+        write_png(path, _bgr_to_rgb(img_bgr))
+        return
+    try:
+        import cv2
+    except ImportError:
+        raise RuntimeError(f"{path}: only PNG is written without OpenCV "
+                           f"(cv2 is not installed)") from None
+    if not cv2.imwrite(path, img_bgr):
+        raise OSError(f"could not write {path}")
+
+
+def mode_image(args):
+    from darknet_tpu_torch.apps import visualize as viz
+
+    md = _load_metadata(args)
+    net = _load_network(args)
+    os.makedirs(args.out_dir, exist_ok=True)
+    for path in args.input_file.split(","):
+        if not path:
+            continue
+        frame = _read_image(path)
+        if frame is None:
+            print(f"could not read {path}", file=sys.stderr)
+            continue
+        t0 = time.perf_counter()
+        display, dets = _proc_frame(net, md, frame, args)
+        dt = (time.perf_counter() - t0) * 1000
+        print(f"{path}: {len(dets)} objects, {dt:.1f} ms")
+        for d in dets:
+            print(f"  {md.names[d.cid]}: {d.prob * 100:.0f}%")
+        out = os.path.join(args.out_dir, "det_" + os.path.basename(path))
+        _write_image(out, display)
+        print(f"  saved {out}")
+        viz.safe_imshow(args.mode, display, wait_ms=0)  # yolo_core.cpp:211
+
+
+def _writer_for(args, path, fps, shape):
+    from darknet_tpu_torch.data import video
+
+    os.makedirs(args.out_dir, exist_ok=True)
+    out = os.path.join(args.out_dir,
+                       os.path.splitext(os.path.basename(path))[0]
+                       + "_out.mp4")
+    return video.open_writer(out, fps, (shape[1], shape[0]))
+
+
+def mode_video(args):
+    import queue
+    import threading
+    from collections import deque
+
+    from darknet_tpu_torch.apps import visualize as viz
+    from darknet_tpu_torch.apps.tracker import ConfParam, TrackManager
+    from darknet_tpu_torch.data import video
+
+    if args.save_output:
+        video.require_writer()
+    md = _load_metadata(args)
+    net = _load_network(args)
+    path = args.input_file.split(",")[0]
+    cap = video.open_video(path)
+    if cap is None or not cap.isOpened():
+        print(f"could not open {path}", file=sys.stderr)
+        return
+    fps = cap.fps or 30.0
+    max_frame = cap.frame_count
+
+    tm = None
+    if not args.disable_tracking:
+        tm = TrackManager(ConfParam.from_fps(fps), fps, 0.3)
+
+    # frame prefetch thread: decode the next frame while the card computes
+    frames_q: "queue.Queue" = queue.Queue(maxsize=4)
+    stop_evt = threading.Event()          # set by ESC in the live window
+    read_error = []                       # a decode failure, raised below
+
+    def _reader():
+        try:
+            while not stop_evt.is_set():
+                ok, f = cap.read()
+                if not ok:
+                    break
+                frames_q.put(f)
+        except Exception as e:            # re-raised by the main thread
+            read_error.append(e)
+        finally:
+            frames_q.put(None)
+
+    reader_t = threading.Thread(target=_reader, daemon=True)
+    reader_t.start()
+
+    writer = None
+    curr = 0
+    gui = viz.gui_ok()
+
+    def _emit(display, dt):
+        nonlocal writer, curr
+        rgb = _bgr_to_rgb(display)
+        viz.draw_proc_time(rgb, dt)
+        viz.draw_frame_info(rgb, curr, max_frame)
+        out_bgr = _bgr_to_rgb(rgb)
+        if args.save_output:
+            if writer is None:
+                writer = _writer_for(args, path, fps, out_bgr.shape)
+            writer.write(out_bgr)
+        if gui and viz.safe_imshow(args.mode, out_bgr) == 27:
+            stop_evt.set()                # yolo_core.cpp:267-268: ESC
+        curr += 1
+
+    try:
+        if _use_device_nms(args, net):
+            # depth-N pipeline: up to N frames' device programs run while
+            # the host finalizes the oldest; results stay strictly in order
+            depth = max(1, args.pipeline_depth)
+            pending: "deque" = deque()   # (frame, device triple, submit s)
+            eof = False
+            while True:
+                if not eof:
+                    frame = frames_q.get()
+                    if stop_evt.is_set():
+                        frame = None     # ESC: finalize pending and stop
+                    if frame is None:
+                        eof = True
+                    else:
+                        t0 = time.perf_counter()
+                        out = _submit_frame(net, frame, args)
+                        pending.append((frame, out,
+                                        time.perf_counter() - t0))
+                while pending and (eof or len(pending) > depth):
+                    pframe, pout, sub_dt = pending.popleft()
+                    # proc time = submit + finalize, not the wait on the
+                    # frame source in between
+                    t0 = time.perf_counter()
+                    display, _ = _finalize_frame(net, md, pframe, pout, args,
+                                                 track_manager=tm)
+                    _emit(display, (sub_dt + time.perf_counter() - t0) * 1000)
+                if eof and not pending:
+                    break
+        else:
+            while True:
+                frame = frames_q.get()
+                if frame is None or stop_evt.is_set():
+                    break
+                t0 = time.perf_counter()
+                display, _ = _proc_frame(net, md, frame, args,
+                                         track_manager=tm)
+                _emit(display, (time.perf_counter() - t0) * 1000)
+        if read_error:
+            raise RuntimeError(f"{path}: reading a frame failed") \
+                from read_error[0]
+    finally:
+        # the reader may be blocked on a full queue: signal it, drain, and
+        # release the capture only once it is done
+        stop_evt.set()
+        while True:
+            try:
+                frames_q.get_nowait()
+            except queue.Empty:
+                break
+        reader_t.join(timeout=2.0)
+        if not reader_t.is_alive():
+            cap.release()
+        if writer is not None:
+            writer.release()
+    print(f"processed {curr} frames")
+
+
+def mode_multi_video(args):
+    """N cameras, N trackers, handover crosstalk between the first two
+    cameras' zones (yolo_core.cpp:276-392), one network predict per frame
+    set."""
+    from collections import deque
+
+    from darknet_tpu_torch.apps import visualize as viz
+    from darknet_tpu_torch.apps.geo import GeoInfo, Handover
+    from darknet_tpu_torch.apps.tracker import ConfParam, TrackManager
+    from darknet_tpu_torch.data import video
+
+    if args.save_output:
+        video.require_writer()
+    md = _load_metadata(args)
+    net = _load_network(args)
+    files = [f for f in args.input_file.split(",") if f]
+    caps = []
+    for f in files:
+        cap = video.open_video(f)
+        if cap is None or not cap.isOpened():
+            print(f"could not open {f}", file=sys.stderr)
+            return
+        caps.append(cap)
+    fps = (caps[0].fps or 30.0) if caps else 30.0
+    tms = [TrackManager(ConfParam.from_fps(fps), fps, 0.3) for _ in files]
+    geos = []
+    for f in files:
+        g = GeoInfo()
+        xml = args.geo_info_file or os.path.splitext(f)[0] + ".xml"
+        if os.path.exists(xml):
+            g.load(xml, fps=fps)
+        geos.append(g)
+
+    writers = [None] * len(files)
+    curr = 0
+
+    def _read_set():
+        frames = []
+        for cap in caps:
+            ok, frame = cap.read()
+            if not ok:
+                return None
+            frames.append(frame)
+        return frames
+
+    gui = viz.gui_ok()
+    stop = False
+    max_frame = caps[0].frame_count if caps else 0
+
+    def _tail(outs, proc_ms):
+        nonlocal curr, stop
+        for i, (display, _dets) in enumerate(outs):
+            geos[i].proc(tms[i].get_tracks())
+            # zone overlay per camera (yolo_core.cpp:351-352), BGR frames
+            geos[i].draw(display, bgr=True)
+            rgb = _bgr_to_rgb(display)
+            viz.draw_proc_time(rgb, proc_ms)
+            viz.draw_frame_info(rgb, curr, max_frame)
+            display[:] = _bgr_to_rgb(rgb)
+            if args.save_output:
+                if writers[i] is None:
+                    writers[i] = _writer_for(args, files[i], fps,
+                                             display.shape)
+                writers[i].write(display)
+            # one window per camera (yolo_core.cpp:378-379); ESC stops all
+            if gui and viz.safe_imshow(f"{args.mode}-{i}", display) == 27:
+                stop = True
+        # cross-camera label handover between the first two cameras' zones
+        if len(geos) >= 2 and geos[0].handovers and geos[1].handovers:
+            Handover.crosstalk(geos[0].handovers[0], geos[1].handovers[0])
+        curr += 1
+
+    try:
+        if _use_device_nms(args, net):
+            # depth-N pipeline across frame sets (see mode_video)
+            depth = max(1, args.pipeline_depth)
+            pending: "deque" = deque()
+            eof = False
+            while True:
+                if not eof:
+                    frames = None if stop else _read_set()
+                    if frames is None:
+                        eof = True
+                    else:
+                        t0 = time.perf_counter()
+                        pending.append(
+                            (frames, _submit_frames_batch(net, frames, args),
+                             time.perf_counter() - t0))
+                while pending and (eof or len(pending) > depth):
+                    pframes, psub, sub_dt = pending.popleft()
+                    t0 = time.perf_counter()
+                    outs = _finalize_frames_batch(net, md, pframes, psub,
+                                                  args, track_managers=tms)
+                    _tail(outs, (sub_dt + time.perf_counter() - t0) * 1000)
+                if eof and not pending:
+                    break
+        else:
+            while True:
+                frames = _read_set()
+                if frames is None or stop:
+                    break
+                t0 = time.perf_counter()
+                outs = _proc_frames_batch(net, md, frames, args,
+                                          track_managers=tms)
+                _tail(outs, (time.perf_counter() - t0) * 1000)
+    finally:
+        for cap in caps:
+            cap.release()
+        for wr in writers:
+            if wr is not None:
+                wr.release()
+    print(f"processed {curr} frames from {len(files)} cameras")
+
+
 def main(argv=None):
     args = build_parser().parse_args(argv)
+    if args.latency:
+        # low-latency preset: top_k=64, depth 1 (the freshest result)
+        if args.top_k == build_parser().get_default("top_k"):
+            args.top_k = 64
+        args.pipeline_depth = 1
     if args.mode in UNPORTED_MODES:
         raise NotImplementedError(
             f"-mode {args.mode} is not ported yet (ROADMAP A6)")
@@ -186,9 +692,15 @@ def main(argv=None):
                 f"-{flag} is not ported yet (ROADMAP A6)")
     if args.mode == "train":
         mode_train(args)
-    else:
+    elif args.mode == "valid":
         # not the mAP: a console script passes main's value to sys.exit
         mode_valid(args)
+    elif args.mode == "image":
+        mode_image(args)
+    elif args.mode == "video":
+        mode_video(args)
+    else:
+        mode_multi_video(args)
 
 
 if __name__ == "__main__":

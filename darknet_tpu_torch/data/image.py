@@ -14,7 +14,8 @@ The five OpenCV operations, each matching OpenCV's float32 semantics:
 
 * `resize_linear`: cv::resize INTER_LINEAR (half-pixel centres, clamped
   edges, no antialiasing), as torch's bilinear interpolate with
-  align_corners=False;
+  align_corners=False; `resize_u8` is the same resize on uint8 images in
+  OpenCV's 11-bit fixed point, bitwise;
 * `pad_constant`: cv::copyMakeBorder BORDER_CONSTANT;
 * `flip_horizontal`: cv::flip(img, 1);
 * `rgb_to_hsv` / `hsv_to_rgb`: cv::cvtColor COLOR_RGB2HSV / COLOR_HSV2RGB
@@ -219,9 +220,60 @@ def resize_image_darknet(im: np.ndarray, w: int, h: int) -> np.ndarray:
     return out.astype(np.float32)
 
 
+def _u8_taps(dst: int, src: int, clamp: bool):
+    """cv::resize INTER_LINEAR's taps for 8-bit images: source indices and
+    11-bit fixed-point weights (float32 fractions rounded to nearest
+    even).  Columns clamp the fraction at the borders; rows keep it and
+    clip the row index (both taps then read the border row)."""
+    scale = 1.0 / (dst / src)
+    f = ((np.arange(dst) + 0.5) * scale - 0.5).astype(np.float32)
+    s = np.floor(f).astype(np.int64)
+    f = (f - s).astype(np.float32)
+    if clamp:
+        f[s < 0] = 0
+        s[s < 0] = 0
+        edge = s >= src - 1
+        f[edge] = 0
+        s[edge] = src - 1
+    w0 = np.rint((np.float32(1) - f) * np.float32(2048)).astype(np.int32)
+    w1 = np.rint(f * np.float32(2048)).astype(np.int32)
+    return (np.clip(s, 0, src - 1), np.clip(s + 1, 0, src - 1), w0, w1)
+
+
+def resize_u8(im: np.ndarray, w: int, h: int) -> np.ndarray:
+    """cv::resize(INTER_LINEAR) on an HWC (or HW) uint8 image, bitwise:
+    the horizontal pass in exact integers, the vertical pass as OpenCV's
+    vector path computes it (each row's sum >> 4 times its 11-bit weight,
+    >> 16, the two added, rounded by (t + 2) >> 2).  Every intermediate
+    fits int32."""
+    im = np.asarray(im)
+    ih, iw = im.shape[:2]
+    x0, x1, a0, a1 = _u8_taps(w, iw, clamp=True)
+    y0, y1, b0, b1 = _u8_taps(h, ih, clamp=False)
+    src = im if im.ndim == 3 else im[..., None]
+    # the horizontal pass on the source rows that the taps read only
+    used, inv = np.unique(np.concatenate([y0, y1]), return_inverse=True)
+    src = src[used]
+    rows = src[:, x0].astype(np.int32) * a0[None, :, None]
+    rows += src[:, x1].astype(np.int32) * a1[None, :, None]
+    rows >>= 4
+    t = rows[inv[:h]] * b0[:, None, None]
+    t >>= 16
+    t1 = rows[inv[h:]] * b1[:, None, None]
+    t1 >>= 16
+    t += t1
+    t += 2
+    t >>= 2
+    out = np.clip(t, 0, 255).astype(np.uint8)
+    return out if im.ndim == 3 else out[..., 0]
+
+
 def resize_image_cv(im: np.ndarray, w: int, h: int) -> np.ndarray:
-    """cv::resize INTER_LINEAR, the reference CLI's inference resize
-    (`resize_linear`; no OpenCV needed)."""
+    """cv::resize INTER_LINEAR, the reference CLI's inference resize, with
+    no OpenCV needed: `resize_u8` for a uint8 image (the streaming modes'
+    device path), `resize_linear` for a float one."""
+    if np.asarray(im).dtype == np.uint8:
+        return resize_u8(im, w, h)
     return resize_linear(im, w, h)
 
 
@@ -253,6 +305,42 @@ def letterbox_image(im: np.ndarray, w: int, h: int) -> np.ndarray:
     dy, dx = (h - nh) // 2, (w - nw) // 2
     out[dy:dy + nh, dx:dx + nw, :] = resized
     return out
+
+
+def make_letterbox_device(img_h: int, img_w: int, net_w: int, net_h: int,
+                          channels: int = 3, device="cuda"):
+    """On-device batched letterbox: (N, img_h, img_w, C) uint8 frames (a
+    numpy array or a tensor) -> (N, net_h, net_w, C) float32 in [0, 1] on
+    `device`, aspect preserved, 0.5-gray padding at the offsets of
+    `correct_boxes_letterbox`.  The frames upload as uint8 and normalise
+    through a table of the host's quotients v / 255 (as `Network` does);
+    the resize is torch's bilinear (half-pixel centres, clamped source
+    coordinates, no antialiasing), where the JAX package's
+    jax.image.resize renormalises its triangle weights at the borders:
+    the two agree to interpolation tolerance, not bit for bit."""
+    from darknet_tpu_torch.nn.params import resolve_device
+
+    device = resolve_device(device)
+    scale = min(net_w / img_w, net_h / img_h)
+    nw, nh = int(img_w * scale), int(img_h * scale)
+    dy, dx = (net_h - nh) // 2, (net_w - nw) // 2
+    unit = torch.from_numpy(
+        np.arange(256, dtype=np.float32) / np.float32(255)).to(device)
+
+    def letterbox(frames):
+        x = torch.as_tensor(frames).to(device)
+        if x.shape[1:] != (img_h, img_w, channels):
+            raise ValueError(f"letterbox built for ({img_h}, {img_w}, "
+                             f"{channels}) frames, got {tuple(x.shape)}")
+        x = unit[x.long()].permute(0, 3, 1, 2)
+        r = F.interpolate(x, size=(nh, nw), mode="bilinear",
+                          align_corners=False, antialias=False)
+        out = torch.full((x.shape[0], channels, net_h, net_w), 0.5,
+                         dtype=torch.float32, device=device)
+        out[:, :, dy:dy + nh, dx:dx + nw] = r
+        return out.permute(0, 2, 3, 1).contiguous()
+
+    return letterbox
 
 
 def pad_constant(img: np.ndarray, top: int, bottom: int, left: int,

@@ -14,7 +14,7 @@ channels + 8 (conflict-free `ldmatrix` rows) and whose weights are one
 
 A CPU tensor goes to the plain version (`fused_region.region_plain`); a
 CUDA tensor launches the kernel or raises.  `launches` counts the kernel
-launches.
+launches, and `variant_launches` counts them by kernel.
 """
 
 from __future__ import annotations
@@ -53,6 +53,8 @@ TC_TILES = (16, 12, 8, 4)
 PASS_CAPS = (256, 128, 64, 32, 16)
 
 launches = 0
+# launches by kernel: the tensor-core kernel (bf16 plans) and the FFMA one
+variant_launches = {"region_tc_kernel": 0, "region_kernel": 0}
 
 
 @dataclasses.dataclass
@@ -459,4 +461,6 @@ def launch(kp: KernelPlan, tab, wbuf, bbuf, x, out_c: int):
         raise RuntimeError(f"fused_region launch failed ({err}): "
                            f"{lib.region_error_string(err).decode()}")
     launches += 1
+    variant_launches["region_tc_kernel" if kp.tensor_cores
+                     else "region_kernel"] += 1
     return out

@@ -29,8 +29,10 @@ The device is the CUDA card unless the caller passes device="cpu"
 JAX package's accelerator defaults: bf16 compute, act16 and metric_lag 3;
 on the CPU f32, no act16 and metric_lag 0.
 
-Not ported, each refused or left out: the loss chart's rendering (the
-history is kept), a mesh, and the sharded checkpoints.
+The loss/mAP chart is drawn to `<save_dir>/chart.png` every 10th
+iteration, at each mAP and at the end (`apps/visualize.draw_loss_chart`).
+Not ported, each refused or left out: a mesh, and the sharded
+checkpoints.
 """
 
 from __future__ import annotations
@@ -243,6 +245,8 @@ class DetectorTrainer:
                 dims=[p_w, p_h])
             self._chart["iters"].append(p_it)
             self._chart["losses"].append(avg_loss)
+            if p_it % 10 == 0 or p_it >= end_iter:
+                self._render_chart()
 
         def _drain_all():
             while pending:
@@ -301,6 +305,7 @@ class DetectorTrainer:
                     self.metrics.map_event(it, m)
                     self._chart["map_iters"].append(it)
                     self._chart["maps"].append(m)
+                    self._render_chart()
                     if m > best_map:
                         best_map = m
                         self._best_map = m
@@ -361,6 +366,22 @@ class DetectorTrainer:
         opt = {k: (v if k == "t" else to_np(v))
                for k, v in self.opt_state.items()}
         return to_np(self.params), opt
+
+    def _render_chart(self) -> None:
+        """chart.png in save_dir, and a live window where one can open
+        (the reference draws per iteration with max_loss=5,
+        detector.cpp:122-123,269-270; rendered every 10th iteration, at
+        each mAP and at the end, as in the JAX package, which draws only
+        where cv2 imports: the port's primitives always can)."""
+        from darknet_tpu_torch.apps import visualize as viz
+
+        os.makedirs(self.save_dir, exist_ok=True)
+        img = viz.draw_loss_chart(
+            self._chart["iters"], self._chart["losses"],
+            self._chart["map_iters"], self._chart["maps"],
+            max_iter=self.net.max_iter,
+            path=os.path.join(self.save_dir, "chart.png"))
+        viz.safe_imshow("average loss", img[..., ::-1])
 
     def save_state(self, path: str | None = None) -> str:
         """Write the full resumable state (one `.ckpt.npz`)."""

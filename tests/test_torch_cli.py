@@ -6,8 +6,9 @@ count, GT count, recall, precision, per-class AP, mAP and the COCO sweep;
 only the timing lines differ: the detections are the same, as in
 tests/test_torch_eval.py); int8 validation with a calibration cache; and
 the refusals: every mode and flag not ported yet raises
-NotImplementedError and writes nothing, and without a card `-device cpu`
-is required.
+NotImplementedError and writes nothing (in the streaming modes too, which
+tests/test_torch_apps_cli.py holds to the JAX CLI), and without a card
+`-device cpu` is required.
 """
 
 import os
@@ -114,7 +115,9 @@ def test_valid_int8_calibration_cache(run_dir, capsys):
 
 
 @pytest.mark.parametrize("extra", [
-    ["-mode", "image"], ["-mode", "video"], ["-mode", "multi-video"],
+    ["-mode", "video", "-num_chips", "2"],
+    ["-mode", "image", "-benchmark_layers", "1"],
+    ["-mode", "multi-video", "-dbg_sync", "1"],
     ["-mode", "bench"], ["-num_chips", "2"], ["-benchmark_layers", "1"],
     ["-dbg_sync", "1"], ["-show_imgs"]])
 def test_unported_refused(run_dir, tmp_path, extra):

@@ -5,8 +5,10 @@ calibrated); another blocks OpenCV (cv2) and PIL too and trains 3
 iterations through `train_detector` on the port's synth set (nonzero
 image batches, non-empty truths, finite losses), and a third, with the
 same five blocked, runs `validate_detector` (both resizes) and the CLI's
-`-mode valid` on a synth set; and no source of the port (`eval/` and
-`apps/` included), nor the chip scripts (chip_smoke.py,
+`-mode valid` on a synth set; a fourth, with jax, jaxlib, `darknet_tpu`
+and cv2 blocked, runs the CLI's `-mode video -device cpu` on a y4m clip
+with tracking, and `-mode image` on a PNG; and no source of the port
+(`eval/` and `apps/` included), nor the chip scripts (chip_smoke.py,
 chip_int8_shapes.py, chip_region_tiles.py), imports any of the three."""
 
 import os
@@ -161,6 +163,57 @@ assert not bad, bad
 print("VALIDATED", r.n_pred)
 """
 
+BLOCKED_VIDEO = r"""
+import sys
+
+class Block:
+    def find_spec(self, name, path=None, target=None):
+        if name.split(".")[0] in ("jax", "jaxlib", "darknet_tpu", "cv2"):
+            raise ImportError(f"blocked: {name}")
+        return None
+
+sys.meta_path.insert(0, Block())
+import contextlib, io, os, warnings
+import numpy as np
+import torch
+torch.set_num_threads(2)
+from darknet_tpu_torch.apps import cli
+from darknet_tpu_torch.data import video
+from darknet_tpu_torch.data.image import read_png, write_png
+
+root = sys.argv[1]
+cfg = os.path.join(root, "m.cfg")
+with open(cfg, "w") as f:
+    f.write(CFG)
+with open(os.path.join(root, "names"), "w") as f:
+    f.write("a\nb\nc\nd\n")
+with open(os.path.join(root, "t.data"), "w") as f:
+    f.write("classes=4\nnames=" + os.path.join(root, "names") + "\n")
+frames = []
+for t in range(6):
+    fr = np.full((48, 64, 3), 100, np.uint8)
+    fr[10:30, 4 + 4 * t:24 + 4 * t] = (30, 200, 60)
+    frames.append(fr)
+clip = os.path.join(root, "clip.y4m")
+video.write_y4m(clip, frames, 10)
+write_png(os.path.join(root, "img.png"), frames[2])
+base = ["-data_file", os.path.join(root, "t.data"), "-model_file", cfg,
+        "-weights_file", "none", "-device", "cpu", "-thresh", "0.1",
+        "-out_dir", os.path.join(root, "out")]
+out = io.StringIO()
+with contextlib.redirect_stdout(out), warnings.catch_warnings():
+    warnings.simplefilter("ignore")
+    cli.main(base + ["-mode", "video", "-input_file", clip])
+    cli.main(base + ["-mode", "image", "-input_file",
+                     os.path.join(root, "img.png")])
+assert "processed 6 frames" in out.getvalue(), out.getvalue()
+assert read_png(os.path.join(root, "out", "det_img.png")).shape == (48, 64, 3)
+bad = [m for m in sys.modules
+       if m.split(".")[0] in ("jax", "jaxlib", "darknet_tpu", "cv2")]
+assert not bad, bad
+print("STREAMED")
+"""
+
 TRAIN_CFG = """[net]
 batch=4
 subdivisions=2
@@ -231,6 +284,12 @@ def test_port_validates_without_jax_opencv_or_pil(tmp_path):
     script = BLOCKED_VALID.replace("f.write(CFG)",
                                    f"f.write({TRAIN_CFG!r})")
     assert "VALIDATED" in run_blocked(script, str(tmp_path))
+
+
+def test_port_streams_video_without_jax_or_opencv(tmp_path):
+    script = BLOCKED_VIDEO.replace("f.write(CFG)",
+                                   f"f.write({TRAIN_CFG!r})")
+    assert "STREAMED" in run_blocked(script, str(tmp_path))
 
 
 @pytest.mark.parametrize("path", sorted(
