@@ -2,7 +2,7 @@
 kernel and the int8 GEMM, check each against its plain version, serve
 yolov4-608 through the public API in bf16 and in int8, train it,
 validate it and the rest of the yolo zoo, stream video through the CLI,
-and report.
+serve, resize, train and validate Gaussian YOLOv3, and report.
 
     python3 chip_smoke.py
 
@@ -50,7 +50,7 @@ Phases, each of which fails the run (non-zero exit) on any error:
      torch._int_mm's on the same operands and the bound; int8 img/s beside
      the bf16 rate of phase 4; a profile of one request;
   7. a JSON line of the kernels, then {"ok": true, "device": ...} last
-     (printed after phase 10);
+     (printed after phase 11);
   8. training (train/step, train/trainer), which launches neither kernel,
      as in the JAX package:
      (a) parity on the card: the narrow CSP + SPP graph (TRAIN_CSP_CFG,
@@ -115,8 +115,36 @@ Phases, each of which fails the run (non-zero exit) on any error:
      serve, copy back, track, draw) and one profiled frame's device busy
      share.
 
-`python3 chip_smoke.py --only video` builds the kernels and runs phase
-10 alone (its last line is then not the contract's).
+ 11. Gaussian YOLOv3 (`model_zoo.gaussian_yolov3_cfg`, darknet53 + FPN,
+     107 layers, 75 convs, three [Gaussian_yolo] heads) at 512 px and 10
+     classes, the published Gaussian_yolov3_BDD.cfg's input and class
+     count:
+     (a) bf16 requests at b=8, one tensor-core region launch each; one
+         f32 request through the FFMA kernel against the plain region on
+         probe params (kept sets equal once slots are matched by box), and
+         the host path's detections and Detection.uc equal (rtol 1e-4);
+         bf16 img/s (5 windows of 50 requests after 30 untimed);
+     (b) int8 (63 quantized convs): a dynamic request (62 int8 launches:
+         layer 12 stays in floating point inside the region), 4
+         calibration frames, a calibrated request (63) with every
+         quantized conv bitwise equal to the plain version; int8 img/s;
+     (c) Network.resize of a network built at 416 from a .weights file to
+         512, then to 608: each serves a triple bitwise equal to a network
+         built at that size from the file, one region launch on the new
+         plan;
+     (d) training: the narrow Gaussian graph (GAUSSIAN_TRAIN_CFG) on the
+         card against the port's CPU run in phase 8 (a)'s form (chaotic:
+         the yardstick bound), then train_detector at batch=64,
+         subdivisions=8 on synth images for 3 iterations: finite losses
+         and uc_loss, moved rolling statistics, nonzero momentum buffers,
+         no kernel launch; s/iter, img/s, peak memory;
+     (e) `-mode valid` through the CLI over 32 synth images, f32, batch 8:
+         one region launch a batch, a MapResult equal to the plain path's,
+         the prediction rate.
+
+`python3 chip_smoke.py --only video` (or `--only gaussian`) builds the
+kernels and runs phase 10 (11) alone (its last line is then not the
+contract's).
 
 Weights are random (numpy, seed 0); the training images are drawn from a
 seed into a temporary directory; no file outside the checkout is read.
@@ -173,6 +201,17 @@ PEAK_INT8 = 1979e12      # H100 SXM dense int8 tensor-core op/s
 PEAK_BF16 = 989e12       # dense bf16 tensor-core FLOP/s
 PEAK_BYTES = 3.35e12     # HBM3 bytes/s
 INT8_CALIB_FRAMES = 4
+# Gaussian YOLOv3 (phase 11): the input size and class count of the
+# published Gaussian_yolov3_BDD.cfg; 63 of its 75 convs quantize (the
+# three head convs excluded); resize 416 -> 512 -> 608
+GAUSS_PX = 512
+GAUSS_CLASSES = 10
+GAUSS_INT8_CONVS = 63
+GAUSS_RESIZE = (416, 512, 608)
+GAUSS_RATE_REQUESTS = 50  # requests per timed window (~2.5 s at b=8)
+GAUSS_TRAIN_IMAGES = 128
+GAUSS_TRAIN_ITERS = 3
+GAUSS_VALID_IMAGES = 32
 # training: parity on the card (batch, steps, accum; the narrow graph's
 # updates within TOL_TRAIN of the largest update, or YARDSTICK times the
 # card's own response to a 1e-7 input change) and the full-width run
@@ -415,6 +454,127 @@ iou_loss=ciou
 max_delta=5
 """
 
+# the narrow Gaussian graph of phase 11 (d) and the CPU tests: a
+# residual, an upsample + route and two [Gaussian_yolo] heads, BN + leaky
+GAUSSIAN_TRAIN_CFG = """[net]
+batch=4
+subdivisions=1
+width=64
+height=64
+channels=3
+learning_rate=0.001
+momentum=0.9
+decay=0.0005
+burn_in=0
+[convolutional]
+batch_normalize=1
+filters=8
+size=3
+stride=1
+pad=1
+activation=leaky
+[convolutional]
+batch_normalize=1
+filters=16
+size=3
+stride=2
+pad=1
+activation=leaky
+[convolutional]
+batch_normalize=1
+filters=8
+size=1
+stride=1
+pad=1
+activation=leaky
+[convolutional]
+batch_normalize=1
+filters=16
+size=3
+stride=1
+pad=1
+activation=leaky
+[shortcut]
+from=-3
+activation=linear
+[convolutional]
+batch_normalize=1
+filters=32
+size=3
+stride=2
+pad=1
+activation=leaky
+[convolutional]
+batch_normalize=1
+filters=16
+size=1
+stride=1
+pad=1
+activation=leaky
+[convolutional]
+batch_normalize=1
+filters=32
+size=3
+stride=2
+pad=1
+activation=leaky
+[convolutional]
+filters=39
+size=1
+stride=1
+pad=1
+activation=linear
+[Gaussian_yolo]
+mask=3,4,5
+anchors=6,8, 10,14, 16,20, 24,22, 34,30, 52,48
+classes=4
+num=6
+jitter=.3
+ignore_thresh=.7
+truth_thresh=1
+iou_loss=mse
+uc_normalizer=1.0
+[route]
+layers=-3
+[convolutional]
+batch_normalize=1
+filters=16
+size=1
+stride=1
+pad=1
+activation=leaky
+[upsample]
+stride=2
+[route]
+layers=-1,-8
+[convolutional]
+batch_normalize=1
+filters=16
+size=3
+stride=1
+pad=1
+activation=leaky
+[convolutional]
+filters=39
+size=1
+stride=1
+pad=1
+activation=linear
+[Gaussian_yolo]
+mask=0,1,2
+anchors=6,8, 10,14, 16,20, 24,22, 34,30, 52,48
+classes=4
+num=6
+jitter=.3
+ignore_thresh=.7
+truth_thresh=1
+scale_x_y=1.05
+iou_thresh=0.213
+iou_normalizer=0.5
+iou_loss=giou
+uc_normalizer=0.5
+"""
+
 WIDE_LAYERS = ((16, 3), (1024, 1), (32, 1))
 WIDE_PX = 64
 
@@ -455,6 +615,16 @@ def quiet_graph(cfg, train=False):
 PROBE_PASS = 24          # candidates per head that pass the threshold
 
 
+# the entries of a head's anchor: (the first class entry, objectness, the
+# entries that read no input in probe_params, the sigmas)
+HEAD_LAYOUT = {"yolo": (5, 4, (2, 3), ()),
+               "gaussian_yolo": (9, 8, (4, 6), (1, 3, 5, 7))}
+# sigma logits of a Gaussian probe head, one per coordinate (shifted by
+# 0.25 an anchor): 1 - mean(sigmoid) rounds to 1 in f32, so the sigmas
+# leave every class score where the objectness threshold's gap put it
+SIGMA_PROBE_BIAS = (-24.0, -23.0, -22.0, -21.0)
+
+
 def probe_params(graph, seed=0, obj_bias=None, gains=(30.0, 280.0, 1300.0),
                  bn_scale=1.5):
     """Numpy params (BN folded) for the f32 kernel-vs-plain request.
@@ -466,7 +636,10 @@ def probe_params(graph, seed=0, obj_bias=None, gains=(30.0, 280.0, 1300.0),
     input (w/h bias 0: anchor-sized boxes; one class per anchor at bias
     +12, the rest at -12), and `obj_bias` (one value per head) places the
     score threshold in a wide gap of the objectness logits, so that no
-    decision sits within noise of it."""
+    decision sits within noise of it.  A [Gaussian_yolo] head (objectness
+    at entry 8, classes from 9, mu_w/mu_h at 4/6) gets the same, and its
+    sigmas read no input either (SIGMA_PROBE_BIAS), since 1 - mean(sigmas)
+    scales its class scores."""
     from darknet_tpu_torch.nn import params as paramlib
 
     p = paramlib.init_params(graph, seed=seed)
@@ -474,30 +647,34 @@ def probe_params(graph, seed=0, obj_bias=None, gains=(30.0, 280.0, 1300.0),
         if "scales" in d:
             d["scales"] = d["scales"] * np.float32(bn_scale)
     p = paramlib.fuse_conv_batchnorm(graph, p)
-    heads = [l for l in graph.layers if l.kind == "yolo"]
-    for hi, (l, gain) in enumerate(zip(heads, gains)):
+    for hi, (l, gain) in enumerate(zip(graph.heads(), gains)):
+        cls, obj, still, sigmas = HEAD_LAYOUT[l.kind]
         d = p[l.index - 1]
         w, b = d["w"] * np.float32(gain), np.zeros_like(d["b"])
-        e = 5 + l.classes
+        e = cls + l.classes
         for a in range(l.n):
-            w[..., a * e + 2:a * e + 4] = 0.0
-            w[..., a * e + 5:(a + 1) * e] = 0.0
-            b[a * e + 5:(a + 1) * e] = -12.0
-            b[a * e + 5 + (3 * hi + a) % l.classes] = 12.0
-            b[a * e + 4] = 0.0 if obj_bias is None else obj_bias[hi]
+            o = a * e
+            w[..., [o + k for k in still + sigmas]] = 0.0
+            w[..., o + cls:o + e] = 0.0
+            b[o + cls:o + e] = -12.0
+            b[o + cls + (3 * hi + a) % l.classes] = 12.0
+            b[o + obj] = 0.0 if obj_bias is None else obj_bias[hi]
+            for k, v in zip(sigmas, SIGMA_PROBE_BIAS):
+                b[o + k] = v + 0.25 * a
         d["w"], d["b"] = w, b
     return p
 
 
-def obj_bias_for(raw_heads, thresh, n_pass=PROBE_PASS):
+def obj_bias_for(raw_heads, thresh, n_pass=PROBE_PASS, obj=4):
     """Per head: the obj bias that puts logit(thresh) midway between the
-    n_pass-th and the next largest objectness logit."""
+    n_pass-th and the next largest objectness logit (entry `obj` of each
+    of the head's three anchors: 4 for [yolo], 8 for [Gaussian_yolo])."""
     import torch
 
     biases = []
     for h in raw_heads:
         e = h.shape[-1] // 3
-        logits = h.reshape(-1, 3, e)[..., 4].flatten().double()
+        logits = h.reshape(-1, 3, e)[..., obj].flatten().double()
         top = torch.sort(logits, descending=True).values
         k = min(n_pass, len(top) - 1)
         cut = float(top[k - 1] + top[k]) / 2
@@ -659,9 +836,9 @@ def unfused_cudnn(sub, x, wc, bc):
     return slots[sub.out_slot]
 
 
-def serve_rate(net, frame):
+def serve_rate(net, frame, requests=RATE_REQUESTS):
     """Throughput: whole requests, host clock around synchronised work,
-    RATE_WINDOWS windows of RATE_REQUESTS requests after a warm-up.
+    RATE_WINDOWS windows of `requests` requests after a warm-up.
     Returns (median img/s, spread (max - min) / median, the rates)."""
     import torch
 
@@ -673,10 +850,10 @@ def serve_rate(net, frame):
     for _ in range(RATE_WINDOWS):
         torch.cuda.synchronize()
         t0 = time.perf_counter()
-        for _ in range(RATE_REQUESTS):
+        for _ in range(requests):
             request()
         torch.cuda.synchronize()
-        rates.append(RATE_REQUESTS * SERVE_BATCH / (time.perf_counter() - t0))
+        rates.append(requests * SERVE_BATCH / (time.perf_counter() - t0))
     img_s = float(np.median(rates))
     return img_s, (max(rates) - min(rates)) / img_s, rates
 
@@ -1204,7 +1381,7 @@ def train_batch(graph, b, seed):
     boxes per image."""
     rng = np.random.default_rng(seed)
     x = rng.uniform(0, 1, (b, graph.net.h, graph.net.w, 3)).astype(np.float32)
-    head = [l for l in graph.layers if l.kind == "yolo"][0]
+    head = graph.heads()[0]
     y = np.zeros((b, head.max_boxes, 5), np.float32)
     for i in range(b):
         for t in range(3):
@@ -1260,20 +1437,25 @@ def update_gap(a, b, p0, keys):
     return err, scale
 
 
-def phase_train_parity():
+def phase_train_parity(cases=None):
     """Phase 8 (a): each f32 step on the card from the state the CPU run
     reached before it (params, momentum, counter), held to the CPU's step
     from that state: updates, rolling statistics and momentum buffers.
     Run freely, yolov4's steps diverge on f32 rounding alone (see the CPU
-    step test), so each step starts from the CPU's state."""
+    step test), so each step starts from the CPU's state.  `cases`:
+    (name, cfg, batch seed, chaotic) each; a chaotic graph is held to
+    YARDSTICK_V4 yardsticks capped at CAP, the others to TOL_TRAIN or
+    YARDSTICK yardsticks."""
     import torch
 
     from darknet_tpu_torch import model_zoo
     from darknet_tpu_torch.nn import params as paramlib
 
     trainable, stats = ("w", "b", "scales"), ("mean", "var")
-    for name, cfg, seed in (("narrow CSP + SPP 64 px", TRAIN_CSP_CFG, 1),
-                            ("yolov4-128", model_zoo.yolov4_cfg(128, 128), 2)):
+    if cases is None:
+        cases = (("narrow CSP + SPP 64 px", TRAIN_CSP_CFG, 1, False),
+                 ("yolov4-128", model_zoo.yolov4_cfg(128, 128), 2, True))
+    for name, cfg, seed, chaotic in cases:
         g = quiet_graph(cfg.replace("burn_in=1000", "burn_in=0"), train=True)
         p0 = paramlib.init_params(g, seed=0)
         x, y = train_batch(g, TRAIN_PARITY_BATCH, seed)
@@ -1299,7 +1481,7 @@ def phase_train_parity():
                                   ("momentum", 1, trainable)):
                 err, scale = update_gap(card[i], cpu[i], state[i], keys)
                 yard, _ = update_gap(card[i], card_eps[i], state[i], keys)
-                if name.startswith("yolov4"):
+                if chaotic:
                     ok = err <= min(YARDSTICK_V4 * yard + 1e-4 * scale,
                                     CAP * scale)
                 else:
@@ -1315,7 +1497,7 @@ def phase_train_parity():
             state = cpu
         print(f"train parity {name}: {TRAIN_PARITY_STEPS} steps, CPU "
               f"{t_cpu:.1f} s, card (two runs) {t_card:.1f} s", flush=True)
-        if name.startswith("narrow"):
+        if cfg is TRAIN_CSP_CFG:
             bf, c_bf = train_stepper(g, DEVICE, torch.bfloat16)(state0, x, y)
             ua = np.concatenate([(d[k] - d0[k]).ravel() for d, d0 in
                                  zip(first[0], p0) for k in sorted(d0)
@@ -2185,13 +2367,536 @@ def stream(card, root):
             "fps_multi": mv["fps"]}
 
 
+def gaussian_cfg(px):
+    """Gaussian YOLOv3 at px, GAUSS_CLASSES classes, the zoo's batch=64
+    and subdivisions=8."""
+    from darknet_tpu_torch import model_zoo
+
+    return model_zoo.gaussian_yolov3_cfg(px, px, classes=GAUSS_CLASSES)
+
+
+def phase_gaussian(card):
+    """Phase 11: Gaussian YOLOv3 (`model_zoo.gaussian_yolov3_cfg`,
+    darknet53 + FPN at full width and depth) at GAUSS_PX with
+    GAUSS_CLASSES classes: serving, int8, Network.resize, training and
+    validation, the data and weights under a temporary directory."""
+    root = tempfile.mkdtemp(prefix="chip_smoke_gaussian_")
+    try:
+        t0 = time.perf_counter()
+        npar, bf16_img_s = gaussian_serve(card)
+        gaussian_int8(card, bf16_img_s)
+        gaussian_resize(card, root, npar)
+        gaussian_train(card, root)
+        gaussian_valid(card, root)
+        print(f"phase 11 (Gaussian YOLOv3) took "
+              f"{time.perf_counter() - t0:.1f} s", flush=True)
+    finally:
+        shutil.rmtree(root, ignore_errors=True)
+
+
+def gaussian_probe(g, x, thresh=0.25, n_pass=PROBE_PASS):
+    """Folded probe params for the Gaussian graph `g` whose threshold
+    `thresh` sits in a gap of the objectness logits (entry 8) over the
+    frames `x` (n_pass candidates a head over them all): heads scaled to
+    a spread of about 2 (BN scales 1.2, as yolov3's in phase 9), sigmas
+    at SIGMA_PROBE_BIAS."""
+    import torch
+
+    from darknet_tpu_torch import Network
+    from darknet_tpu_torch.nn import params as paramlib
+
+    def raw_heads(p):
+        net = Network(g, paramlib.params_to_torch(g, p, DEVICE),
+                      device=DEVICE, fuse_regions="plain")
+        raw = [net._fwd(net.params, torch.from_numpy(
+            x[s:s + SERVE_BATCH]).to(DEVICE))["raw_heads"]
+            for s in range(0, len(x), SERVE_BATCH)]
+        return [torch.cat(h) for h in zip(*raw)]
+
+    with torch.backends.cudnn.flags(enabled=True, allow_tf32=False), \
+            torch.inference_mode():
+        raw = raw_heads(probe_params(g, gains=(1.0,) * 3, bn_scale=1.2))
+        gains = [2.0 / float(h.reshape(-1, 3, h.shape[-1] // 3)[..., 8]
+                             .std()) for h in raw]
+        raw = raw_heads(probe_params(g, gains=gains, bn_scale=1.2))
+        bias = obj_bias_for(raw, thresh, n_pass, obj=8)
+    return probe_params(g, gains=gains, bn_scale=1.2, obj_bias=bias)
+
+
+def gaussian_serve(card):
+    """Phase 11 (a): bf16 requests at b=8 (one tensor-core region launch
+    each, by the per-kernel counts), then one f32 request through the FFMA
+    kernel against the plain region on probe params (equal kept sets once
+    slots are matched by box), the host path's Detection.uc on both, and
+    the bf16 rate.  Returns the probe params and the bf16 img/s."""
+    import torch
+
+    from darknet_tpu_torch import Network
+    from darknet_tpu_torch.nn import params as paramlib
+    from darknet_tpu_torch.ops import fused_region as fr
+    from darknet_tpu_torch.ops.cuda import fused_region as kfr
+
+    with warnings.catch_warnings():
+        warnings.simplefilter("ignore")
+        net = Network.from_cfg(gaussian_cfg(GAUSS_PX), seed=0,
+                               compute_dtype=torch.bfloat16, device=DEVICE)
+    g = net.graph
+    require([l.kind for l in g.heads()] == ["gaussian_yolo"] * 3 and
+            sum(l.kind == "convolutional" for l in g.layers) == 75 and
+            len(g.layers) == 107, "Gaussian YOLOv3: 107 layers, 75 convs, "
+            "three [Gaussian_yolo] heads")
+    rng = np.random.default_rng(11)
+    frames = [rng.uniform(0, 1, (SERVE_BATCH, GAUSS_PX, GAUSS_PX, 3))
+              .astype(np.float32) for _ in range(3)]
+    pre = dict(kfr.variant_launches)
+    kfr.launches = 0
+    counts, dets_n = [], []
+    for f in frames:
+        tb, ov, probs = net.submit_detect_device(f)
+        dets = net.device_out_to_dets(tb, ov, probs)
+        counts.append(kfr.launches)
+        require(tuple(tb.shape) == (SERVE_BATCH, 256, 4) and
+                tuple(probs.shape) == (SERVE_BATCH, 256, GAUSS_CLASSES) and
+                bool(torch.isfinite(tb).all() & torch.isfinite(probs).all())
+                and len(dets) == SERVE_BATCH, "a finite Gaussian triple")
+        dets_n.append(sum(len(d) for d in dets))
+    tc = kfr.variant_launches["region_tc_kernel"] - pre["region_tc_kernel"]
+    plan = net._fwd.region_plans[0]
+    sub, _k = fr.hybrid_prefix(plan)
+    print(f"gaussian bf16 requests: region launch counts {counts} "
+          f"(region_tc_kernel {tc}), detections {dets_n}; the region "
+          f"layers {plan.start}-{plan.stop}, its prefix {len(sub.steps)} "
+          f"steps, (B,{sub.h},{2 * sub.w2},{sub.out_c}) in s2d "
+          f"coordinates, tile {kfr.kernel_plan(sub, 2).tile}", flush=True)
+    require(counts == [1, 2, 3] and tc == 3,
+            f"one tensor-core region launch a Gaussian request: {counts}")
+    # the region kernel at this slice's serving shape: CUDA events, the
+    # profiler's count and time, the plain version, the bound
+    ws, bs = fr.step_weights(sub.steps, net.params, torch.bfloat16)
+    xt = torch.from_numpy(frames[0]).to(DEVICE)
+    with torch.inference_mode():
+        def kernel():
+            return kfr.region_call(sub, xt, ws, bs,
+                                   compute_dtype=torch.bfloat16)
+
+        def plain():
+            return fr.region_plain(sub, xt, ws, bs,
+                                   compute_dtype=torch.bfloat16)
+        k_ms, p_ms = cuda_ms(kernel), cuda_ms(plain)
+        p_ms2, k_ms2 = cuda_ms(plain), cuda_ms(kernel)
+        prof_ms, n_prof = profiled_ms(kernel, "region_tc_kernel")
+        out = kernel()
+        err, scale, share, ok = held_to_plain(out, plain(), TOL_BF16)
+    bound, bound_by = region_bound(sub, xt, ws, bs, out.shape)
+    print(f"gaussian region prefix b={SERVE_BATCH} bf16: tensor-core kernel "
+          f"{k_ms:.3f} / {k_ms2:.3f} ms by CUDA events, {prof_ms} ms by "
+          f"torch.profiler ({n_prof} events); plain {p_ms:.3f} / "
+          f"{p_ms2:.3f} ms; bound {bound:.4f} ms by {bound_by}; max abs err "
+          f"{err:.4g} at scale {scale:.4g}, {100 * share:.3f}% of the "
+          f"elements differ [{card}]", flush=True)
+    require(ok, "the region kernel at the Gaussian serving shape agrees "
+            "with its plain version")
+    del xt, out
+    top_kernels(net, frames[0], "gaussian bf16", card)
+    img_s, spread, rates = serve_rate(net, frames[0], GAUSS_RATE_REQUESTS)
+    print(f"serving gaussian-yolov3-{GAUSS_PX} bf16 b={SERVE_BATCH}: "
+          f"{img_s:.2f} img/s median of {RATE_WINDOWS} windows of "
+          f"{GAUSS_RATE_REQUESTS} requests "
+          f"({', '.join(f'{r:.2f}' for r in rates)}; spread "
+          f"{100 * spread:.2f}%) [{card}]", flush=True)
+    del net
+
+    # one f32 request: the FFMA kernel against the plain region
+    x = frames[0]
+    npar = gaussian_probe(g, x)
+    nets, out, host = {}, {}, {}
+    with torch.backends.cudnn.flags(enabled=True, allow_tf32=False), \
+            torch.inference_mode():
+        for mode in ("hybrid", "plain"):
+            nets[mode] = Network(g, paramlib.params_to_torch(g, npar, DEVICE),
+                                 device=DEVICE, fuse_regions=mode)
+            pre = kfr.variant_launches["region_kernel"]
+            out[mode] = nets[mode].submit_detect_device(x, thresh=0.25)
+            out[mode + "_launches"] = kfr.variant_launches[
+                "region_kernel"] - pre
+            host[mode] = nets[mode].detect_batch(x, thresh=0.25)
+    ka, kb, err = kept_matched(out["hybrid"], out["plain"])
+    ha, hb = host["hybrid"], host["plain"]
+    uc_err = max((float(np.max(np.abs(a.uc - b.uc) / np.abs(b.uc)))
+                  for da, db in zip(ha, hb) for a, b in zip(da, db)),
+                 default=0.0)
+    same_host = [len(d) for d in ha] == [len(d) for d in hb] and all(
+        np.array_equal(a.prob > 0, b.prob > 0) and
+        np.allclose(a.bbox, b.bbox, rtol=1e-4, atol=1e-5)
+        for da, db in zip(ha, hb) for a, b in zip(da, db))
+    n_host = sum(len(d) for d in ha)
+    print(f"gaussian f32 request: FFMA kernel launches "
+          f"{out['hybrid_launches']}, plain {out['plain_launches']}; kept "
+          f"{len(ka)} vs {len(kb)} (slots matched), box max err {err:.3g}; "
+          f"host path {n_host} detections, uc rel err {uc_err:.3g}",
+          flush=True)
+    require(out["hybrid_launches"] == 1 and out["plain_launches"] == 0,
+            "the f32 Gaussian request launches the FFMA kernel once")
+    require(ka == kb and len(ka) > 0 and err <= 1e-4,
+            "f32 Gaussian kernel path keeps what the plain path keeps")
+    require(n_host > 0 and same_host and uc_err <= 1e-4 and all(
+        d.uc.shape == (4,) for dd in ha for d in dd),
+        "the host path's detections and Detection.uc equal the plain path's")
+    return npar, img_s
+
+
+def gaussian_int8(card, bf16_img_s):
+    """Phase 11 (b): int8 Gaussian YOLOv3 (bf16 between the convs): a
+    dynamic request, calibrate_int8 on INT8_CALIB_FRAMES frames, then a
+    calibrated request with every quantized conv's output held to the
+    plain version on the same operands, bitwise; the int8 rate."""
+    import torch
+
+    from darknet_tpu_torch import Network
+    from darknet_tpu_torch.ops import conv as convmod
+    from darknet_tpu_torch.ops import quant_matmul as qm
+    from darknet_tpu_torch.ops.cuda import fused_region as kfr
+
+    with warnings.catch_warnings():
+        warnings.simplefilter("ignore")
+        net = Network.from_cfg(gaussian_cfg(GAUSS_PX), seed=0,
+                               compute_dtype=torch.bfloat16, device=DEVICE,
+                               int8=True)
+    n_q = sum("w_q" in p for p in net.params)
+    heads_q = [l.index - 1 for l in net.graph.heads()
+               if "w_q" in net.params[l.index - 1]]
+    require(n_q == GAUSS_INT8_CONVS and not heads_q,
+            f"{GAUSS_INT8_CONVS} quantized convs, none feeding a head: "
+            f"{n_q}, {heads_q}")
+    rng = np.random.default_rng(12)
+    shape = (SERVE_BATCH, GAUSS_PX, GAUSS_PX, 3)
+    frame = rng.uniform(0, 1, shape).astype(np.float32)
+
+    def served():
+        tb, ov, probs = net.submit_detect_device(frame)
+        require(bool(torch.isfinite(tb).all() & torch.isfinite(probs).all()),
+                "finite int8 Gaussian outputs")
+        return sum(len(d) for d in net.device_out_to_dets(tb, ov, probs))
+
+    qm.launches = 0
+    served()
+    dynamic = qm.launches
+    net.calibrate_int8([rng.uniform(0, 1, shape[1:]).astype(np.float32)
+                        for _ in range(INT8_CALIB_FRAMES)])
+    records = []
+    orig = convmod.int8_conv
+
+    def recorded(x_q, w_q, ws, bias, xs, **kw):
+        y = orig(x_q, w_q, ws, bias, xs, **kw)
+        records.append(((x_q, w_q, ws, bias, xs), kw, y))
+        return y
+
+    qm.launches = kfr.launches = 0
+    convmod.int8_conv = recorded
+    try:
+        n_det = served()
+    finally:
+        convmod.int8_conv = orig
+    calibrated, region = qm.launches, kfr.launches
+    n_rec = len(records)
+    n_eq = sum(bool(torch.equal(y, qm.int8_conv_plain(*ops, **kw)))
+               for ops, kw, y in records)
+    print(f"gaussian int8: {n_q} quantized convs; int8 launches a request: "
+          f"dynamic {dynamic}, calibrated {calibrated} (region {region}); "
+          f"{n_eq} of {n_rec} quantized convs bitwise equal to the "
+          f"plain version; {n_det} detections", flush=True)
+    del records
+    require(calibrated == n_rec == n_eq == n_q and region == 1,
+            f"{n_q} int8 launches, each bitwise equal to its plain version, "
+            f"and one region launch a calibrated request")
+    require(dynamic == n_q - 1, f"{n_q - 1} int8 launches a dynamic request "
+            f"(layer 12 in floating point inside the region): {dynamic}")
+    top_kernels(net, frame, "gaussian int8", card)
+    img_s, spread, rates = serve_rate(net, frame, GAUSS_RATE_REQUESTS)
+    print(f"serving gaussian-yolov3-{GAUSS_PX} int8 (calibrated, bf16) b="
+          f"{SERVE_BATCH}: {img_s:.2f} img/s median of {RATE_WINDOWS} "
+          f"windows of {GAUSS_RATE_REQUESTS} requests "
+          f"({', '.join(f'{r:.2f}' for r in rates)}; spread "
+          f"{100 * spread:.2f}%) beside bf16 {bf16_img_s:.2f} img/s "
+          f"[{card}]", flush=True)
+
+
+def gaussian_resize(card, root, npar):
+    """Phase 11 (c): a bf16 network built at 416 from a .weights file,
+    resized to GAUSS_PX and then to 608: each serves a triple bitwise
+    equal to a network built at that size from the same file, with one
+    region launch a request on the new size's plan (the launched table's
+    output extent and tile recorded)."""
+    import torch
+
+    from darknet_tpu_torch import Network
+    from darknet_tpu_torch.ops import fused_region as fr
+    from darknet_tpu_torch.ops.cuda import fused_region as kfr
+    from darknet_tpu_torch.weights import io as wio
+
+    g = quiet_graph(gaussian_cfg(GAUSS_PX))
+    weights = os.path.join(root, "gaussian-probe.weights")
+    wio.save_weights(g, unfolded(g, npar), weights)
+
+    def build(px):
+        with warnings.catch_warnings():
+            warnings.simplefilter("ignore")
+            return Network.from_cfg(gaussian_cfg(px), weights=weights,
+                                    compute_dtype=torch.bfloat16,
+                                    device=DEVICE)
+
+    launched = []
+    launch = kfr.launch
+
+    def spy(kp, *a, **k):
+        launched.append((kp.tile, int(kp.table[3]), int(kp.table[4])))
+        return launch(kp, *a, **k)
+
+    net = build(GAUSS_RESIZE[0])
+    rng = np.random.default_rng(13)
+    kfr.launch = spy
+    try:
+        for px in GAUSS_RESIZE[1:]:
+            x = rng.uniform(0, 1, (SERVE_BATCH, px, px, 3)).astype(
+                np.float32)
+            resized = net.resize(px, px)
+            launched.clear()
+            kfr.launches = 0
+            a = resized.submit_detect_device(x, thresh=0.25)
+            n_resized, seen = kfr.launches, list(launched)
+            b = build(px).submit_detect_device(x, thresh=0.25)
+            torch.cuda.synchronize()
+            sub, _k = fr.hybrid_prefix(resized._fwd.region_plans[0])
+            same = all(torch.equal(u, v) for u, v in zip(a, b))
+            print(f"gaussian resize {GAUSS_RESIZE[0]} -> {px}: triple "
+                  f"bitwise equal to a network built at {px}: {same}; "
+                  f"region launches {n_resized} (tile, out h, out w) "
+                  f"{seen}; kept {len(kept(a[2]))} [{card}]", flush=True)
+            require(same and resized.params is net.params,
+                    f"the resized network serves what a network built at "
+                    f"{px} serves")
+            require(n_resized == 1 and [t[1:] for t in seen] == [
+                (sub.h, 2 * sub.w2)],
+                    f"one region launch on the {px} plan: {seen}")
+            del resized
+    finally:
+        kfr.launch = launch
+
+
+def gaussian_train(card, root):
+    """Phase 11 (d): parity of the narrow Gaussian graph on the card
+    against the port's CPU run (phase 8 (a)'s form, chaotic), then
+    train_detector on Gaussian YOLOv3 at GAUSS_PX, batch=64,
+    subdivisions=8, GAUSS_CLASSES classes, on synth images for
+    GAUSS_TRAIN_ITERS iterations: finite losses and uc_loss, moved
+    rolling statistics, nonzero momentum buffers, no kernel launch."""
+    import torch
+
+    from darknet_tpu_torch.data import loader as loaderlib
+    from darknet_tpu_torch.data import synth
+    from darknet_tpu_torch.ops import quant_matmul as qm
+    from darknet_tpu_torch.ops.cuda import fused_region as kfr
+    from darknet_tpu_torch.train import step as steplib
+    from darknet_tpu_torch.train import trainer as trainerlib
+    from darknet_tpu_torch.weights import io as wio
+
+    phase_train_parity((("narrow Gaussian 64 px", GAUSSIAN_TRAIN_CFG, 32,
+                         True),))
+
+    t0 = time.perf_counter()
+    files = synth.generate(os.path.join(root, "train"),
+                           n_train=GAUSS_TRAIN_IMAGES, n_val=2, seed=2,
+                           size_range=TRAIN_IMAGE_PX)
+    synth_s = time.perf_counter() - t0
+    cfg_text = gaussian_cfg(GAUSS_PX)
+    cfg = os.path.join(root, "gaussian.cfg")
+    with open(cfg, "w") as f:
+        f.write(cfg_text)
+    names = os.path.join(root, "gaussian.names")
+    with open(names, "w") as f:
+        f.write("\n".join(synth.NAMES + [f"c{i}" for i in range(
+            len(synth.NAMES), GAUSS_CLASSES)]) + "\n")
+    backup = os.path.join(root, "backup")
+    data = os.path.join(root, "gaussian.data")
+    with open(data, "w") as f:
+        f.write(f"classes = {GAUSS_CLASSES}\ntrain = {files['train_list']}"
+                f"\nnames = {names}\nsave = {backup}\n")
+
+    # spies: each head delta's uc_loss, and the end-to-end window from
+    # the second iteration's batch (the card drained first) to the final
+    # save, the trainer's loader waits, copies and metric drains inside
+    uc, marks, n_next = [], {}, [0]
+    delta = steplib.HEAD_DELTA["gaussian_yolo"]
+    next_batch = loaderlib.DetectionLoader.next
+    save = trainerlib.DetectorTrainer.save
+
+    def spy_delta(*a, **k):
+        d, c, m = delta(*a, **k)
+        uc.append(m["uc_loss"])
+        return d, c, m
+
+    def spy_next(self):
+        n_next[0] += 1
+        if n_next[0] == 2:
+            torch.cuda.synchronize()
+            marks["start"] = time.perf_counter()
+        return next_batch(self)
+
+    def spy_save(self, suffix=""):
+        if suffix == "final":
+            marks["end"] = time.perf_counter()
+        return save(self, suffix)
+
+    def log(line):
+        print(line, flush=True)
+
+    steplib.HEAD_DELTA["gaussian_yolo"] = spy_delta
+    loaderlib.DetectionLoader.next = spy_next
+    trainerlib.DetectorTrainer.save = spy_save
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    kfr.launches = qm.launches = 0
+    t0 = time.perf_counter()
+    try:
+        trainerlib.train_detector(
+            data, cfg, max_iters=GAUSS_TRAIN_ITERS, device=DEVICE,
+            loader_processes=TRAIN_LOADER_PROCS,
+            log=log,
+            metrics_path=os.path.join(root, "metrics.jsonl"))
+    finally:
+        steplib.HEAD_DELTA["gaussian_yolo"] = delta
+        loaderlib.DetectionLoader.next = next_batch
+        trainerlib.DetectorTrainer.save = save
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    launches = (kfr.launches, qm.launches)
+    peak = torch.cuda.max_memory_allocated()
+    with open(os.path.join(root, "metrics.jsonl")) as f:
+        rows = [json.loads(line) for line in f if '"loss"' in line]
+    losses = [r["loss"] for r in rows]
+    uc = [float(v) for v in uc]
+    net_cfg = quiet_graph(cfg_text, train=True).net
+    n_img = net_cfg.optimizer_batch
+    per_iter = [n_img / r["imgs_per_sec"] for r in rows]
+    e2e = (GAUSS_TRAIN_ITERS - 1) * n_img / (marks["end"] - marks["start"])
+    print(f"train gaussian-yolov3-{GAUSS_PX} batch={n_img} subdivisions="
+          f"{net_cfg.subdiv} "
+          f"(bf16, act16), {GAUSS_TRAIN_ITERS} iterations on "
+          f"{GAUSS_TRAIN_IMAGES} synth images ({synth_s:.1f} s to write): "
+          f"losses {', '.join(f'{v:.4f}' for v in losses)}; s/iter by "
+          f"the trainer's clock {', '.join(f'{v:.3f}' for v in per_iter)}"
+          f"; end to end over iterations 2-{GAUSS_TRAIN_ITERS}: "
+          f"{(GAUSS_TRAIN_ITERS - 1) * n_img} images in "
+          f"{marks['end'] - marks['start']:.3f} s, {e2e:.2f} img/s; "
+          f"buckets {[r['dims'] for r in rows]}; "
+          f"uc_loss over {len(uc)} head deltas {min(uc):.4g} to "
+          f"{max(uc):.4g}; peak memory {peak / 2**30:.2f} GiB; wall "
+          f"{wall:.1f} s; region launches {launches[0]}, int8 "
+          f"{launches[1]} [{card}]", flush=True)
+    require(launches == (0, 0), "training launches neither kernel")
+    require(len(losses) == GAUSS_TRAIN_ITERS and all(np.isfinite(losses)),
+            f"finite losses {losses}")
+    require(len(uc) == GAUSS_TRAIN_ITERS * net_cfg.subdiv * 3
+            and all(np.isfinite(uc)),
+            "a finite uc_loss from every head and micro-batch")
+    final = os.path.join(backup, "gaussian_final.weights")
+    trained, seen, _v = wio.load_weights(quiet_graph(cfg_text), final)
+    moved = sum(float(np.abs(p["mean"]).max()) > 0 for p in trained
+                if "mean" in p)
+    ck = np.load(os.path.join(backup, "gaussian_last.ckpt.npz"))
+    mom = sum(float(np.abs(ck[k]).max()) > 0 for k in ck.files
+              if k.startswith("opt/u/") and k.endswith("/w"))
+    print(f"gaussian trained: seen {seen}, rolling means moved in {moved} "
+          f"layers, momentum nonzero in {mom} conv weights", flush=True)
+    require(seen == GAUSS_TRAIN_ITERS * n_img and moved == 72 and mom == 75,
+            "moved rolling statistics and nonzero momentum buffers")
+
+
+def gaussian_valid(card, root):
+    """Phase 11 (e): `-mode valid` of the CLI over GAUSS_VALID_IMAGES synth
+    images, f32, batch 8, on probe weights whose threshold .005 sits in a
+    gap of the whole set's objectness logits: one region launch a batch,
+    a MapResult equal to the plain path's, the prediction rate."""
+    import torch
+
+    from darknet_tpu_torch import Network
+    from darknet_tpu_torch.apps import cli
+    from darknet_tpu_torch.data import synth
+    from darknet_tpu_torch.data.image import (load_image_rgb,
+                                              resize_image_darknet)
+    from darknet_tpu_torch.eval import map as maplib
+    from darknet_tpu_torch.ops import quant_matmul as qm
+    from darknet_tpu_torch.ops.cuda import fused_region as kfr
+    from darknet_tpu_torch.weights import io as wio
+
+    files = synth.generate(os.path.join(root, "valid"), n_train=0,
+                           n_val=GAUSS_VALID_IMAGES, seed=3)
+    names = os.path.join(root, "valid.names")
+    with open(names, "w") as f:
+        f.write("\n".join(synth.NAMES + [f"c{i}" for i in range(
+            len(synth.NAMES), GAUSS_CLASSES)]) + "\n")
+    data = os.path.join(root, "valid.data")
+    with open(data, "w") as f:
+        f.write(f"classes = {GAUSS_CLASSES}\nvalid = {files['val_list']}\n"
+                f"names = {names}\n")
+    cfg_text = gaussian_cfg(GAUSS_PX)
+    cfg = os.path.join(root, "valid.cfg")
+    with open(cfg, "w") as f:
+        f.write(cfg_text)
+    g = quiet_graph(cfg_text)
+    x = np.stack([resize_image_darknet(load_image_rgb(p), GAUSS_PX,
+                                       GAUSS_PX) for p in files["val_paths"]])
+    weights = os.path.join(root, "valid.weights")
+    npar = gaussian_probe(g, x, VALID_THRESH, VALID_PASS * len(x))
+    wio.save_weights(g, unfolded(g, npar), weights)
+    del x
+
+    runs = []
+    validate_detector = maplib.validate_detector
+
+    def spy_validate(net, *a, **kw):
+        kfr.launches = qm.launches = 0
+        res = validate_detector(net, *a, **kw)
+        runs.append({"net": net, "res": res, "region": kfr.launches,
+                     "int8": qm.launches})
+        return res
+
+    maplib.validate_detector = spy_validate
+    try:
+        t0 = time.perf_counter()
+        cli.main(["-mode", "valid", "-data_file", data, "-model_file", cfg,
+                  "-weights_file", weights, "-device", DEVICE])
+        wall = time.perf_counter() - t0
+        f32 = runs[-1]
+        plain = Network(f32["net"].graph, f32["net"].params, device=DEVICE,
+                        fuse_regions="plain")
+        spy_validate(plain, files["val_paths"], GAUSS_CLASSES,
+                     batch=VALID_BATCH, resize="darknet", progress=False)
+    finally:
+        maplib.validate_detector = validate_detector
+    a, p = f32["res"], runs[-1]["res"]
+    batches = GAUSS_VALID_IMAGES // VALID_BATCH
+    print(f"valid gaussian-yolov3-{GAUSS_PX} f32 (-mode valid, "
+          f"{GAUSS_VALID_IMAGES} images): mAP@0.5 {a.map!r} (plain "
+          f"{p.map!r}), predictions {a.n_pred} ({p.n_pred}), GT {a.n_gt}; "
+          f"prediction {a.imgs_per_s:.2f} img/s ({a.pred_time_s:.3f} s), "
+          f"whole call {GAUSS_VALID_IMAGES / wall:.2f} img/s; region "
+          f"launches {f32['region']} (plain {runs[-1]['region']}), int8 "
+          f"{f32['int8']} [{card}]", flush=True)
+    require(f32["region"] == batches and runs[-1]["region"] == 0,
+            f"one region launch a batch of {VALID_BATCH}: {f32['region']}")
+    require(a.n_gt == p.n_gt > 0 and a.n_pred == p.n_pred > 0
+            and a.map == p.map, "the kernel path's MapResult equals the "
+            "plain path's")
+
+
 def main(argv=None) -> int:
     import argparse
 
     import torch
 
     parser = argparse.ArgumentParser(description="smoke run on one card")
-    parser.add_argument("--only", choices=["video"],
+    parser.add_argument("--only", choices=["video", "gaussian"],
                         help="build the kernels and run this phase alone "
                              "(no kernels line, no contract line)")
     only = parser.parse_args(argv).only
@@ -2213,8 +2918,8 @@ def main(argv=None) -> int:
               f"{log['so']}", flush=True)
         print(log["ptxas"].strip(), flush=True)
 
-    if only == "video":
-        phase_video(card)
+    if only is not None:
+        {"video": phase_video, "gaussian": phase_gaussian}[only](card)
         print(card, flush=True)
         print(json.dumps({"only": only, "ok": True}), flush=True)
         return 0
@@ -2227,6 +2932,7 @@ def main(argv=None) -> int:
     phase_zoo(card)
     phase_validate(card)
     phase_video(card)
+    phase_gaussian(card)
 
     print(card, flush=True)
     print(json.dumps({"kernels": [{

@@ -3,8 +3,9 @@
 `make_forward(graph)` returns `forward(params, x) -> {"heads", "raw_heads",
 "output"}` over NHWC tensors.  It keeps only the outputs that a later layer reads
 again (liveness over route/shortcut edges) and dispatches per layer for
-the kinds the yolo v3/v4 serving path uses.  `make_forward(graph,
-train=True)` is the training forward (`_make_train_forward`).
+the kinds the yolo v3/v4 and Gaussian YOLOv3 serving paths use.
+`make_forward(graph, train=True)` is the training forward
+(`_make_train_forward`).
 
 Fused regions (`ops/fused_region.py`) run in the reference's "hybrid"
 form: the stride-1 step prefix of a region (`hybrid_prefix`; for yolov4
@@ -32,6 +33,9 @@ from darknet_tpu_torch.ops.conv import conv_block, conv_block_int8
 from darknet_tpu_torch.ops.pooling import maxpool_block
 
 HEAD_KINDS = ("yolo", "gaussian_yolo", "detection", "cost")
+# the head kinds ported, with their inference activation
+ACTIVATE = {"yolo": yoloops.yolo_activate,
+            "gaussian_yolo": yoloops.gaussian_yolo_activate}
 
 
 def _liveness(graph) -> set:
@@ -175,9 +179,9 @@ def make_forward(graph, *, compute_dtype=None, fuse_regions="hybrid",
                 cur = shapeops.upsample(cur, l.stride, l.scale)
             elif k == "activation":
                 cur = apply_activation(cur, l.activation)
-            elif k == "yolo":
+            elif k in ACTIVATE:
                 raw_heads.append(cur)
-                cur = yoloops.yolo_activate(cur, l)
+                cur = ACTIVATE[k](cur, l)
                 heads.append(cur)
             elif k in ("empty", "blank", "dropout"):
                 pass                        # identity at inference
@@ -211,8 +215,8 @@ def _make_train_forward(graph, *, compute_dtype=None, train_act_dtype=None,
     (`torch.utils.checkpoint`).  stopbackward/onlyforward detach a layer's
     output; train_only_bn is the optimizer's gate.  Not ported: remat
     "steps"/"all" (region-only levels), dropout and crop in training (they
-    need the JAX rng stream), layer kinds the serving path lacks, and heads
-    other than [yolo]."""
+    need the JAX rng stream), layer kinds the serving path lacks, and the
+    [detection] and [cost] heads."""
     if remat not in (False, True):
         raise NotImplementedError(
             f"remat={remat!r}: only False and True are ported (the "
@@ -221,7 +225,7 @@ def _make_train_forward(graph, *, compute_dtype=None, train_act_dtype=None,
     live = _liveness(graph)
     head_feed = {j - 1 for j, l in enumerate(layers) if l.kind in HEAD_KINDS}
     for i, l in enumerate(layers):
-        if l.kind in HEAD_KINDS and l.kind != "yolo":
+        if l.kind in HEAD_KINDS and l.kind not in ACTIVATE:
             raise NotImplementedError(
                 f"layer {i}: training a {l.kind!r} head is not ported yet")
         if l.kind in ("dropout", "crop"):
@@ -264,9 +268,9 @@ def _make_train_forward(graph, *, compute_dtype=None, train_act_dtype=None,
                 cur = shapeops.upsample(cur, l.stride, l.scale)
             elif k == "activation":
                 cur = apply_activation(cur, l.activation)
-            elif k == "yolo":
+            elif k in ACTIVATE:
                 raw_heads.append(cur)
-                cur = yoloops.yolo_activate(cur, l)
+                cur = ACTIVATE[k](cur, l)
                 heads.append(cur)
             elif k in ("empty", "blank"):
                 pass

@@ -14,7 +14,10 @@ a call that does not name the CPU raises).  The serving program runs on
 top-k, probabilities, and device NMS; only the top-k candidates per image
 leave the device.  An unfused network saves its `.weights`
 (`save_weights`, SaveWeights); a train=True network runs the training
-forward (batch statistics), as the JAX package's does.
+forward (batch statistics), as the JAX package's does.  Heads may be
+[yolo] or [Gaussian_yolo]; the host path's detections of an all-Gaussian
+network carry the sigmas (`Detection.uc`).  `resize(w, h)` rebuilds the
+network at another input size on the same params.
 """
 
 from __future__ import annotations
@@ -25,6 +28,7 @@ import json
 import numpy as np
 import torch
 
+from darknet_tpu_torch.config.cfg import patch_cfg_dims
 from darknet_tpu_torch.graph.builder import Graph, build_graph
 from darknet_tpu_torch.nn import params as paramlib
 from darknet_tpu_torch.nn.emit import make_forward
@@ -36,11 +40,13 @@ from darknet_tpu_torch.weights import io as wio
 @dataclasses.dataclass
 class Detection:
     """The reference's `Detection` (box.h:68-85): relative center-format
-    bbox, objectness and per-class probs."""
+    bbox, objectness, per-class probs and, from Gaussian heads, the four
+    sigmas."""
 
     bbox: tuple
     objectness: float
     prob: np.ndarray
+    uc: np.ndarray | None = None
 
     @property
     def best_class(self) -> int:
@@ -80,6 +86,11 @@ def detections_to_json(dets: list, frame_id: int = 0,
     return json.dumps(out, indent=1)
 
 
+# the head kinds ported, with their decode
+DECODE = {"yolo": yoloops.yolo_decode,
+          "gaussian_yolo": yoloops.gaussian_yolo_decode}
+
+
 class Network:
     def __init__(self, graph: Graph, params: list, *, fused: bool = True,
                  train: bool = False, compute_dtype=None, device="cuda",
@@ -95,6 +106,7 @@ class Network:
         self.compute_dtype = compute_dtype
         self.device = paramlib.resolve_device(device)
         self.seen = seen
+        self.fuse_regions = fuse_regions
         self._calib_absmax: dict | None = None
         self._cfg_text: str | None = None
         # uint8 v -> v / 255, the host's correctly rounded f32 quotients
@@ -104,9 +116,11 @@ class Network:
         self._fwd = make_forward(graph, compute_dtype=compute_dtype,
                                  fuse_regions=fuse_regions, fused_bn=fused,
                                  train=train)
-        heads = [l for l in graph.heads() if l.kind == "yolo"]
-        if any(l.kind != "yolo" for l in graph.heads()):
-            raise NotImplementedError("only [yolo] heads are ported yet")
+        heads = graph.heads()
+        if any(l.kind not in DECODE for l in heads):
+            raise NotImplementedError(
+                "[detection] heads are not ported yet: only [yolo] and "
+                "[Gaussian_yolo]")
         self._heads = heads
         self._nms_kind = heads[0].nms_kind if heads else "greedynms"
         self._nms_beta = heads[0].beta_nms if heads else 0.6
@@ -246,7 +260,8 @@ class Network:
 
     def forward_heads(self, image):
         """Activated heads (host numpy) and the reference-order decode
-        (boxes, obj, cls, None) of all heads concatenated."""
+        (boxes, obj, cls, uc) of all heads concatenated; uc (the sigmas)
+        when every head is Gaussian, else None."""
         r = self._forward(self._prep_input(image))
         heads = [h.float() for h in r["heads"]]
         return [h.cpu().numpy() for h in heads], self._decode(heads)
@@ -254,12 +269,15 @@ class Network:
     def _decode(self, heads, order="reference", score_dtype=None):
         if not heads:
             return None
-        parts = [yoloops.yolo_decode(t, l, self.net.w, self.net.h,
-                                     order=order, score_dtype=score_dtype)
+        parts = [DECODE[l.kind](t, l, self.net.w, self.net.h, order=order,
+                                score_dtype=score_dtype)
                  for t, l in zip(heads, self._heads)]
+        uc = (torch.cat([p[3] for p in parts], dim=1)
+              if all(l.kind == "gaussian_yolo" for l in self._heads)
+              else None)
         return (torch.cat([p[0] for p in parts], dim=1),
                 torch.cat([p[1] for p in parts], dim=1),
-                torch.cat([p[2] for p in parts], dim=1), None)
+                torch.cat([p[2] for p in parts], dim=1), uc)
 
     # --------------------------------------------------------- detection
     def detect(self, image, thresh: float = 0.25, nms: float = 0.45,
@@ -282,6 +300,7 @@ class Network:
         if dec is None:
             return [[] for _ in range(x.shape[0])]
         boxes, obj, cls = (t.float().cpu().numpy() for t in dec[:3])
+        uc = dec[3].cpu().numpy() if dec[3] is not None else None
         results = []
         for b in range(x.shape[0]):
             idx = np.nonzero(obj[b] > thresh)[0]
@@ -296,9 +315,29 @@ class Network:
                                       beta=self._nms_beta)
             results.append([
                 Detection(bbox=tuple(float(v) for v in bb[i]),
-                          objectness=float(oo[i]), prob=pp[i])
+                          objectness=float(oo[i]), prob=pp[i],
+                          uc=uc[b][idx][i] if uc is not None else None)
                 for i in range(idx.size) if np.any(pp[i] > 0)])
         return results
+
+    # ------------------------------------------------------------ resize
+    def resize(self, w: int, h: int) -> "Network":
+        """ResizeNetwork (network.cpp:255-410): the network rebuilt at input
+        size (w, h) from its cfg text, on the same param tensors.  The
+        region plans are made anew for the new size; int8 weights and the
+        calibration carry over (the scales are per conv, not per size)."""
+        if (w, h) == (self.net.w, self.net.h):
+            return self
+        if self._cfg_text is None:
+            raise ValueError("resize requires a Network built from a cfg")
+        cfg = patch_cfg_dims(self._cfg_text, w, h)
+        net = Network(build_graph(cfg, train=self.train), self.params,
+                      fused=self.fused, train=self.train,
+                      compute_dtype=self.compute_dtype, device=self.device,
+                      seen=self.seen, fuse_regions=self.fuse_regions)
+        net._cfg_text = cfg
+        net._calib_absmax = self._calib_absmax
+        return net
 
     # ----------------------------------------------------------- serving
     def _serve(self, x, thresh, nms, top_k, score_dtype):
@@ -312,9 +351,11 @@ class Network:
             # the host's division by one ulp for half of the 256 values
             x = self._u8_unit[x.int()]
         r = self._fwd(self.params, x)
-        boxes, obj, cls, _ = self._decode([h.float() for h in r["heads"]],
-                                          order="native",
-                                          score_dtype=score_dtype)
+        # a Gaussian head's sigmas stay behind: the triple is the same
+        # for every head kind
+        boxes, obj, cls, _uc = self._decode([h.float() for h in r["heads"]],
+                                            order="native",
+                                            score_dtype=score_dtype)
         obj = torch.where(obj > thresh, obj, torch.zeros_like(obj))
         k = min(top_k, obj.shape[1])
         # stable descending sort: ties rank by index, as lax.top_k does

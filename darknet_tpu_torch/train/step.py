@@ -1,10 +1,12 @@
 """The training step (`darknet_tpu/train/step.py:97-262`): forward, YOLO
-deltas, backward, optimizer, rolling BN statistics.
+deltas ([yolo] and [Gaussian_yolo] heads), backward, optimizer, rolling
+BN statistics.
 
 The reference trains by filling each head's `delta` (the gradient-ascent
 direction with respect to the head's output) and pulling it back through
 the graph (TrainNetworkDatum, network.cpp:188-215).  Here the deltas are
-computed under `no_grad` (`train/yolo_loss.py`) and handed to
+computed under `no_grad` (`train/yolo_loss.py`,
+`train/gaussian_yolo_loss.py`) and handed to
 `torch.autograd.backward(raw_heads, grad_tensors=deltas * loss_scale)`,
 which is the JAX package's `vjp_fn(deltas)`: every param's `.grad` is the
 ascent direction that darknet's optimizer adds (`train/optimizer.py`).
@@ -25,7 +27,14 @@ import torch
 from darknet_tpu_torch.nn.emit import HEAD_KINDS, make_forward
 from darknet_tpu_torch.ops.conv import precise
 from darknet_tpu_torch.train import optimizer as opt
+from darknet_tpu_torch.train.gaussian_yolo_loss import \
+    gaussian_yolo_head_delta
 from darknet_tpu_torch.train.yolo_loss import yolo_head_delta
+
+# the training delta of each head kind ported (`darknet_tpu/train/
+# step.py:32-59`); the training forward refuses the others
+HEAD_DELTA = {"yolo": yolo_head_delta,
+              "gaussian_yolo": gaussian_yolo_head_delta}
 
 
 # per-truth means: micro-batches combine them weighted by their counts
@@ -61,7 +70,6 @@ def make_train_step(graph, *, compute_dtype=None, remat: bool | str = False,
     residuals in bf16, the head-feeding convs' outputs excepted.
     remat=True recomputes each conv block in the backward pass."""
     net = graph.net
-    # the training forward refuses heads other than [yolo]
     heads = [l for l in graph.layers if l.kind in HEAD_KINDS]
     fwd = make_forward(graph, train=True, compute_dtype=compute_dtype,
                        remat=remat, train_act_dtype=train_act_dtype)
@@ -73,8 +81,8 @@ def make_train_step(graph, *, compute_dtype=None, remat: bool | str = False,
         r = fwd(params, x)
         costs, metrics, roots, cts = [], [], [], []
         for raw, l in zip(r["raw_heads"], heads):
-            d, c, m = yolo_head_delta(raw.detach().float(), truths, l,
-                                      net.w, net.h)
+            d, c, m = HEAD_DELTA[l.kind](raw.detach().float(), truths, l,
+                                        net.w, net.h)
             costs.append(c)
             metrics.append(m)
             if raw.requires_grad:

@@ -193,6 +193,68 @@ def _nan0_keep(new, old):
     return torch.where(torch.isfinite(new), new, old)
 
 
+def cell_constants(l, h: int, w: int, dev):
+    """Per-cell constants of the flat-N layout, N index = (j*W + i)*A + a:
+    (column, row, anchor width, anchor height), each (N,) f32."""
+    anchors_np = np.asarray(l.anchors, np.float32).reshape(-1, 2)
+    n_idx = np.arange(h * w * l.n)
+    a_of = np.asarray(l.mask, np.int64)[n_idx % l.n]
+    return tuple(torch.from_numpy(np.ascontiguousarray(a)).to(dev) for a in (
+        ((n_idx // l.n) % w).astype(np.float32),
+        (n_idx // (l.n * w)).astype(np.float32),
+        anchors_np[a_of, 0], anchors_np[a_of, 1]))
+
+
+def truth_iou_lattice(px, py, pw, ph, tx, valid):
+    """IoU of every cell's box (coordinate planes (B,N)) against every
+    truth (tx (B,T,4)), (B,T,N), in boxes.iou's order of operations; -1
+    for the truths that are not valid."""
+    pl, pr = px - pw / 2, px + pw / 2
+    pt, pb = py - ph / 2, py + ph / 2
+    txx, tyy = tx[..., 0:1], tx[..., 1:2]                    # (B,T,1)
+    tww, thh = tx[..., 2:3], tx[..., 3:4]
+    iw = (torch.minimum(pr[:, None], txx + tww / 2)
+          - torch.maximum(pl[:, None], txx - tww / 2))
+    ih = (torch.minimum(pb[:, None], tyy + thh / 2)
+          - torch.maximum(pt[:, None], tyy - thh / 2))
+    inter = torch.where((iw < 0) | (ih < 0), 0.0, iw * ih)
+    del iw, ih
+    un = (pw * ph)[:, None] + tww * thh - inter
+    safe = (inter.abs() >= _FLT_EPS) & (un.abs() >= _FLT_EPS)
+    iou_all = torch.where(safe, inter / torch.where(safe, un, 1.0), 0.0)
+    return torch.where(valid[..., None], iou_all, -1.0)
+
+
+def anchor_assignment(tx, valid, ti, tj, l, net_w: int, net_h: int, w: int):
+    """Each truth's anchors: the best prior by IoU of sizes, plus the
+    iou_thresh extra matches, among the head's mask.  Returns (apply
+    (B,T,total) bool, cell (B,T*total): the flat-N cell of truth t and
+    anchor n at the truth's grid cell (ti, tj))."""
+    dev = tx.device
+    anchors_np = np.asarray(l.anchors, np.float32).reshape(-1, 2)
+    prior = torch.cat([torch.zeros((l.total, 2)), torch.from_numpy(
+        anchors_np / np.asarray([net_w, net_h], np.float32))], 1).to(dev)
+    mask_pos = np.full((l.total,), -1, np.int64)
+    for mi, mv in enumerate(l.mask):
+        mask_pos[mv] = mi
+    mask_pos = torch.from_numpy(mask_pos).to(dev)
+    truth_shift = torch.cat([torch.zeros_like(tx[..., :2]), tx[..., 2:4]],
+                            -1)                              # (B,T,4)
+    prior_iou = boxops.iou(prior[None, None], truth_shift[:, :, None])
+    best_n = prior_iou.argmax(-1)                            # (B,T)
+    is_best = torch.arange(l.total, device=dev) == best_n[..., None]
+    if l.iou_thresh < 1.0:
+        kind_iou = boxops.iou_kind(prior[None, None], truth_shift[:, :, None],
+                                   l.iou_thresh_kind)
+        extra = ~is_best & (kind_iou > l.iou_thresh)
+    else:
+        extra = torch.zeros_like(is_best)
+    apply = valid[..., None] & (mask_pos >= 0) & (is_best | extra)
+    cell = ((tj * w + ti)[..., None] * l.n
+            + mask_pos.clamp_min(0)).reshape(tx.shape[0], -1)
+    return apply, cell
+
+
 @torch.no_grad()
 def yolo_head_delta(raw, truths, l, net_w: int, net_h: int):
     """The training delta of one [yolo] head.
@@ -215,19 +277,7 @@ def yolo_head_delta(raw, truths, l, net_w: int, net_h: int):
         v = torch.where(ch < 2, v * l.scale_x_y - 0.5 * (l.scale_x_y - 1.0),
                         v)
     vf, vrf = v.reshape(b, N, e), raw.reshape(b, N, e)
-
-    # static per-cell constants: N index = (j*W + i)*A + a
-    anchors_np = np.asarray(l.anchors, np.float32).reshape(-1, 2)
-    n_idx = np.arange(N)
-    a_of = n_idx % A
-    mask_np = np.asarray(l.mask, np.int64)
-
-    def const(a):
-        return torch.from_numpy(np.ascontiguousarray(a)).to(dev)
-    cols = const(((n_idx // A) % w).astype(np.float32))
-    rows = const((n_idx // (A * w)).astype(np.float32))
-    awN = const(anchors_np[mask_np, 0][a_of])
-    ahN = const(anchors_np[mask_np, 1][a_of])
+    cols, rows, awN, ahN = cell_constants(l, h, w, dev)
     cls_mults = (torch.tensor(l.classes_multipliers, dtype=torch.float32,
                               device=dev)
                  if l.classes_multipliers is not None else None)
@@ -252,22 +302,8 @@ def yolo_head_delta(raw, truths, l, net_w: int, net_h: int):
     obj = _nan0(vf[..., 4])
     cls_prob = vf[..., 5:]                                   # (B,N,C)
 
-    # ---- phase 1: background objectness; IoU of every cell box against
-    # every truth, (B,T,N), in boxes.iou's order of operations
-    pl, pr = px - pw / 2, px + pw / 2
-    pt, pb = py - ph / 2, py + ph / 2
-    txx, tyy = tx[..., 0:1], tx[..., 1:2]                    # (B,T,1)
-    tww, thh = tx[..., 2:3], tx[..., 3:4]
-    iw = (torch.minimum(pr[:, None], txx + tww / 2)
-          - torch.maximum(pl[:, None], txx - tww / 2))
-    ih = (torch.minimum(pb[:, None], tyy + thh / 2)
-          - torch.maximum(pt[:, None], tyy - thh / 2))
-    inter = torch.where((iw < 0) | (ih < 0), 0.0, iw * ih)
-    un = (pw * ph)[:, None] + tww * thh - inter
-    safe = (inter.abs() >= _FLT_EPS) & (un.abs() >= _FLT_EPS)
-    iou_all = torch.where(safe, inter / torch.where(safe, un, 1.0), 0.0)
-    iou_all = torch.where(valid[..., None], iou_all, -1.0)
-    del iw, ih, inter, un, safe
+    # ---- phase 1: background objectness against the best truth
+    iou_all = truth_iou_lattice(px, py, pw, ph, tx, valid)
     best_iou = iou_all.amax(1).clamp_min(0.0)               # (B,N)
     best_t = iou_all.argmax(1)
     del iou_all
@@ -294,39 +330,19 @@ def yolo_head_delta(raw, truths, l, net_w: int, net_h: int):
         (ddx, ddy, ddw, ddh), _ = _box_delta_terms(
             bt_box, torch.stack([px, py, pw, ph], -1), vrf[..., 2:4],
             vf[..., 0:2], (cols, rows), l, net_w, net_h,
-            const(mask_np[a_of]), 2.0 - bt_box[..., 2] * bt_box[..., 3],
+            torch.tensor(l.mask, device=dev).repeat(h * w),
+            2.0 - bt_box[..., 2] * bt_box[..., 3],
             l.iou_normalizer * cmul)
         d_box = d_box + torch.where(hit[..., None],
                                     torch.stack([ddx, ddy, ddw, ddh], -1),
                                     0.0)
 
     # ---- phase 2: per-truth assignment over the (T, total) lattice
-    prior = torch.cat([torch.zeros((total, 2)), torch.from_numpy(
-        anchors_np / np.asarray([net_w, net_h], np.float32))], 1).to(dev)
-    mask_pos = np.full((total,), -1, np.int64)
-    for mi, mv in enumerate(l.mask):
-        mask_pos[mv] = mi
-    mask_pos = const(mask_pos)
-
     ti = (tx[..., 0] * w).to(torch.int32).clamp(0, w - 1).long()  # (B,T)
     tj = (tx[..., 1] * h).to(torch.int32).clamp(0, h - 1).long()
-    truth_shift = torch.cat([torch.zeros_like(tx[..., :2]), tx[..., 2:4]],
-                            -1)                              # (B,T,4)
-    prior_iou = boxops.iou(prior[None, None], truth_shift[:, :, None])
-    best_n = prior_iou.argmax(-1)                            # (B,T)
-    arange_tot = torch.arange(total, device=dev)
-    is_best = arange_tot == best_n[..., None]                # (B,T,total)
-    if l.iou_thresh < 1.0:
-        kind_iou = boxops.iou_kind(prior[None, None], truth_shift[:, :, None],
-                                   l.iou_thresh_kind)
-        extra = ~is_best & (kind_iou > l.iou_thresh)
-    else:
-        extra = torch.zeros_like(is_best)
-    apply = valid[..., None] & (mask_pos >= 0) & (is_best | extra)
+    apply, cell = anchor_assignment(tx, valid, ti, tj, l, net_w, net_h, w)
     fapply = apply.float()
-
-    cell = ((tj * w + ti)[..., None] * A
-            + mask_pos.clamp_min(0)).reshape(b, -1)          # (B,T*total)
+    arange_tot = torch.arange(total, device=dev)
     state = torch.cat([torch.stack([px, py, pw, ph], -1), vrf[..., 2:4],
                        vf[..., 0:2], obj[..., None]], -1)    # (B,N,9)
     st_c = state.gather(1, cell[..., None].expand(-1, -1, 9)).reshape(

@@ -24,6 +24,12 @@ Training: two f32 steps (accum 2) of chip_smoke.py's
 narrow CSP + SPP graph on the card against the CPU (updates and rolling
 statistics within 1e-4 of the largest change after one step, 2e-3
 after two), and DetectorTrainer on its card defaults (bf16, act16).
+Gaussian YOLOv3 at 64 px (f32, TF32 off): one region launch a request,
+the reference-order decode (boxes, objectness, scaled class scores and
+the sigmas) on the card within rtol 1e-4 / atol 1e-5 of the CPU's and
+the served kept set equal once slots are matched; a network resized
+from 64 to 96 px launches the kernel once on the 96 plan and serves
+bitwise what a network built at 96 serves.
 """
 
 import warnings
@@ -42,7 +48,8 @@ from darknet_tpu_torch.ops import quant_matmul as tqm
 from darknet_tpu_torch.ops.cuda import fused_region as cfr
 # by file, not as tests.torch_params: an installed package named `tests`
 # would shadow this directory
-from torch_params import chip_smoke, lively_params, match_slots, matched
+from torch_params import (chip_smoke, lively_params, match_slots, matched,
+                          spread_params)
 
 
 @pytest.fixture
@@ -465,3 +472,72 @@ def test_trainer_on_card_defaults(cuda, tmp_path):
     assert sum(line.startswith("[000") for line in losses) == 2
     assert (tmp_path / "out" / "model_final.weights").exists()
     assert (tmp_path / "out" / "model_last.ckpt.npz").exists()
+
+
+def _gaussian_nets(px, path):
+    """The same lively f32 Gaussian YOLOv3 (10 classes) from `path` on
+    the card and on the CPU."""
+    cfg = model_zoo.gaussian_yolov3_cfg(px, px, classes=10)
+    with warnings.catch_warnings():
+        warnings.simplefilter("ignore")
+        return [Network.from_cfg(cfg, weights=path, device=dev)
+                for dev in ("cuda", "cpu")]
+
+
+@pytest.fixture
+def gaussian_weights(tmp_path):
+    from darknet_tpu_torch.weights import io as wio
+
+    with warnings.catch_warnings():
+        warnings.simplefilter("ignore")
+        g = build_graph(model_zoo.gaussian_yolov3_cfg(64, 64, classes=10))
+    x = np.random.default_rng(0).uniform(0, 1, (2, 64, 64, 3)).astype(
+        np.float32)
+    path = str(tmp_path / "gaussian.weights")
+    wio.save_weights(g, spread_params(g, x, 1.2), path)
+    return path
+
+
+@pytest.mark.cuda
+def test_gaussian_request_on_card_matches_cpu(cuda, gaussian_weights):
+    gpu, cpu = _gaussian_nets(64, gaussian_weights)
+    x = np.random.default_rng(1).uniform(0, 1, (2, 64, 64, 3)).astype(
+        np.float32)
+    with torch.backends.cudnn.flags(enabled=True, allow_tf32=False):
+        before = cfr.launches
+        tb, _ov, probs = gpu.submit_detect_device(x, thresh=0.25)
+        assert cfr.launches == before + 1 and tb.is_cuda
+        _h, dec = gpu.forward_heads(x)
+    ctb, cov, cprobs = cpu.submit_detect_device(x, thresh=0.25)
+    _h, cdec = cpu.forward_heads(x)
+    assert dec[3] is not None and dec[3].shape[-1] == 4
+    for a, b in zip(dec, cdec):
+        np.testing.assert_allclose(a.cpu().numpy(), b.numpy(), rtol=1e-4,
+                                   atol=1e-5)
+    slot = match_slots(tb.cpu().numpy(), ctb.numpy())
+    _b, _cv, cp = matched((ctb, cov, cprobs), slot)
+    assert len(_kept(cp)) > 5 and _kept(probs.cpu()) == _kept(cp)
+
+
+@pytest.mark.cuda
+def test_resized_network_launches_new_plan(cuda, gaussian_weights,
+                                           monkeypatch):
+    gpu, _cpu = _gaussian_nets(64, gaussian_weights)
+    fresh, _cpu = _gaussian_nets(96, gaussian_weights)
+    resized = gpu.resize(96, 96)
+    sub, _k = tfr.hybrid_prefix(resized._fwd.region_plans[0])
+    seen = []
+    launch = cfr.launch
+
+    def spy(kp, *a, **k):
+        seen.append((int(kp.table[3]), int(kp.table[4])))
+        return launch(kp, *a, **k)
+
+    monkeypatch.setattr(cfr, "launch", spy)
+    x = np.random.default_rng(2).uniform(0, 1, (2, 96, 96, 3)).astype(
+        np.float32)
+    a = resized.submit_detect_device(x, thresh=0.25)
+    assert seen == [(sub.h, 2 * sub.w2)] and sub.h == 48
+    b = fresh.submit_detect_device(x, thresh=0.25)
+    for u, v in zip(a, b):
+        assert torch.equal(u, v)

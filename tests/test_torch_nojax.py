@@ -7,9 +7,12 @@ image batches, non-empty truths, finite losses), and a third, with the
 same five blocked, runs `validate_detector` (both resizes) and the CLI's
 `-mode valid` on a synth set; a fourth, with jax, jaxlib, `darknet_tpu`
 and cv2 blocked, runs the CLI's `-mode video -device cpu` on a y4m clip
-with tracking, and `-mode image` on a PNG; and no source of the port
-(`eval/` and `apps/` included), nor the chip scripts (chip_smoke.py,
-chip_int8_shapes.py, chip_region_tiles.py), imports any of the three."""
+with tracking, and `-mode image` on a PNG; a fifth, with jax, jaxlib and
+`darknet_tpu` blocked, serves chip_smoke.py's narrow Gaussian graph
+(host and device paths, uc on the host's detections) and takes one
+training step of it; and no source of the port (`eval/` and `apps/`
+included), nor the chip scripts (chip_smoke.py, chip_int8_shapes.py,
+chip_region_tiles.py), imports any of the three."""
 
 import os
 import pathlib
@@ -214,6 +217,48 @@ assert not bad, bad
 print("STREAMED")
 """
 
+BLOCKED_GAUSSIAN = r"""
+import sys
+
+class Block:
+    def find_spec(self, name, path=None, target=None):
+        if name.split(".")[0] in ("jax", "jaxlib", "darknet_tpu"):
+            raise ImportError(f"blocked: {name}")
+        return None
+
+sys.meta_path.insert(0, Block())
+import warnings
+import numpy as np
+import torch
+torch.set_num_threads(2)
+from chip_smoke import GAUSSIAN_TRAIN_CFG, train_batch
+from darknet_tpu_torch import Network
+from darknet_tpu_torch.graph.builder import build_graph
+from darknet_tpu_torch.nn import params as tparams
+from darknet_tpu_torch.train.step import init_opt_state, make_train_step
+
+with warnings.catch_warnings():
+    warnings.simplefilter("ignore")
+    net = Network.from_cfg(GAUSSIAN_TRAIN_CFG, seed=0, device="cpu")
+x = np.random.default_rng(0).uniform(0, 1, (2, 64, 64, 3)).astype(np.float32)
+tb, ov, probs = net.submit_detect_device(x, thresh=0.1)
+assert tb.shape == (2, 256, 4) and torch.isfinite(tb).all()
+host = net.detect_batch(x, thresh=0.1)
+assert all(d.uc.shape == (4,) for dets in host for d in dets)
+
+g = build_graph(GAUSSIAN_TRAIN_CFG, train=True)
+p = tparams.train_params_to_torch(g, tparams.init_params(g, seed=0), "cpu")
+xb, yb = train_batch(g, 4, seed=1)
+p, o, cost, m = make_train_step(g)(p, init_opt_state(g, p),
+                                   torch.from_numpy(xb),
+                                   torch.from_numpy(yb), g.net.lr)
+assert torch.isfinite(cost) and float(m["count"]) > 0
+bad = [m for m in sys.modules
+       if m.split(".")[0] in ("jax", "jaxlib", "darknet_tpu")]
+assert not bad, bad
+print("GAUSSIAN", sum(len(d) for d in host), float(cost))
+"""
+
 TRAIN_CFG = """[net]
 batch=4
 subdivisions=2
@@ -290,6 +335,10 @@ def test_port_streams_video_without_jax_or_opencv(tmp_path):
     script = BLOCKED_VIDEO.replace("f.write(CFG)",
                                    f"f.write({TRAIN_CFG!r})")
     assert "STREAMED" in run_blocked(script, str(tmp_path))
+
+
+def test_port_serves_and_trains_gaussian_with_jax_blocked():
+    assert "GAUSSIAN" in run_blocked(BLOCKED_GAUSSIAN)
 
 
 @pytest.mark.parametrize("path", sorted(

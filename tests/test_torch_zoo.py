@@ -24,10 +24,9 @@ from darknet_tpu.nn.emit import make_forward as jax_forward
 from darknet_tpu.nn.network import Network as JaxNetwork
 from darknet_tpu_torch import Network, model_zoo
 from darknet_tpu_torch.graph.builder import build_graph
-from darknet_tpu_torch.nn import params as tparams
 from darknet_tpu_torch.weights import io as wio
 from tests.test_torch_slice import assert_serving_matches
-from tests.torch_params import lively_params
+from tests.torch_params import spread_params
 
 torch.set_num_threads(2)
 ZOO = {"yolov3": 1.2, "yolov3-spp": 1.2, "yolov3-tiny": 1.5,
@@ -48,18 +47,7 @@ def frames(seed=0):
 def zoo_params(graph, bn_scale):
     """lively_params with each head conv's gain set so that its
     objectness logits on `frames()` spread by about 2."""
-    heads = [l.index - 1 for l in graph.layers if l.kind == "yolo"]
-    p = lively_params(graph, bn_scale=bn_scale, head_gain={})
-    tp = tparams.params_to_torch(graph, tparams.fuse_conv_batchnorm(graph, p),
-                                 "cpu")
-    from darknet_tpu_torch.nn.emit import make_forward
-
-    raw = make_forward(graph)(tp, torch.from_numpy(frames()))["raw_heads"]
-    gains = {}
-    for i, h in zip(heads, raw):
-        obj = h.reshape(*h.shape[:3], 3, -1)[..., 4]
-        gains[i] = 2.0 / float(obj.std())
-    return lively_params(graph, bn_scale=bn_scale, head_gain=gains)
+    return spread_params(graph, frames(), bn_scale)
 
 
 @pytest.mark.parametrize("name", sorted(ZOO))

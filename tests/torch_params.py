@@ -5,7 +5,12 @@ test graphs.
 At random init a deep yolov4 damps its heads to sigmoid(~1e-6), where
 every score ties and a served kept set is decided by sum-order noise.
 `lively_params` raises the BN scales to 1.5 and scales the three head
-convs so that the head logits spread over O(1).  Imports no jax.
+convs so that the head logits spread over O(1).  A [Gaussian_yolo]
+head's class scores are scaled by 1 - mean(sigmas): its sigma channels
+read no input and take fixed biases (SIGMA_BIAS, one per coordinate,
+shifted per anchor), so that the sigmas cannot move a class score across
+a threshold, while each (anchor, coordinate) sigma differs and a
+misplaced uc shows.  Imports no jax.
 """
 
 import importlib.util
@@ -16,12 +21,14 @@ import numpy as np
 from darknet_tpu_torch.nn import params as tparams
 
 HEAD_GAIN = {138: 30.0, 149: 280.0, 160: 1300.0}     # yolov4's head convs
+SIGMA_BIAS = (-2.0, -1.5, -1.0, -0.5)     # logits of sig_x, sig_y, sig_w, sig_h
 
 
 def lively_params(graph, seed=0, bn_scale=1.5, head_gain=None):
     """Unfused numpy params whose heads are not saturated at 0.5: BN
     scales times `bn_scale`, head conv i's weights times head_gain[i]
-    (default: yolov4's HEAD_GAIN)."""
+    (default: yolov4's HEAD_GAIN); a Gaussian head's sigma channels read
+    no input and take SIGMA_BIAS (plus 0.25 per anchor)."""
     head_gain = HEAD_GAIN if head_gain is None else head_gain
     p = tparams.init_params(graph, seed=seed)
     for i, d in enumerate(p):
@@ -29,7 +36,36 @@ def lively_params(graph, seed=0, bn_scale=1.5, head_gain=None):
             d["scales"] = d["scales"] * np.float32(bn_scale)
         if i in head_gain:
             d["w"] = d["w"] * np.float32(head_gain[i])
+    for l in graph.layers:
+        if l.kind == "gaussian_yolo":
+            d = p[l.index - 1]
+            e = 9 + l.classes
+            for a in range(l.n):
+                for k, bias in enumerate(SIGMA_BIAS):
+                    d["w"][..., a * e + 2 * k + 1] = 0.0
+                    d["b"][a * e + 2 * k + 1] = bias + 0.25 * a
     return p
+
+
+def spread_params(graph, x, bn_scale, spread=2.0):
+    """lively_params with each head conv's gain set so that its
+    objectness logits (entry 4 of a [yolo] head's anchor, 8 of a
+    [Gaussian_yolo] head's) on the frames `x` spread by about `spread`
+    (their standard deviation, on the CPU)."""
+    import torch
+
+    from darknet_tpu_torch.nn.emit import make_forward
+
+    p = lively_params(graph, bn_scale=bn_scale, head_gain={})
+    tp = tparams.params_to_torch(graph, tparams.fuse_conv_batchnorm(graph, p),
+                                 "cpu")
+    raw = make_forward(graph)(tp, torch.from_numpy(x))["raw_heads"]
+    gains = {}
+    for l, h in zip(graph.heads(), raw):
+        obj = h.reshape(*h.shape[:3], l.n, -1)[
+            ..., 8 if l.kind == "gaussian_yolo" else 4]
+        gains[l.index - 1] = spread / float(obj.std())
+    return lively_params(graph, bn_scale=bn_scale, head_gain=gains)
 
 
 def match_slots(tb, ref_tb):
