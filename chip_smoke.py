@@ -2,7 +2,8 @@
 kernel and the int8 GEMM, check each against its plain version, serve
 yolov4-608 through the public API in bf16 and in int8, train it,
 validate it and the rest of the yolo zoo, stream video through the CLI,
-serve, resize, train and validate Gaussian YOLOv3, and report.
+serve, resize, train and validate Gaussian YOLOv3, serve and train
+YOLOv1 and the rare layer kinds, and report.
 
     python3 chip_smoke.py
 
@@ -23,7 +24,7 @@ Phases, each of which fails the run (non-zero exit) on any error:
      one of its f32 copy divided on the host, whose served triples must
      be bitwise equal; one f32 request against the same
      network with the plain region; bf16 img/s (median and spread of 5
-     windows of 100 requests after 30 untimed ones); at b=8, the serving
+     windows of 50 requests after 30 untimed ones); at b=8, the serving
      shape, the bf16 kernel held to its plain version (one ulp, with the
      share of elements that differ), its time by CUDA events and by
      torch.profiler, the plain
@@ -50,7 +51,7 @@ Phases, each of which fails the run (non-zero exit) on any error:
      torch._int_mm's on the same operands and the bound; int8 img/s beside
      the bf16 rate of phase 4; a profile of one request;
   7. a JSON line of the kernels, then {"ok": true, "device": ...} last
-     (printed after phase 11);
+     (printed after phase 12);
   8. training (train/step, train/trainer), which launches neither kernel,
      as in the JAX package:
      (a) parity on the card: the narrow CSP + SPP graph (TRAIN_CSP_CFG,
@@ -142,9 +143,40 @@ Phases, each of which fails the run (non-zero exit) on any error:
          one region launch a batch, a MapResult equal to the plain path's,
          the prediction rate.
 
-`python3 chip_smoke.py --only video` (or `--only gaussian`) builds the
-kernels and runs phase 10 (11) alone (its last line is then not the
-contract's).
+ 12. YOLOv1 (pjreddie's yolov1.cfg, written out here as `yolov1_cfg`: 24
+     convs, 4 maxpools, [local] 3x3/256, [dropout] .5, [connected] 1715
+     and [detection], 197,328,243 params) at 448 px and the rare layer
+     kinds:
+     (a) serving at b=8 on random weights: f32 heads on the card against
+         the port's CPU run (1e-4 of the scale), bf16 heads finite and
+         within V1_TOL_BF16 of f32, the [detection] decode on the card
+         against the CPU's, detect_batch's eight empty lists and the
+         device path's ValueError (no [yolo] head), no kernel launch (no
+         region is planned); bf16 img/s (5 windows of 50 requests);
+     (b) int8: 22 quantized convs, 22 launches a dynamic and a
+         calibrated request, every quantized conv bitwise equal to the
+         plain version; int8 img/s;
+     (c) training: the narrow YOLOv1 (NARROW_V1_CFG) on the card against
+         the port's CPU run in phase 8 (a)'s form, then train_detector at
+         batch=64, subdivisions=8, bf16 on synth images for one epoch of
+         3 iterations, the dropout masks drawn from the trainer's
+         generator on the card: finite losses, moved rolling statistics,
+         nonzero momentum (the [local] and [connected] weights among
+         them), no kernel launch; s/iter, img/s, peak memory; the saved
+         .weights serve heads equal to the trained params folded;
+     (d) the rare kinds (RARE_KINDS_CFG: reorg3d both ways, reorg_old,
+         reverse upsample, an SE block, scale_wh, maxpool_depth,
+         antialiased convs and maxpool read back by routes, [batchnorm];
+         RARE_COST_CFG: [crop], dropblock, a 2x2 antialiased conv, a
+         [cost] head): f32 on the card through the region kernel (one
+         launch a request) against the plain region and the CPU, a
+         training step of each against the CPU, and an int8 network whose
+         antialiased conv quantizes, its launch bitwise equal to the plain
+         version.
+
+`python3 chip_smoke.py --only video` (or `--only gaussian`, `--only v1`)
+builds the kernels and runs phase 10 (11, 12) alone (its last line is
+then not the contract's).
 
 Weights are random (numpy, seed 0); the training images are drawn from a
 seed into a temporary directory; no file outside the checkout is read.
@@ -177,7 +209,7 @@ TOL_BF16 = 2.0 ** -7
 SERVE_BATCH = 8
 SERVE_PX = 608
 RATE_WARMUP = 30         # untimed requests before the first window
-RATE_REQUESTS = 100      # requests per timed window (~6 s at b=8)
+RATE_REQUESTS = 50       # requests per timed window (~3 s at b=8)
 RATE_WINDOWS = 5
 CHECKS = ((608, 2), (416, 1))        # (px, batch) of the yolov4 checks
 DEVICE = "cuda"
@@ -208,10 +240,30 @@ GAUSS_PX = 512
 GAUSS_CLASSES = 10
 GAUSS_INT8_CONVS = 63
 GAUSS_RESIZE = (416, 512, 608)
-GAUSS_RATE_REQUESTS = 50  # requests per timed window (~2.5 s at b=8)
 GAUSS_TRAIN_IMAGES = 128
 GAUSS_TRAIN_ITERS = 3
 GAUSS_VALID_IMAGES = 32
+# YOLOv1 (phase 12): 448 px, the serving batch; 22 of its 24 convs
+# quantize (min(c, n) >= 128: not the 3 -> 64 and 64 -> 192 openers).
+# bf16 rounds every layer's output (2^-9 relative), over 28 layers about
+# 1e-2 of the heads' scale: V1_TOL_BF16 bounds the bf16 heads against
+# the f32 heads.  Training at the published batch=64, subdivisions=8 on
+# V1_TRAIN_IMAGES synth images (VOC's 20 classes; synth labels use 0-3),
+# one epoch of V1_TRAIN_ITERS iterations: this fork counts max_iter in
+# epochs (max_epoch, default 1) and ignores the cfg's max_batches.
+V1_PX = 448
+V1_INT8_CONVS = 22
+V1_TOL_BF16 = 5e-2
+V1_CLASSES = 20
+V1_TRAIN_ITERS = 3
+V1_TRAIN_IMAGES = 64 * V1_TRAIN_ITERS
+# batch seeds of the parity steps on the card: no leaky input of the
+# narrow YOLOv1's micro-batches, nor of RARE_COST_CFG's, lies within 1e-6
+# of its layer's largest from 0 (the CPU tests' kink check); the larger
+# RARE_KINDS_CFG has such inputs in every batch, and its bound is the
+# yardstick's, as for the narrow CSP graph
+V1_PARITY_SEED = 3
+RARE_PARITY_SEED = 24
 # training: parity on the card (batch, steps, accum; the narrow graph's
 # updates within TOL_TRAIN of the largest update, or YARDSTICK times the
 # card's own response to a 1e-7 input change) and the full-width run
@@ -246,8 +298,8 @@ MAP_BATCH = 4             # DetectorTrainer.evaluate_map's batch
 # frame and head; the card's letterbox held to the CPU's at the CPU
 # test's tolerance (tests/test_torch_apps_io.py)
 VIDEO_W, VIDEO_H, VIDEO_FPS = 1280, 720, 30
-VIDEO_FRAMES = 64
-VIDEO_SETS = 32           # multi-video frame sets (two cameras)
+VIDEO_FRAMES = 32
+VIDEO_SETS = 16           # multi-video frame sets (two cameras)
 VIDEO_THRESH = 0.25
 VIDEO_PASS = 8
 VIDEO_SPLIT_FRAMES = 17   # the first is left out of the medians
@@ -575,6 +627,317 @@ iou_loss=giou
 uc_normalizer=0.5
 """
 
+# YOLOv1 (phase 12): pjreddie/darknet cfg/yolov1.cfg, its sections in
+# order with its values (the training batch=64, subdivisions=8): 24 convs
+# (filters, size, stride; BN + leaky, pad=1) and 4 maxpools ("M", 2/2),
+# then [local] 3x3/256, [dropout] .5, [connected] 1715 and [detection]
+YOLOV1_LAYERS = ((64, 7, 2), "M", (192, 3, 1), "M",
+                 (128, 1, 1), (256, 3, 1), (256, 1, 1), (512, 3, 1), "M",
+                 *((256, 1, 1), (512, 3, 1)) * 4, (512, 1, 1), (1024, 3, 1),
+                 "M", *((512, 1, 1), (1024, 3, 1)) * 2,
+                 (1024, 3, 1), (1024, 3, 2), (1024, 3, 1), (1024, 3, 1))
+YOLOV1_HEAD = """[local]
+size=3
+stride=1
+pad=1
+filters=256
+activation=leaky
+[dropout]
+probability=.5
+[connected]
+output= 1715
+activation=linear
+[detection]
+classes=20
+coords=4
+rescore=1
+side=7
+num=3
+softmax=0
+sqrt=1
+jitter=.2
+object_scale=1
+noobject_scale=.5
+class_scale=1
+coord_scale=5
+"""
+
+
+def yolov1_cfg(px: int = 448) -> str:
+    """yolov1.cfg at px (448 published)."""
+    s = (f"[net]\nbatch=64\nsubdivisions=8\nheight={px}\nwidth={px}\n"
+         f"channels=3\nmomentum=0.9\ndecay=0.0005\nsaturation=1.5\n"
+         f"exposure=1.5\nhue=.1\nlearning_rate=0.0005\npolicy=steps\n"
+         f"steps=200,400,600,20000,30000\nscales=2.5,2,2,.1,.1\n"
+         f"max_batches = 40000\n")
+    for spec in YOLOV1_LAYERS:
+        if spec == "M":
+            s += "[maxpool]\nsize=2\nstride=2\n"
+        else:
+            n, size, stride = spec
+            s += (f"[convolutional]\nbatch_normalize=1\nfilters={n}\n"
+                  f"size={size}\nstride={stride}\npad=1\n"
+                  f"activation=leaky\n")
+    return s + YOLOV1_HEAD
+
+
+# the narrow YOLOv1 of phase 12 (c) and the CPU tests: conv s2, maxpool,
+# conv, a stride-2 conv, [local] 3x3, [dropout], [connected] with BN,
+# [connected], [detection] with sqrt and rescore (side 4, 2 boxes, 3
+# classes), 64 px
+NARROW_V1_CFG = """[net]
+batch=4
+subdivisions=1
+width=64
+height=64
+channels=3
+learning_rate=0.001
+momentum=0.9
+decay=0.0005
+burn_in=0
+[convolutional]
+batch_normalize=1
+filters=8
+size=3
+stride=2
+pad=1
+activation=leaky
+[maxpool]
+size=2
+stride=2
+[convolutional]
+batch_normalize=1
+filters=16
+size=3
+stride=1
+pad=1
+activation=leaky
+[convolutional]
+batch_normalize=1
+filters=16
+size=3
+stride=2
+pad=1
+activation=leaky
+[maxpool]
+size=2
+stride=2
+[local]
+size=3
+stride=1
+pad=1
+filters=8
+activation=leaky
+[dropout]
+probability=.5
+[connected]
+batch_normalize=1
+output=64
+activation=leaky
+[connected]
+output=208
+activation=linear
+[detection]
+classes=3
+coords=4
+rescore=1
+side=4
+num=2
+softmax=0
+sqrt=1
+jitter=.2
+object_scale=1
+noobject_scale=.5
+class_scale=1
+coord_scale=5
+"""
+
+# the rare layer kinds of phase 12 (d) and the CPU tests, 64 px.
+# RARE_KINDS_CFG: a region (layers 1-3), an antialiased stride-2
+# conv read back by a route (its stride-1 buffer with the blur over its
+# front), reverse upsample, reorg3d both ways, reorg_old, an antialiased
+# conv that int8 quantizes (128 -> 128), maxpool_depth, an SE block
+# (avgpool -> 1x1 -> scale_channels), scale_wh, an antialiased maxpool
+# read back by a route, [batchnorm], a [yolo] head.
+RARE_KINDS_CFG = """[net]
+batch=4
+subdivisions=1
+width=64
+height=64
+channels=3
+learning_rate=0.001
+momentum=0.9
+decay=0.0005
+burn_in=0
+[convolutional]
+batch_normalize=1
+filters=16
+size=3
+stride=1
+pad=1
+activation=leaky
+[convolutional]
+batch_normalize=1
+filters=16
+size=1
+stride=1
+pad=1
+activation=leaky
+[convolutional]
+batch_normalize=1
+filters=16
+size=3
+stride=1
+pad=1
+activation=leaky
+[convolutional]
+batch_normalize=1
+filters=16
+size=1
+stride=1
+pad=1
+activation=leaky
+[convolutional]
+batch_normalize=1
+filters=16
+size=3
+stride=2
+pad=1
+antialiasing=1
+activation=leaky
+[route]
+layers=-1,-2
+[upsample]
+stride=-2
+[reorg3d]
+stride=2
+[reorg3d]
+stride=2
+reverse=1
+[reorg]
+stride=2
+[convolutional]
+batch_normalize=1
+filters=128
+size=3
+stride=2
+pad=1
+antialiasing=1
+activation=leaky
+[maxpool]
+maxpool_depth=1
+out_channels=32
+size=2
+stride=1
+[avgpool]
+[convolutional]
+filters=32
+size=1
+stride=1
+pad=0
+activation=logistic
+[scale_channels]
+from=-3
+activation=linear
+[convolutional]
+filters=1
+size=1
+stride=1
+pad=0
+activation=logistic
+[scale_channels]
+from=-2
+scale_wh=1
+activation=leaky
+[maxpool]
+size=2
+stride=2
+antialiasing=1
+[batchnorm]
+[route]
+layers=-2
+[convolutional]
+batch_normalize=1
+filters=16
+size=3
+stride=2
+pad=1
+activation=mish
+[route]
+layers=-1,-3
+[convolutional]
+filters=18
+size=1
+stride=1
+pad=1
+activation=linear
+[yolo]
+mask=0,1,2
+anchors=8,8, 16,16, 32,32
+classes=1
+num=3
+max=12
+"""
+
+# RARE_COST_CFG: [crop] with flip, a region (layers 1-3), a 2x2-box antialiased
+# stride-2 conv, dropblock, and a [cost] head (sse)
+RARE_COST_CFG = """[net]
+batch=4
+subdivisions=1
+width=64
+height=64
+channels=3
+learning_rate=0.001
+momentum=0.9
+decay=0.0005
+burn_in=0
+[crop]
+crop_height=48
+crop_width=48
+flip=1
+[convolutional]
+batch_normalize=1
+filters=8
+size=3
+stride=1
+pad=1
+activation=leaky
+[convolutional]
+batch_normalize=1
+filters=8
+size=1
+stride=1
+pad=1
+activation=leaky
+[convolutional]
+batch_normalize=1
+filters=8
+size=3
+stride=1
+pad=1
+activation=leaky
+[convolutional]
+batch_normalize=1
+filters=8
+size=3
+stride=2
+pad=1
+antialiasing=2
+activation=leaky
+[dropout]
+probability=.2
+dropblock=1
+dropblock_size_abs=3
+[convolutional]
+filters=4
+size=1
+stride=1
+pad=1
+activation=linear
+[cost]
+type=sse
+"""
+
 WIDE_LAYERS = ((16, 3), (1024, 1), (32, 1))
 WIDE_PX = 64
 
@@ -836,24 +1199,26 @@ def unfused_cudnn(sub, x, wc, bc):
     return slots[sub.out_slot]
 
 
-def serve_rate(net, frame, requests=RATE_REQUESTS):
-    """Throughput: whole requests, host clock around synchronised work,
-    RATE_WINDOWS windows of `requests` requests after a warm-up.
+def serve_rate(net, frame, request=None):
+    """Throughput: whole requests (`request()`; by default the device
+    serving program and its detections), host clock around synchronised
+    work, RATE_WINDOWS windows of RATE_REQUESTS requests after a warm-up.
     Returns (median img/s, spread (max - min) / median, the rates)."""
     import torch
 
-    def request():
+    def served():
         net.device_out_to_dets(*net.submit_detect_device(frame))
+    request = request or served
     for _ in range(RATE_WARMUP):
         request()
     rates = []
     for _ in range(RATE_WINDOWS):
         torch.cuda.synchronize()
         t0 = time.perf_counter()
-        for _ in range(requests):
+        for _ in range(RATE_REQUESTS):
             request()
         torch.cuda.synchronize()
-        rates.append(requests * SERVE_BATCH / (time.perf_counter() - t0))
+        rates.append(RATE_REQUESTS * SERVE_BATCH / (time.perf_counter() - t0))
     img_s = float(np.median(rates))
     return img_s, (max(rates) - min(rates)) / img_s, rates
 
@@ -1378,9 +1743,13 @@ def phase_int8_serve(card, bf16_img_s):
 
 def train_batch(graph, b, seed):
     """Seeded (x, truths) for the parity steps: uniform pixels, three
-    boxes per image."""
+    boxes per image; for a net whose only head is a [cost] layer, normal
+    flat targets of its input's size."""
     rng = np.random.default_rng(seed)
     x = rng.uniform(0, 1, (b, graph.net.h, graph.net.w, 3)).astype(np.float32)
+    if not graph.heads():
+        return x, rng.normal(size=(b, graph.layers[-1].inputs)).astype(
+            np.float32)
     head = graph.heads()[0]
     y = np.zeros((b, head.max_boxes, 5), np.float32)
     for i in range(b):
@@ -1584,18 +1953,19 @@ def train_full(card, root):
     def spy_step(graph, **kw):
         step = make_step(graph, **kw)
 
-        def timed(params, opt, x, y, lr):
+        def timed(params, opt, x, y, lr, generator=None):
             hw = tuple(x.shape[1:3])
             if len(steps) + 1 == TRAIN_PROFILED_ITER:
                 res = []
-                trace_summary(lambda: res.append(step(params, opt, x, y, lr)),
+                trace_summary(lambda: res.append(step(params, opt, x, y, lr,
+                                                      generator)),
                               f"train iteration {len(steps) + 1} ({hw})",
                               card, 10)
                 steps.append((hw, None))
                 return res[0]
             ev = [torch.cuda.Event(enable_timing=True) for _ in range(2)]
             ev[0].record()
-            out = step(params, opt, x, y, lr)
+            out = step(params, opt, x, y, lr, generator)
             ev[1].record()
             steps.append((hw, ev))
             return out
@@ -2498,10 +2868,10 @@ def gaussian_serve(card):
             "with its plain version")
     del xt, out
     top_kernels(net, frames[0], "gaussian bf16", card)
-    img_s, spread, rates = serve_rate(net, frames[0], GAUSS_RATE_REQUESTS)
+    img_s, spread, rates = serve_rate(net, frames[0])
     print(f"serving gaussian-yolov3-{GAUSS_PX} bf16 b={SERVE_BATCH}: "
           f"{img_s:.2f} img/s median of {RATE_WINDOWS} windows of "
-          f"{GAUSS_RATE_REQUESTS} requests "
+          f"{RATE_REQUESTS} requests "
           f"({', '.join(f'{r:.2f}' for r in rates)}; spread "
           f"{100 * spread:.2f}%) [{card}]", flush=True)
     del net
@@ -2612,10 +2982,10 @@ def gaussian_int8(card, bf16_img_s):
     require(dynamic == n_q - 1, f"{n_q - 1} int8 launches a dynamic request "
             f"(layer 12 in floating point inside the region): {dynamic}")
     top_kernels(net, frame, "gaussian int8", card)
-    img_s, spread, rates = serve_rate(net, frame, GAUSS_RATE_REQUESTS)
+    img_s, spread, rates = serve_rate(net, frame)
     print(f"serving gaussian-yolov3-{GAUSS_PX} int8 (calibrated, bf16) b="
           f"{SERVE_BATCH}: {img_s:.2f} img/s median of {RATE_WINDOWS} "
-          f"windows of {GAUSS_RATE_REQUESTS} requests "
+          f"windows of {RATE_REQUESTS} requests "
           f"({', '.join(f'{r:.2f}' for r in rates)}; spread "
           f"{100 * spread:.2f}%) beside bf16 {bf16_img_s:.2f} img/s "
           f"[{card}]", flush=True)
@@ -2890,13 +3260,425 @@ def gaussian_valid(card, root):
             "plain path's")
 
 
+def v1_request(net, frame):
+    """One YOLOv1 request through the public API: the heads (host numpy),
+    and the [detection] decode of the first (`ops/detection_v1`), as the
+    JAX package serves a v1 head."""
+    import torch
+
+    from darknet_tpu_torch.ops.detection_v1 import detection_decode
+
+    heads, _dec = net.forward_heads(frame)
+    return heads, detection_decode(
+        torch.from_numpy(heads[0]).reshape(len(frame), -1),
+        net.graph.layers[-1])
+
+
+def rel_err(got, want) -> tuple:
+    """(max |got - want| over max |want|, max |want|) of two host arrays
+    or CPU tensors (`held_to_plain`'s measure)."""
+    import torch
+
+    err, scale, _share, _ok = held_to_plain(torch.as_tensor(got),
+                                            torch.as_tensor(want), 0.0)
+    return err / max(scale, 1e-30), scale
+
+
+def phase_v1(card):
+    """Phase 12: YOLOv1-448 (pjreddie's yolov1.cfg, `yolov1_cfg`) served
+    in f32, bf16 and int8 and trained at its published batch, and the
+    rare layer kinds on narrow cfgs, the data and saves under a temporary
+    directory."""
+    root = tempfile.mkdtemp(prefix="chip_smoke_v1_")
+    try:
+        t0 = time.perf_counter()
+        bf16_img_s = v1_serve(card)
+        v1_int8(card, bf16_img_s)
+        v1_train(card, root)
+        v1_rare(card)
+        print(f"phase 12 (YOLOv1 and the rare kinds) took "
+              f"{time.perf_counter() - t0:.1f} s", flush=True)
+    finally:
+        shutil.rmtree(root, ignore_errors=True)
+
+
+def v1_serve(card):
+    """Phase 12 (a): YOLOv1-448 at b=8 on random weights (numpy seed 0):
+    f32 heads on the card against the port's own CPU run, bf16 heads
+    finite and near the f32 heads, the [detection] decode on the card
+    against the CPU's, detect_batch's eight empty lists, the device
+    path's ValueError, no kernel launch, and the bf16 rate.  Returns the
+    bf16 img/s."""
+    import torch
+
+    from darknet_tpu_torch import Network
+    from darknet_tpu_torch.nn import params as paramlib
+    from darknet_tpu_torch.ops import quant_matmul as qm
+    from darknet_tpu_torch.ops.cuda import fused_region as kfr
+    from darknet_tpu_torch.ops.detection_v1 import detection_decode
+
+    g = quiet_graph(yolov1_cfg(V1_PX))
+    t0 = time.perf_counter()
+    raw = paramlib.init_params(g, seed=0)
+    n_params = sum(v.size for p in raw for v in p.values())
+    npar = paramlib.fuse_conv_batchnorm(g, raw)
+    del raw
+    init_s = time.perf_counter() - t0
+    nets = {name: Network(g, paramlib.params_to_torch(g, npar, dev, dt),
+                          compute_dtype=dt, device=dev)
+            for name, dev, dt in (("cpu", "cpu", torch.float32),
+                                  ("f32", DEVICE, torch.float32),
+                                  ("bf16", DEVICE, torch.bfloat16))}
+    del npar
+    kinds = [l.kind for l in g.layers]
+    print(f"yolov1-{V1_PX}: {len(kinds)} layers "
+          f"({kinds.count('convolutional')} convs, "
+          f"{kinds.count('maxpool')} maxpools, then "
+          f"{', '.join(kinds[-4:])}), {n_params:,} params "
+          f"({4 * n_params / 1e6:.1f} MB f32, init {init_s:.1f} s), "
+          f"{g.total_bflops:.2f} BFLOP an image; region plans "
+          f"{len(nets['f32']._fwd.region_plans)}", flush=True)
+    rng = np.random.default_rng(20)
+    frame = rng.uniform(0, 1, (SERVE_BATCH, V1_PX, V1_PX, 3)).astype(
+        np.float32)
+    kfr.launches = qm.launches = 0
+    heads = {k: net.forward_heads(frame)[0][0] for k, net in nets.items()}
+    launches = (kfr.launches, qm.launches)
+    f32_err, scale = rel_err(heads["f32"], heads["cpu"])
+    bf_err, _ = rel_err(heads["bf16"], heads["f32"])
+    l = g.layers[-1]
+    with torch.inference_mode():
+        r = nets["f32"]._fwd(nets["f32"].params,
+                             torch.from_numpy(frame).to(DEVICE))
+        on_card = detection_decode(r["heads"][0].reshape(SERVE_BATCH, -1), l)
+    on_cpu = detection_decode(torch.from_numpy(heads["cpu"]).reshape(
+        SERVE_BATCH, -1), l)
+    dec_err = max(rel_err(a.cpu(), b)[0] for a, b in zip(on_card, on_cpu))
+    empty = nets["f32"].detect_batch(frame, thresh=0.0)
+    try:
+        nets["f32"].submit_detect_device(frame)
+        refused = ""
+    except ValueError as e:
+        refused = str(e)
+    print(f"serve yolov1-{V1_PX} b={SERVE_BATCH}: heads {heads['f32'].shape};"
+          f" f32 card against CPU {f32_err:.3g} of the scale {scale:.4g}; "
+          f"bf16 against f32 {bf_err:.3g}; decode card against CPU "
+          f"{dec_err:.3g}; detect_batch {empty}; device path: {refused!r}; "
+          f"region launches {launches[0]}, int8 {launches[1]} [{card}]",
+          flush=True)
+    require(np.isfinite(heads["bf16"]).all() and np.isfinite(
+        heads["f32"]).all() and scale > 0, "finite YOLOv1 heads")
+    require(f32_err <= TOL_F32 and dec_err <= 2 * TOL_F32,
+            "the f32 heads and decode on the card agree with the CPU's")
+    require(bf_err <= V1_TOL_BF16, "the bf16 heads within "
+            f"{V1_TOL_BF16} of the f32 heads' scale")
+    require(empty == [[]] * SERVE_BATCH and "detection" in refused,
+            "no host detections and the device path refused, as in the "
+            "JAX package")
+    require(launches == (0, 0), "YOLOv1 plans no region and quantizes "
+            "nothing in floating point")
+    net = nets["bf16"]
+    del nets
+    x = torch.from_numpy(frame).to(DEVICE)
+    with torch.inference_mode():
+        fwd_ms = cuda_ms(lambda: net._fwd(net.params, x), iters=5)
+    trace_summary(lambda: v1_request(net, frame), "yolov1 bf16 request", card)
+    img_s, spread, rates = serve_rate(
+        net, frame, request=lambda: v1_request(net, frame))
+    print(f"serving yolov1-{V1_PX} bf16 b={SERVE_BATCH}: forward {fwd_ms:.3f}"
+          f" ms (CUDA events); {img_s:.2f} img/s median of {RATE_WINDOWS} "
+          f"windows of {RATE_REQUESTS} requests "
+          f"({', '.join(f'{r:.2f}' for r in rates)}; spread "
+          f"{100 * spread:.2f}%), heads to the host and decoded there "
+          f"[{card}]", flush=True)
+    return img_s
+
+
+def v1_int8(card, bf16_img_s):
+    """Phase 12 (b): int8 YOLOv1-448 (bf16 between the layers): a dynamic
+    request (V1_INT8_CONVS int8 launches), calibrate_int8 on
+    INT8_CALIB_FRAMES frames, a calibrated request with every quantized
+    conv's output bitwise equal to the plain version on the same int8
+    operands, and the int8 rate."""
+    import torch
+
+    from darknet_tpu_torch import Network
+    from darknet_tpu_torch.ops import conv as convmod
+    from darknet_tpu_torch.ops import quant_matmul as qm
+
+    with warnings.catch_warnings():
+        warnings.simplefilter("ignore")
+        net = Network.from_cfg(yolov1_cfg(V1_PX), seed=0,
+                               compute_dtype=torch.bfloat16, device=DEVICE,
+                               int8=True)
+    n_q = sum("w_q" in p for p in net.params)
+    rng = np.random.default_rng(21)
+    shape = (SERVE_BATCH, V1_PX, V1_PX, 3)
+    frame = rng.uniform(0, 1, shape).astype(np.float32)
+    qm.launches = 0
+    heads, _dec = v1_request(net, frame)
+    dynamic = qm.launches
+    net.calibrate_int8([rng.uniform(0, 1, shape[1:]).astype(np.float32)
+                        for _ in range(INT8_CALIB_FRAMES)])
+    records = []
+    orig = convmod.int8_conv
+
+    def recorded(x_q, w_q, ws, bias, xs, **kw):
+        y = orig(x_q, w_q, ws, bias, xs, **kw)
+        records.append(((x_q, w_q, ws, bias, xs), kw, y))
+        return y
+
+    qm.launches = 0
+    convmod.int8_conv = recorded
+    try:
+        heads_cal, _dec = v1_request(net, frame)
+    finally:
+        convmod.int8_conv = orig
+    calibrated, n_rec = qm.launches, len(records)
+    n_eq = sum(bool(torch.equal(y, qm.int8_conv_plain(*ops, **kw)))
+               for ops, kw, y in records)
+    del records
+    print(f"yolov1 int8: {n_q} quantized convs; int8 launches a request: "
+          f"dynamic {dynamic}, calibrated {calibrated}; {n_eq} of {n_rec} "
+          f"quantized convs bitwise equal to the plain version", flush=True)
+    require(n_q == V1_INT8_CONVS and dynamic == calibrated == n_rec == n_eq
+            == n_q, f"{V1_INT8_CONVS} int8 launches a request, each "
+            f"bitwise equal to its plain version")
+    require(np.isfinite(heads[0]).all() and np.isfinite(heads_cal[0]).all(),
+            "finite int8 heads")
+    trace_summary(lambda: v1_request(net, frame), "yolov1 int8 request", card)
+    img_s, spread, rates = serve_rate(
+        net, frame, request=lambda: v1_request(net, frame))
+    print(f"serving yolov1-{V1_PX} int8 (calibrated, bf16) b={SERVE_BATCH}: "
+          f"{img_s:.2f} img/s median of {RATE_WINDOWS} windows of "
+          f"{RATE_REQUESTS} requests "
+          f"({', '.join(f'{r:.2f}' for r in rates)}; spread "
+          f"{100 * spread:.2f}%) beside bf16 {bf16_img_s:.2f} img/s "
+          f"[{card}]", flush=True)
+
+
+def v1_train(card, root):
+    """Phase 12 (c): parity of the narrow YOLOv1 on the card against the
+    port's CPU run (phase 8 (a)'s form, generator None), then
+    train_detector on YOLOv1-448 at its published batch=64,
+    subdivisions=8, bf16 (act16), on synth images for V1_TRAIN_ITERS
+    iterations, the dropout drawn from the trainer's generator: finite
+    losses, moved rolling statistics, nonzero momentum buffers (the
+    [local] and [connected] weights among them), no kernel launch; s/iter,
+    img/s, peak memory; the saved .weights served beside the trained
+    params folded, equal heads."""
+    import torch
+
+    from darknet_tpu_torch import Network
+    from darknet_tpu_torch.data import loader as loaderlib
+    from darknet_tpu_torch.data import synth
+    from darknet_tpu_torch.nn import params as paramlib
+    from darknet_tpu_torch.ops import quant_matmul as qm
+    from darknet_tpu_torch.ops.cuda import fused_region as kfr
+    from darknet_tpu_torch.train import trainer as trainerlib
+
+    phase_train_parity((("narrow YOLOv1 64 px", NARROW_V1_CFG,
+                         V1_PARITY_SEED, False),))
+
+    t0 = time.perf_counter()
+    files = synth.generate(os.path.join(root, "train"),
+                           n_train=V1_TRAIN_IMAGES, n_val=2, seed=2,
+                           size_range=TRAIN_IMAGE_PX)
+    synth_s = time.perf_counter() - t0
+    cfg_text = yolov1_cfg(V1_PX)
+    cfg = os.path.join(root, "yolov1.cfg")
+    with open(cfg, "w") as f:
+        f.write(cfg_text)
+    names = os.path.join(root, "voc.names")
+    with open(names, "w") as f:
+        f.write("\n".join(synth.NAMES + [f"c{i}" for i in range(
+            len(synth.NAMES), V1_CLASSES)]) + "\n")
+    backup = os.path.join(root, "backup")
+    data = os.path.join(root, "voc.data")
+    with open(data, "w") as f:
+        f.write(f"classes = {V1_CLASSES}\ntrain = {files['train_list']}\n"
+                f"names = {names}\nsave = {backup}\n")
+
+    marks, n_next = {}, [0]
+    next_batch = loaderlib.DetectionLoader.next
+    save = trainerlib.DetectorTrainer.save
+
+    def spy_next(self):
+        n_next[0] += 1
+        if n_next[0] == 2:
+            torch.cuda.synchronize()
+            marks["start"] = time.perf_counter()
+        return next_batch(self)
+
+    def spy_save(self, suffix=""):
+        if suffix == "final":
+            marks["end"] = time.perf_counter()
+            trained.append(paramlib.train_params_to_numpy(self.graph,
+                                                          self.params))
+            mom.extend(l.kind for l, u in zip(self.graph.layers,
+                                             self.opt_state["u"])
+                       if "w" in u and float(u["w"].abs().max()) > 0)
+        return save(self, suffix)
+
+    trained, mom = [], []
+    loaderlib.DetectionLoader.next = spy_next
+    trainerlib.DetectorTrainer.save = spy_save
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    kfr.launches = qm.launches = 0
+    t0 = time.perf_counter()
+    try:
+        trainerlib.train_detector(
+            data, cfg, max_iters=V1_TRAIN_ITERS, device=DEVICE,
+            loader_processes=TRAIN_LOADER_PROCS,
+            log=lambda line: print(line, flush=True),
+            metrics_path=os.path.join(root, "metrics.jsonl"))
+    finally:
+        loaderlib.DetectionLoader.next = next_batch
+        trainerlib.DetectorTrainer.save = save
+    torch.cuda.synchronize()
+    done = time.perf_counter()
+    wall = done - t0
+    launches = (kfr.launches, qm.launches)
+    peak = torch.cuda.max_memory_allocated()
+    with open(os.path.join(root, "metrics.jsonl")) as f:
+        rows = [json.loads(line) for line in f if '"loss"' in line]
+    losses = [r["loss"] for r in rows]
+    net_cfg = quiet_graph(cfg_text, train=True).net
+    n_img = net_cfg.optimizer_batch
+    per_iter = [n_img / r["imgs_per_sec"] for r in rows]
+    span = marks["end"] - marks["start"]
+    e2e = (V1_TRAIN_ITERS - 1) * n_img / span
+    print(f"train yolov1-{V1_PX} batch={n_img} subdivisions="
+          f"{net_cfg.subdiv} (bf16, act16), {V1_TRAIN_ITERS} iterations on "
+          f"{V1_TRAIN_IMAGES} synth images ({synth_s:.1f} s to write): "
+          f"losses {', '.join(f'{v:.4f}' for v in losses)}; s/iter by the "
+          f"trainer's clock {', '.join(f'{v:.3f}' for v in per_iter)}; end "
+          f"to end over iterations 2-{V1_TRAIN_ITERS}: "
+          f"{(V1_TRAIN_ITERS - 1) * n_img} images in {span:.3f} s, "
+          f"{e2e:.2f} img/s; peak memory {peak / 2**30:.2f} GiB; wall "
+          f"{wall:.1f} s, of which the final saves (.weights and the "
+          f"state) {done - marks['end']:.1f} s; region launches "
+          f"{launches[0]}, int8 {launches[1]} [{card}]", flush=True)
+    require(launches == (0, 0), "training launches neither kernel")
+    require(len(losses) == V1_TRAIN_ITERS and all(np.isfinite(losses)),
+            f"finite losses {losses}")
+
+    g = quiet_graph(cfg_text)
+    trained = trained[0]
+    moved = sum(float(np.abs(p["mean"]).max()) > 0 for p in trained
+                if "mean" in p)
+    with warnings.catch_warnings():
+        warnings.simplefilter("ignore")
+        served = Network.from_cfg(cfg_text, weights=os.path.join(
+            backup, "yolov1_final.weights"), device=DEVICE)
+    folded = Network(g, paramlib.params_to_torch(
+        g, paramlib.fuse_conv_batchnorm(g, trained), DEVICE), device=DEVICE)
+    x = np.random.default_rng(22).uniform(
+        0, 1, (SERVE_BATCH, V1_PX, V1_PX, 3)).astype(np.float32)
+    a, b = served.forward_heads(x)[0][0], folded.forward_heads(x)[0][0]
+    print(f"yolov1 trained: seen {served.seen}, rolling means moved in "
+          f"{moved} layers, momentum nonzero in {len(mom)} weights "
+          f"({mom.count('local')} local, {mom.count('connected')} "
+          f"connected); the saved .weights serve heads equal to the trained "
+          f"params folded: {bool(np.array_equal(a, b))}", flush=True)
+    require(served.seen == V1_TRAIN_ITERS * n_img and moved == 24
+            and len(mom) == 26 and "local" in mom and "connected" in mom,
+            "moved rolling statistics and nonzero momentum buffers")
+    require(np.array_equal(a, b) and np.isfinite(a).all(),
+            "the trained .weights serve what the trained params serve")
+
+
+def v1_rare(card):
+    """Phase 12 (d): the rare-kind cfgs (RARE_KINDS_CFG, RARE_COST_CFG)
+    served in f32 on the card through the region kernel (one launch a
+    request), held to the plain region on the card and to the CPU; a
+    training step of each on the card against the CPU (phase 8 (a)'s
+    form); an int8 network whose antialiased conv quantizes, its int8
+    launch bitwise equal to the plain version."""
+    import torch
+
+    from darknet_tpu_torch import Network
+    from darknet_tpu_torch.nn import params as paramlib
+    from darknet_tpu_torch.ops import conv as convmod
+    from darknet_tpu_torch.ops import quant_matmul as qm
+    from darknet_tpu_torch.ops.cuda import fused_region as kfr
+
+    rng = np.random.default_rng(23)
+    x = rng.uniform(0, 1, (4, 64, 64, 3)).astype(np.float32)
+    for name, cfg in (("rare kinds", RARE_KINDS_CFG),
+                      ("[crop] + [cost]", RARE_COST_CFG)):
+        g = quiet_graph(cfg)
+        raw = paramlib.init_params(g, seed=0)
+        for p in raw:
+            if "scales" in p:
+                p["scales"] = p["scales"] * np.float32(1.5)
+        npar = paramlib.fuse_conv_batchnorm(g, raw)
+        out, launched = {}, {}
+        for k, dev, mode in (("cpu", "cpu", "hybrid"),
+                             ("kernel", DEVICE, "hybrid"),
+                             ("plain", DEVICE, "plain")):
+            net = Network(g, paramlib.params_to_torch(g, npar, dev),
+                          device=dev, fuse_regions=mode)
+            kfr.launches = 0
+            out[k] = net.predict(x)
+            launched[k] = kfr.launches
+        k_err, scale = rel_err(out["kernel"], out["plain"])
+        c_err, _ = rel_err(out["kernel"], out["cpu"])
+        print(f"{name} 64 px f32: output {out['kernel'].shape}, kernel path "
+              f"against the plain region {k_err:.3g} and against the CPU "
+              f"{c_err:.3g} of the scale {scale:.4g}; region launches "
+              f"{launched['kernel']} (plain {launched['plain']}) [{card}]",
+              flush=True)
+        require(launched["kernel"] == 1 and launched["plain"] == 0,
+                f"{name}: one region launch a request")
+        require(np.isfinite(out["kernel"]).all() and k_err <= TOL_F32
+                and c_err <= TOL_F32, f"{name}: the card serves what the "
+                f"plain region and the CPU serve")
+    phase_train_parity((("rare kinds 64 px", RARE_KINDS_CFG,
+                         RARE_PARITY_SEED, False),
+                        ("[crop] + [cost] 64 px", RARE_COST_CFG,
+                         RARE_PARITY_SEED, False)))
+
+    with warnings.catch_warnings():
+        warnings.simplefilter("ignore")
+        net = Network.from_cfg(RARE_KINDS_CFG, seed=0, int8=True,
+                               compute_dtype=torch.bfloat16, device=DEVICE)
+    quantized = [i for i, p in enumerate(net.params) if "w_q" in p]
+    records = []
+    orig = convmod.int8_conv
+
+    def recorded(x_q, w_q, ws, bias, xs, **kw):
+        y = orig(x_q, w_q, ws, bias, xs, **kw)
+        records.append(((x_q, w_q, ws, bias, xs), kw, y))
+        return y
+
+    qm.launches = kfr.launches = 0
+    convmod.int8_conv = recorded
+    try:
+        y = net.predict(x)
+    finally:
+        convmod.int8_conv = orig
+    n_eq = sum(bool(torch.equal(r, qm.int8_conv_plain(*ops, **kw)))
+               for ops, kw, r in records)
+    print(f"rare kinds int8 (bf16): quantized convs {quantized} (layer 10 "
+          f"antialiased: {bool(net.graph.layers[10].antialiasing)}); int8 "
+          f"launches {qm.launches}, {n_eq} bitwise equal to the plain "
+          f"version; region launches {kfr.launches}", flush=True)
+    require(quantized == [10] and net.graph.layers[10].antialiasing
+            and qm.launches == len(records) == n_eq == 1
+            and kfr.launches == 1 and np.isfinite(y).all(),
+            "the antialiased conv runs the int8 kernel, bitwise equal to "
+            "the plain version")
+
+
 def main(argv=None) -> int:
     import argparse
 
     import torch
 
     parser = argparse.ArgumentParser(description="smoke run on one card")
-    parser.add_argument("--only", choices=["video", "gaussian"],
+    parser.add_argument("--only", choices=["video", "gaussian", "v1"],
                         help="build the kernels and run this phase alone "
                              "(no kernels line, no contract line)")
     only = parser.parse_args(argv).only
@@ -2919,7 +3701,8 @@ def main(argv=None) -> int:
         print(log["ptxas"].strip(), flush=True)
 
     if only is not None:
-        {"video": phase_video, "gaussian": phase_gaussian}[only](card)
+        {"video": phase_video, "gaussian": phase_gaussian,
+         "v1": phase_v1}[only](card)
         print(card, flush=True)
         print(json.dumps({"only": only, "ok": True}), flush=True)
         return 0
@@ -2933,6 +3716,7 @@ def main(argv=None) -> int:
     phase_validate(card)
     phase_video(card)
     phase_gaussian(card)
+    phase_v1(card)
 
     print(card, flush=True)
     print(json.dumps({"kernels": [{

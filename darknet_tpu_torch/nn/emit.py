@@ -2,10 +2,15 @@
 
 `make_forward(graph)` returns `forward(params, x) -> {"heads", "raw_heads",
 "output"}` over NHWC tensors.  It keeps only the outputs that a later layer reads
-again (liveness over route/shortcut edges) and dispatches per layer for
-the kinds the yolo v3/v4 and Gaussian YOLOv3 serving paths use.
-`make_forward(graph, train=True)` is the training forward
-(`_make_train_forward`).
+again (liveness over route/shortcut/scale_channels edges) and dispatches
+per layer over every kind the JAX package's forward runs
+(`darknet_tpu/nn/emit.py:342-432`).  `make_forward(graph, train=True)`
+is the training forward (`_make_train_forward`).
+
+A stride > 1 antialiased conv or maxpool that a later layer reads again
+exposes to that reader the reference's stride-1 buffer with the blurred
+output over its front (`ops/conv.antialias_backref_view`), while the next
+layer reads the blurred tensor.
 
 Fused regions (`ops/fused_region.py`) run in the reference's "hybrid"
 form: the stride-1 step prefix of a region (`hybrid_prefix`; for yolov4
@@ -23,19 +28,101 @@ a region, a step whose layer carries a calibrated "x_scale" does too.
 
 from __future__ import annotations
 
+import dataclasses
+
 import torch
+import torch.nn.functional as F
 from torch.utils.checkpoint import checkpoint
 
 from darknet_tpu_torch.ops import shapes as shapeops
 from darknet_tpu_torch.ops import yolo as yoloops
 from darknet_tpu_torch.ops.activations import apply_activation
-from darknet_tpu_torch.ops.conv import conv_block, conv_block_int8
-from darknet_tpu_torch.ops.pooling import maxpool_block
+from darknet_tpu_torch.ops.conv import (antialias_backref_view,
+                                        antialias_blur, batchnorm_block,
+                                        connected_block, conv_block,
+                                        conv_block_int8, precise_matmul)
+from darknet_tpu_torch.ops.pooling import (global_avgpool, maxpool,
+                                           maxpool_block)
 
 HEAD_KINDS = ("yolo", "gaussian_yolo", "detection", "cost")
-# the head kinds ported, with their inference activation
+
+
+def _detection_head(x, l):
+    """The YOLOv1 head's output: the input flattened NHWC to (B, 1, 1, -1),
+    as the JAX package flattens it (`darknet_tpu/nn/emit.py:418-423`)."""
+    return x.reshape(x.shape[0], 1, 1, -1)
+
+
+# the heads' inference activation
 ACTIVATE = {"yolo": yoloops.yolo_activate,
-            "gaussian_yolo": yoloops.gaussian_yolo_activate}
+            "gaussian_yolo": yoloops.gaussian_yolo_activate,
+            "detection": _detection_head}
+
+
+def local_block(x, p, l):
+    """[local] (local_layer.c, `darknet_tpu/nn/emit.py:58-80`): a conv with
+    its own weights at every output location.  The patches are channel-
+    major (c, kh, kw), as `F.unfold` gives them; p["w"] is (locations, n,
+    size*size*c) and p["b"] one bias per output element in CHW order.
+    The product runs in f32 with TF32 off whatever the compute dtype (the
+    reference's einsum of the input with f32 weights), and so does the
+    activation."""
+    b = x.shape[0]
+    patches = F.unfold(x.float().permute(0, 3, 1, 2), l.size, padding=l.pad,
+                       stride=l.stride)              # (B, c*k*k, locations)
+    with precise_matmul(torch.float32):
+        y = torch.bmm(patches.permute(2, 0, 1), p["w"].transpose(1, 2))
+    loc = l.out_h * l.out_w
+    y = y.permute(1, 0, 2) + p["b"].reshape(l.n, loc).t()[None]
+    return apply_activation(y, l.activation).reshape(b, l.out_h, l.out_w,
+                                                     l.n)
+
+
+def _aa_backref_needed(l, i, live) -> bool:
+    """A stride > 1 antialiased layer whose output a later layer reads."""
+    return (bool(getattr(l, "antialiasing", 0)) and i in live
+            and (l.blur_stride_x > 1 or l.blur_stride_y > 1))
+
+
+def _aa_split(y, l):
+    """(the blurred tensor, the back-referenced view) of an antialiased
+    layer's stride-1 output `y`."""
+    blur = antialias_blur(y, l)
+    return blur, antialias_backref_view(y, blur, l)
+
+
+def _no_aa(l):
+    return dataclasses.replace(l, antialiasing=0)
+
+
+def _common(k, l, cur, outs, params):
+    """The layers that serve and train alike, shared by both forwards
+    (None for another kind)."""
+    if k == "route":
+        return shapeops.route([outs[s] for s in l.layers], l.groups,
+                              l.group_id)
+    if k == "shortcut":
+        return shapeops.shortcut(cur, outs[l.from_layer], l.activation)
+    if k == "scale_channels":
+        return shapeops.scale_channels(cur, outs[l.from_layer], l.scale_wh,
+                                       l.activation)
+    if k == "upsample":
+        if l.reverse:
+            return shapeops.upsample_reverse(cur, l.stride, l.scale)
+        return shapeops.upsample(cur, l.stride, l.scale)
+    if k == "reorg":
+        return shapeops.reorg3d(cur, l.stride, l.reverse,
+                                (l.out_h, l.out_w, l.out_c))
+    if k == "reorg_old":
+        return shapeops.reorg_old(cur, l.stride, l.reverse,
+                                  (l.out_h, l.out_w, l.out_c))
+    if k == "avgpool":
+        return global_avgpool(cur)
+    if k == "activation":
+        return apply_activation(cur, l.activation)
+    if k == "local":
+        return local_block(cur, params[l.index], l)
+    return None
 
 
 def _liveness(graph) -> set:
@@ -161,34 +248,39 @@ def make_forward(graph, *, compute_dtype=None, fuse_regions="hybrid",
                     outs[plans[i].stop] = cur
                 continue
             k = l.kind
-            if k == "convolutional":
+            aa_backref = _aa_backref_needed(l, i, live)
+            y = _common(k, l, cur, outs, params)
+            if y is not None:
+                cur = y
+            elif k == "convolutional":
                 if probe_conv_absmax:
                     absmax[i] = cur.float().abs().amax()
                 p = params[l.share_index if l.share_index is not None else i]
                 block = conv_block_int8 if "w_q" in p else conv_block
-                cur = block(cur, p, l, compute_dtype=cd)
+                cur = block(cur, p, _no_aa(l) if aa_backref else l,
+                            compute_dtype=cd)
             elif k == "maxpool":
-                cur = maxpool_block(cur, l)
-            elif k == "route":
-                cur = shapeops.route([outs[s] for s in l.layers],
-                                     l.groups, l.group_id)
-            elif k == "shortcut":
-                cur = shapeops.shortcut(cur, outs[l.from_layer],
-                                        l.activation)
-            elif k == "upsample" and not l.reverse:
-                cur = shapeops.upsample(cur, l.stride, l.scale)
-            elif k == "activation":
-                cur = apply_activation(cur, l.activation)
+                cur = maxpool(cur, l) if aa_backref else maxpool_block(cur, l)
+            elif k == "connected":
+                cur, _st = connected_block(cur, params[i], l,
+                                           compute_dtype=cd)
+                cur = cur.reshape(cur.shape[0], 1, 1, -1)
+            elif k == "batchnorm":
+                cur, _st = batchnorm_block(cur, params[i], l)
+            elif k == "crop":
+                cur = shapeops.crop_layer(cur, l)
             elif k in ACTIVATE:
                 raw_heads.append(cur)
                 cur = ACTIVATE[k](cur, l)
                 heads.append(cur)
-            elif k in ("empty", "blank", "dropout"):
+            elif k in ("empty", "blank", "dropout", "cost"):
                 pass                        # identity at inference
             else:
-                raise NotImplementedError(
-                    f"layer {i}: kind {k!r} is not ported yet")
-            if i in live:
+                raise NotImplementedError(f"layer {i}: kind {k!r}")
+            if aa_backref:
+                cur, backref = _aa_split(cur, l)
+                outs[i] = backref
+            elif i in live:
                 outs[i] = cur
         r = {"heads": heads, "raw_heads": raw_heads, "output": cur}
         if probe_conv_absmax:
@@ -202,21 +294,26 @@ def make_forward(graph, *, compute_dtype=None, fuse_regions="hybrid",
 def _make_train_forward(graph, *, compute_dtype=None, train_act_dtype=None,
                         remat: bool | str = False):
     """The training forward (`darknet_tpu/nn/emit.py:100-464`, train=True):
-    `forward(params, x) -> {"heads", "raw_heads", "bn_stats", "output"}`,
-    with "bn_stats" {conv index: (batch mean, batch var)} detached for the
-    rolling update and "raw_heads" the head inputs the deltas apply to.
+    `forward(params, x, generator=None) -> {"heads", "raw_heads",
+    "bn_stats", "output"}`, with "bn_stats" {layer index: (batch mean,
+    batch var)} of the batch-normalised convs, connected and [batchnorm]
+    layers, detached for the rolling update, and "raw_heads" the head
+    inputs the deltas apply to ([yolo], [Gaussian_yolo], [detection] and
+    [cost], in layer order).
 
     Every conv runs `ops/conv.conv_block(train=True)` (live batch norm, no
     region plan, no stem fold: the JAX package plans regions for training
-    only on a TPU).  train_act_dtype (bf16: act16) carries the interlayer
-    tensors and the y_hat residuals at reduced precision, except the
+    only on a TPU).  train_act_dtype (bf16: act16) carries the conv
+    outputs and the y_hat residuals at reduced precision, except the
     outputs of convs that feed a head, which stay f32.  remat=True
     recomputes each conv block in the backward pass
     (`torch.utils.checkpoint`).  stopbackward/onlyforward detach a layer's
-    output; train_only_bn is the optimizer's gate.  Not ported: remat
-    "steps"/"all" (region-only levels), dropout and crop in training (they
-    need the JAX rng stream), layer kinds the serving path lacks, and the
-    [detection] and [cost] heads."""
+    output; train_only_bn is the optimizer's gate.
+
+    Dropout, dropblock and [crop] draw from `generator`, which must live on
+    x's device (`ops/shapes`); with none, dropout is the identity and crop
+    the centre crop, as the JAX package's forward with rng=None.  Not
+    ported: remat "steps"/"all" (region-only levels)."""
     if remat not in (False, True):
         raise NotImplementedError(
             f"remat={remat!r}: only False and True are ported (the "
@@ -224,19 +321,12 @@ def _make_train_forward(graph, *, compute_dtype=None, train_act_dtype=None,
     layers = graph.layers
     live = _liveness(graph)
     head_feed = {j - 1 for j, l in enumerate(layers) if l.kind in HEAD_KINDS}
-    for i, l in enumerate(layers):
-        if l.kind in HEAD_KINDS and l.kind not in ACTIVATE:
-            raise NotImplementedError(
-                f"layer {i}: training a {l.kind!r} head is not ported yet")
-        if l.kind in ("dropout", "crop"):
-            raise NotImplementedError(
-                f"layer {i}: {l.kind} in training is not ported yet")
 
     def conv(cur, p, l, res_dt):
         return conv_block(cur, p, l, train=True, compute_dtype=compute_dtype,
                           res_dtype=res_dt)
 
-    def forward(params, x):
+    def forward(params, x, generator=None):
         outs: dict = {}
         bn_stats: dict = {}
         heads: list = []
@@ -244,44 +334,63 @@ def _make_train_forward(graph, *, compute_dtype=None, train_act_dtype=None,
         cur = x
         for i, l in enumerate(layers):
             k = l.kind
-            if k == "convolutional":
+            aa_backref = _aa_backref_needed(l, i, live)
+            st = None
+            y = _common(k, l, cur, outs, params)
+            if y is not None:
+                cur = y
+            elif k == "convolutional":
                 p = params[l.share_index if l.share_index is not None else i]
                 res_dt = train_act_dtype if i not in head_feed else None
+                l_eff = _no_aa(l) if aa_backref else l
                 if remat:
-                    cur, st = checkpoint(conv, cur, p, l, res_dt,
+                    cur, st = checkpoint(conv, cur, p, l_eff, res_dt,
                                          use_reentrant=False)
                 else:
-                    cur, st = conv(cur, p, l, res_dt)
-                if st is not None:
-                    bn_stats[i] = (st[0].detach(), st[1].detach())
+                    cur, st = conv(cur, p, l_eff, res_dt)
+                if aa_backref:
+                    cur, outs[i] = _aa_split(cur, l)
                 if train_act_dtype is not None and i not in head_feed:
                     cur = cur.to(train_act_dtype)
             elif k == "maxpool":
-                cur = maxpool_block(cur, l, train=True)
-            elif k == "route":
-                cur = shapeops.route([outs[s] for s in l.layers],
-                                     l.groups, l.group_id)
-            elif k == "shortcut":
-                cur = shapeops.shortcut(cur, outs[l.from_layer],
-                                        l.activation)
-            elif k == "upsample" and not l.reverse:
-                cur = shapeops.upsample(cur, l.stride, l.scale)
-            elif k == "activation":
-                cur = apply_activation(cur, l.activation)
+                if aa_backref:
+                    cur, outs[i] = _aa_split(maxpool(cur, l, train=True), l)
+                else:
+                    cur = maxpool_block(cur, l, train=True)
+            elif k == "connected":
+                cur, st = connected_block(cur, params[i], l, train=True,
+                                          compute_dtype=compute_dtype)
+                cur = cur.reshape(cur.shape[0], 1, 1, -1)
+            elif k == "batchnorm":
+                cur, st = batchnorm_block(cur, params[i], l, train=True)
+            elif k == "dropout":
+                if generator is not None:
+                    if l.dropblock:
+                        cur = shapeops.dropblock(
+                            cur, generator, l.probability,
+                            l.dropblock_size_abs, l.dropblock_size_rel)
+                    else:
+                        cur = shapeops.dropout(cur, generator, l.probability)
+            elif k == "crop":
+                cur = shapeops.crop_layer(cur, l, train=True,
+                                          generator=generator)
             elif k in ACTIVATE:
                 raw_heads.append(cur)
                 cur = ACTIVATE[k](cur, l)
                 heads.append(cur)
+            elif k == "cost":
+                raw_heads.append(cur)
             elif k in ("empty", "blank"):
                 pass
             else:
-                raise NotImplementedError(
-                    f"layer {i}: kind {k!r} is not ported yet")
+                raise NotImplementedError(f"layer {i}: kind {k!r}")
+            if st is not None:
+                bn_stats[i] = (st[0].detach(), st[1].detach())
             if l.stopbackward or l.onlyforward:
                 # BackwardNetwork stops here (network.cpp:179-181)
                 cur = cur.detach()
             if i in live:
-                outs[i] = cur
+                outs[i] = outs.get(i, cur) if aa_backref else cur
         return {"heads": heads, "raw_heads": raw_heads,
                 "bn_stats": bn_stats, "output": cur}
 

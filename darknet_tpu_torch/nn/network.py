@@ -16,8 +16,13 @@ leave the device.  An unfused network saves its `.weights`
 (`save_weights`, SaveWeights); a train=True network runs the training
 forward (batch statistics), as the JAX package's does.  Heads may be
 [yolo] or [Gaussian_yolo]; the host path's detections of an all-Gaussian
-network carry the sigmas (`Detection.uc`).  `resize(w, h)` rebuilds the
-network at another input size on the same params.
+network carry the sigmas (`Detection.uc`).  A YOLOv1 [detection] head is
+returned by `forward_heads` and `predict` but not decoded, as in the JAX
+package: the host path gives no detections for it
+(`ops/detection_v1.detection_decode` decodes it), and the device path
+refuses a network without a [yolo] or [Gaussian_yolo] head.
+`resize(w, h)` rebuilds the network at another input size on the same
+params.
 """
 
 from __future__ import annotations
@@ -86,7 +91,7 @@ def detections_to_json(dets: list, frame_id: int = 0,
     return json.dumps(out, indent=1)
 
 
-# the head kinds ported, with their decode
+# the head kinds decoded, with their decode
 DECODE = {"yolo": yoloops.yolo_decode,
           "gaussian_yolo": yoloops.gaussian_yolo_decode}
 
@@ -116,14 +121,10 @@ class Network:
         self._fwd = make_forward(graph, compute_dtype=compute_dtype,
                                  fuse_regions=fuse_regions, fused_bn=fused,
                                  train=train)
-        heads = graph.heads()
-        if any(l.kind not in DECODE for l in heads):
-            raise NotImplementedError(
-                "[detection] heads are not ported yet: only [yolo] and "
-                "[Gaussian_yolo]")
-        self._heads = heads
-        self._nms_kind = heads[0].nms_kind if heads else "greedynms"
-        self._nms_beta = heads[0].beta_nms if heads else 0.6
+        self._heads = graph.heads()
+        decoded = [l for l in self._heads if l.kind in DECODE]
+        self._nms_kind = decoded[0].nms_kind if decoded else "greedynms"
+        self._nms_beta = decoded[0].beta_nms if decoded else 0.6
 
     @classmethod
     def from_cfg(cls, cfg, weights=None, *, train: bool = False,
@@ -260,20 +261,22 @@ class Network:
 
     def forward_heads(self, image):
         """Activated heads (host numpy) and the reference-order decode
-        (boxes, obj, cls, uc) of all heads concatenated; uc (the sigmas)
-        when every head is Gaussian, else None."""
+        (boxes, obj, cls, uc) of the [yolo] and [Gaussian_yolo] heads
+        concatenated (None without such a head); uc (the sigmas) when every
+        decoded head is Gaussian, else None."""
         r = self._forward(self._prep_input(image))
         heads = [h.float() for h in r["heads"]]
         return [h.cpu().numpy() for h in heads], self._decode(heads)
 
     def _decode(self, heads, order="reference", score_dtype=None):
-        if not heads:
+        pairs = [(t, l) for t, l in zip(heads, self._heads)
+                 if l.kind in DECODE]
+        if not pairs:
             return None
         parts = [DECODE[l.kind](t, l, self.net.w, self.net.h, order=order,
-                                score_dtype=score_dtype)
-                 for t, l in zip(heads, self._heads)]
+                                score_dtype=score_dtype) for t, l in pairs]
         uc = (torch.cat([p[3] for p in parts], dim=1)
-              if all(l.kind == "gaussian_yolo" for l in self._heads)
+              if all(l.kind == "gaussian_yolo" for _t, l in pairs)
               else None)
         return (torch.cat([p[0] for p in parts], dim=1),
                 torch.cat([p[1] for p in parts], dim=1),
@@ -377,7 +380,14 @@ class Network:
         """Run the serving program and return its device triple
         (boxes, objectness, probs) without copying it to the host.  A
         torch tensor already on the device passes through with a shape
-        check; a uint8 array uploads as uint8."""
+        check; a uint8 array uploads as uint8.  A network without a
+        [yolo] or [Gaussian_yolo] head has nothing to decode here and
+        raises ValueError before any work."""
+        if not any(l.kind in DECODE for l in self._heads):
+            raise ValueError(
+                f"the device serving program decodes [yolo] and "
+                f"[Gaussian_yolo] heads; this network's heads are "
+                f"{[l.kind for l in self._heads]}")
         if isinstance(images, torch.Tensor):
             x = images if images.dim() == 4 else images[None]
             x = x.to(self.device)

@@ -11,7 +11,9 @@ one dict per layer:
 * convolutional: {"w": (kh,kw,c/g,n) HWIO, "b": (n,)} plus
   {"scales","mean","var"} when batch-normalized, and after quantization
   {"w_q": int8 HWIO, "w_scale": (n,)} and optionally "x_scale";
-* connected / batchnorm / local as in the JAX package;
+* connected: {"w": (inputs, outputs), "b"} (+ BN), batchnorm: {"b",
+  "scales", "mean", "var"}, local: {"w": (locations, n, size*size*c),
+  "b": (outputs,)}, as in the JAX package;
 * every other layer: {}.
 
 `train_params_to_torch` / `train_params_to_numpy` carry the unfolded
@@ -204,6 +206,8 @@ def resolve_device(device) -> torch.device:
 
 
 TRAINABLE = ("w", "b", "scales")
+# the layer kinds that carry params
+PARAM_KINDS = ("convolutional", "connected", "local", "batchnorm")
 
 
 def _is_conv_w(l, k) -> bool:
@@ -214,11 +218,11 @@ def train_params_to_torch(graph, np_params: list, device="cuda") -> list:
     """Unfolded numpy params (`init_params` or `weights/io.load_weights`:
     "w", "b", "scales", "mean", "var") -> float32 leaf tensors on `device`
     for training, copied: conv weights turn from HWIO into OIHW
-    (channels_last); "w", "b" and "scales" require grad, the rolling
-    "mean"/"var" do not.  Only the kinds the training forward runs are
-    carried: convolutional (every other layer keeps an empty dict)."""
+    (channels_last), connected "w" (inputs, outputs) and local "w"
+    (locations, n, size*size*c) keep the JAX package's layouts; "w", "b"
+    and "scales" require grad, the rolling "mean"/"var" do not."""
     out = numpy_to_train_layout(
-        graph, [p if l.kind == "convolutional" else {}
+        graph, [p if l.kind in PARAM_KINDS else {}
                 for l, p in zip(graph.layers, np_params)],
         resolve_device(device))
     for q in out:
@@ -277,9 +281,11 @@ def params_to_torch(graph, np_params: list, device="cuda",
     as int8 (n, kh*kw*c), K ordered (kh, kw, c) (HWIO `reshape(-1, n).T`:
     both operands of the int8 GEMM K-contiguous), "w_scale" (n,) f32 and,
     when calibrated, "x_scale" (1,) f32; the float "w" stays (a region
-    step without "x_scale" runs in floating point).  Only inference conv
-    params are carried; layers the port does not run yet keep an empty
-    dict."""
+    step without "x_scale" runs in floating point).  Connected, local and
+    [batchnorm] params go over as float32 in the JAX package's layouts,
+    unrounded (the connected product rounds its operands in bf16, the
+    local product runs in f32; `ops/conv.connected_block`,
+    `nn/emit.local_block`)."""
     device = resolve_device(device)
     out = []
     for l, p in zip(graph.layers, np_params):
@@ -303,5 +309,8 @@ def params_to_torch(graph, np_params: list, device="cuda",
                     np.asarray(p["w_scale"], np.float32).copy()).to(device)
             if "x_scale" in p:
                 q["x_scale"] = p["x_scale"]
+        elif l.kind in PARAM_KINDS:
+            q = {k: torch.from_numpy(np.asarray(v, np.float32).copy()).to(
+                device) for k, v in p.items()}
         out.append(q)
     return x_scale_to_torch(out, device)

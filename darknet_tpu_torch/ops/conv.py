@@ -1,5 +1,6 @@
 """Convolution blocks (`darknet_tpu/ops/conv.py`) in torch: inference
-(`conv_block`, `conv_block_int8`) and training (`conv_block(train=True)`).
+(`conv_block`, `conv_block_int8`) and training (`conv_block(train=True)`),
+the antialiasing blur, and the `[connected]` and `[batchnorm]` layers.
 
 Tensors are NHWC at every public function, as in the JAX package.  A NHWC
 tensor viewed as NCHW (`permute(0, 3, 1, 2)`) is a `channels_last` tensor,
@@ -24,6 +25,15 @@ Numerics:
   pre-activation equals the reference's to the bit; the cast (fused into
   the kernel's epilogue on the card) and the activation follow in the
   reference's order.
+* antialiasing (`antialias_blur`): the layer runs at stride 1, then a
+  fixed depthwise blur at its original stride, after the activation,
+  summed in f32 over the activation's values (exact products: the blur
+  weights are powers of two), as the reference's `preferred_element_type`
+  conv does; its output is f32.
+* `[connected]` multiplies in f32 with TF32 off (`precise_matmul`); in
+  bf16 its operands are rounded to bf16 first and their exact products
+  summed in f32, the reference's bf16 `jnp.dot` with f32 output.  Its
+  output, BN and activation stay f32, as the reference's do.
 """
 
 from __future__ import annotations
@@ -62,6 +72,19 @@ def precise(dtype):
     if dtype == torch.bfloat16:
         return torch.backends.cudnn.flags(enabled=True, allow_tf32=True)
     return contextlib.nullcontext()
+
+
+@contextlib.contextmanager
+def precise_matmul(dtype):
+    """Context for a matrix product that serves `dtype`: TF32 off for the
+    f32 path (the reference's `Precision.HIGHEST`), on for the bf16 path,
+    whose f32 operands hold bf16 values (exact in TF32)."""
+    old = torch.backends.cuda.matmul.allow_tf32
+    torch.backends.cuda.matmul.allow_tf32 = dtype == torch.bfloat16
+    try:
+        yield
+    finally:
+        torch.backends.cuda.matmul.allow_tf32 = old
 
 
 def _nchw_padding(x, padding, k, stride, dilation):
@@ -129,17 +152,22 @@ def conv_block_int8(x, p, l, *, compute_dtype=None):
     int32 sums, the f32 dequant + bias epilogue, a cast to the compute
     dtype, then the activation.  `p` carries "w_q" and "w_scale"
     (`nn/params.quantize_conv_params`), BN folded, and optionally a
-    static "x_scale"."""
-    if getattr(l, "antialiasing", 0) or l.groups != 1 or l.dilation != 1:
+    static "x_scale".  An antialiased conv blurs after the activation.
+    `quantize_conv_params` quantizes no grouped or dilated conv, and
+    neither does this."""
+    if l.groups != 1 or l.dilation != 1:
         raise NotImplementedError(
-            "int8 conv: antialiasing, groups and dilation are not ported")
+            "int8 conv: groups and dilation are never quantized")
     padding = darknet_conv_padding(
         l.size, l.pad, l.dilation, (l.h, l.w), (l.stride_y, l.stride_x),
         (l.out_h, l.out_w))
     y = conv2d_int8(x, p, size=l.size, stride=(l.stride_y, l.stride_x),
                     padding=padding, out_hw=(l.out_h, l.out_w),
                     out_dtype=compute_dtype or torch.float32)
-    return apply_activation(y, l.activation)
+    y = apply_activation(y, l.activation)
+    if getattr(l, "antialiasing", 0):
+        y = antialias_blur(y, l)
+    return y
 
 
 def conv_block(x, p, l, *, compute_dtype=None, train: bool = False,
@@ -148,13 +176,11 @@ def conv_block(x, p, l, *, compute_dtype=None, train: bool = False,
     `p` carries the unfolded "scales"/"mean"/"var" of a batch-normalised
     conv, conv then the rolling-statistics BN in f32
     (`darknet_tpu/ops/conv.py:200-202`); cast to the compute dtype,
-    activation.  train=True is the training layer (`_conv_block_train`),
-    which returns (y, bn_stats)."""
+    activation, then an antialiased conv's blur.  train=True is the
+    training layer (`_conv_block_train`), which returns (y, bn_stats)."""
     if train:
         return _conv_block_train(x, p, l, compute_dtype=compute_dtype,
                                  res_dtype=res_dtype)
-    if getattr(l, "antialiasing", 0):
-        raise NotImplementedError("antialiased conv is not ported yet")
     padding = darknet_conv_padding(
         l.size, l.pad, l.dilation, (l.h, l.w), (l.stride_y, l.stride_x),
         (l.out_h, l.out_w))
@@ -167,7 +193,10 @@ def conv_block(x, p, l, *, compute_dtype=None, train: bool = False,
              + p["b"]).to(compute_dtype or torch.float32)
     else:
         y = conv2d_raw(x, p["w"], p["b"], **geom)
-    return apply_activation(y, l.activation)
+    y = apply_activation(y, l.activation)
+    if getattr(l, "antialiasing", 0):
+        y = antialias_blur(y, l)
+    return y
 
 
 def batch_mean_var(y, dims):
@@ -192,9 +221,8 @@ def _conv_block_train(x, p, l, *, compute_dtype=None, res_dtype=None):
     backward); the epilogue then runs in f32, unless `res_dtype` is set
     on a batch-normalised conv (keep_lp): then the bf16 conv output goes
     straight into the epilogue, which keeps y_hat and its output at
-    res_dtype.  p holds unfolded OIHW params ("w", "b"[, "scales"])."""
-    if getattr(l, "antialiasing", 0):
-        raise NotImplementedError("antialiased conv is not ported yet")
+    res_dtype.  p holds unfolded OIHW params ("w", "b"[, "scales"]).  An
+    antialiased conv blurs after the activation."""
     cd = None if compute_dtype in (None, torch.float32) else compute_dtype
     padding = darknet_conv_padding(
         l.size, l.pad, l.dilation, (l.h, l.w), (l.stride_y, l.stride_x),
@@ -215,6 +243,97 @@ def _conv_block_train(x, p, l, *, compute_dtype=None, res_dtype=None):
     if bn:
         from darknet_tpu_torch.ops.train_epilogue import bn_act_train
 
-        return bn_act_train(l.activation, res_dtype if keep_lp else None,
-                            res_dtype, y, p["scales"], p["b"])
-    return apply_activation(y + p["b"], l.activation), None
+        y, stats = bn_act_train(l.activation, res_dtype if keep_lp else None,
+                                res_dtype, y, p["scales"], p["b"])
+    else:
+        y, stats = apply_activation(y + p["b"], l.activation), None
+    if getattr(l, "antialiasing", 0):
+        y = antialias_blur(y, l)
+    return y, stats
+
+
+def _blur_kernel(c: int, antialiasing: int, device):
+    """Depthwise blur weights (convolutional_layer.cpp:744-801), OIHW
+    (c, 1, kh, kw): a 2x2 box for antialiasing=2, else the 3x3 binomial."""
+    if antialiasing == 2:
+        k = torch.full((2, 2), 0.25)
+    else:
+        k1 = torch.tensor([1.0, 2.0, 1.0]) / 4.0
+        k = torch.outer(k1, k1)
+    return k[None, None].repeat(c, 1, 1, 1).to(device)
+
+
+def antialias_blur(y, l):
+    """The fixed depthwise blur at the layer's original stride
+    (`darknet_tpu/ops/conv.py:248-265`): NHWC in, NHWC f32 out."""
+    c = y.shape[-1]
+    size, pad = (2, 0) if l.antialiasing == 2 else (3, 1)
+    in_h, in_w = y.shape[1], y.shape[2]
+    stride = (l.blur_stride_y, l.blur_stride_x)
+    out_hw = ((in_h + 2 * pad - size) // stride[0] + 1,
+              (in_w + 2 * pad - size) // stride[1] + 1)
+    padding = darknet_conv_padding(size, pad, 1, (in_h, in_w), stride,
+                                   out_hw)
+    xn, pd = _nchw_padding(y.float().permute(0, 3, 1, 2), padding,
+                           (size, size), stride, 1)
+    with precise(torch.float32):
+        out = F.conv2d(xn, _blur_kernel(c, l.antialiasing, y.device), None,
+                       stride=stride, padding=pd, groups=c)
+    return out.permute(0, 2, 3, 1)
+
+
+def antialias_backref_view(y_act, blur, l):
+    """The antialiased layer's output as back-references see it
+    (`darknet_tpu/ops/conv.py:227-245`): the reference keeps the layer's
+    stride-1 (h, w, c) buffer and copies only the blurred output over its
+    flat CHW front, so a route, shortcut or scale_channels that reads the
+    layer sees the blur followed by the stale stride-1 activations."""
+    b, h, w, c = y_act.shape
+    flat_full = y_act.permute(0, 3, 1, 2).reshape(b, -1)
+    flat_blur = blur.permute(0, 3, 1, 2).reshape(b, -1)
+    flat = torch.cat([flat_blur, flat_full[:, flat_blur.shape[1]:].to(
+        flat_blur.dtype)], dim=1)
+    return flat.reshape(b, c, h, w).permute(0, 2, 3, 1)
+
+
+def connected_block(x, p, l, *, train: bool = False, compute_dtype=None):
+    """[connected] (`darknet_tpu/ops/conv.py:268-298`): y = x @ w + b, or
+    BN from the batch (train) or rolling statistics, then the activation;
+    returns (y (B, outputs) f32, (batch mean, batch var) or None).
+
+    A spatial input flattens CHW (NHWC -> NCHW, then reshape), the order
+    of the weights in a `.weights` file; p["w"] is (inputs, outputs)."""
+    if x.dim() == 4:
+        x = x.permute(0, 3, 1, 2)
+    x2 = x.reshape(x.shape[0], -1)
+    cd = compute_dtype or torch.float32
+    w = p["w"]
+    if cd == torch.bfloat16:
+        x2, w = x2.to(cd).float(), w.to(cd).float()
+    else:
+        x2 = x2.float()
+    with precise_matmul(cd):
+        y = x2 @ w
+    bn_stats = None
+    if l.batch_normalize and "scales" in p:
+        if train:
+            mean, var = bn_stats = batch_mean_var(y, (0,))
+        else:
+            mean, var = p["mean"], p["var"]
+        y = (y - mean) * torch.rsqrt(var + BN_EPS) * p["scales"] + p["b"]
+    else:
+        y = y + p["b"]
+    return apply_activation(y, l.activation), bn_stats
+
+
+def batchnorm_block(x, p, l, *, train: bool = False):
+    """Standalone [batchnorm] (`darknet_tpu/ops/conv.py:301-311`): BN over
+    the channels from the batch (train) or rolling statistics; returns
+    (y, (batch mean, batch var) or None)."""
+    bn_stats = None
+    if train:
+        mean, var = bn_stats = batch_mean_var(x, (0, 1, 2))
+    else:
+        mean, var = p["mean"], p["var"]
+    return ((x - mean) * torch.rsqrt(var + BN_EPS) * p["scales"] + p["b"],
+            bn_stats)

@@ -1,4 +1,5 @@
-"""Maxpool (`darknet_tpu/ops/pooling.py:40-158`) in torch.
+"""Maxpool and global avgpool (`darknet_tpu/ops/pooling.py:40-163`) in
+torch.
 
 Darknet pads a maxpool with `lo = pad // 2` before and whatever the output
 size needs after, with -inf; the SPP block's stride-1 5/9/13 pools are
@@ -14,12 +15,19 @@ gradients, not torch's:
 * a strided pool is a chain of `torch.maximum` over the size^2 shifted
   strided slices, whose autograd splits a tie evenly between the two
   operands, as `jnp.maximum`'s does.
+
+`maxpool_depth` takes the max over channel groups at each position
+(channel k feeds output channel k % out_channels), in serving and in
+training alike (`amax` splits a tie's gradient evenly, as `jnp.max`
+does).  An antialiased maxpool blurs its output (`ops/conv.antialias_blur`).
 """
 
 from __future__ import annotations
 
 import torch
 import torch.nn.functional as F
+
+from darknet_tpu_torch.ops.conv import antialias_blur
 
 
 def _pads(l):
@@ -32,7 +40,12 @@ def _pads(l):
 def maxpool(x, l, train: bool = False):
     """Darknet maxpool on NHWC input, per MaxpoolIR `l`."""
     if l.maxpool_depth:
-        raise NotImplementedError("maxpool_depth is not ported yet")
+        b, h, w, c = x.shape
+        out_c = l.out_channels
+        groups = -(-c // out_c)
+        if groups * out_c > c:
+            x = F.pad(x, (0, groups * out_c - c), value=float("-inf"))
+        return x.reshape(b, h, w, groups, out_c).amax(3)
     lo, hi_h, hi_w = _pads(l)
     if train:
         return _maxpool_train(x, l, lo, hi_h, hi_w)
@@ -106,6 +119,12 @@ def _maxpool_train(x, l, lo, hi_h, hi_w):
 
 
 def maxpool_block(x, l, train: bool = False):
+    y = maxpool(x, l, train=train)
     if l.antialiasing:
-        raise NotImplementedError("antialiased maxpool is not ported yet")
-    return maxpool(x, l, train=train)
+        y = antialias_blur(y, l)
+    return y
+
+
+def global_avgpool(x):
+    """[avgpool]: NHWC -> (N, 1, 1, C), the mean over H and W."""
+    return x.mean((1, 2), keepdim=True)

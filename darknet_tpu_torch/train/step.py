@@ -1,6 +1,6 @@
-"""The training step (`darknet_tpu/train/step.py:97-262`): forward, YOLO
-deltas ([yolo] and [Gaussian_yolo] heads), backward, optimizer, rolling
-BN statistics.
+"""The training step (`darknet_tpu/train/step.py:97-262`): forward, head
+deltas ([yolo], [Gaussian_yolo], the YOLOv1 [detection] and [cost]),
+backward, optimizer, rolling BN statistics.
 
 The reference trains by filling each head's `delta` (the gradient-ascent
 direction with respect to the head's output) and pulling it back through
@@ -26,15 +26,43 @@ import torch
 
 from darknet_tpu_torch.nn.emit import HEAD_KINDS, make_forward
 from darknet_tpu_torch.ops.conv import precise
+from darknet_tpu_torch.ops.detection_v1 import (cost_layer,
+                                                detection_head_delta,
+                                                encode_v1_truth_batch)
 from darknet_tpu_torch.train import optimizer as opt
 from darknet_tpu_torch.train.gaussian_yolo_loss import \
     gaussian_yolo_head_delta
 from darknet_tpu_torch.train.yolo_loss import yolo_head_delta
 
-# the training delta of each head kind ported (`darknet_tpu/train/
-# step.py:32-59`); the training forward refuses the others
+
+def detection_delta(raw, truths, l, net_w, net_h):
+    """A [detection] head's delta: the (B, max_boxes, 5) box lists encoded
+    as v1 grid truths, then `detection_head_delta` on the flat head.  The
+    JAX step never passes `seen`, so its random responsible box (seen <
+    64000) is never drawn there; nor here."""
+    d, c, m = detection_head_delta(raw.reshape(raw.shape[0], -1),
+                                   encode_v1_truth_batch(truths, l), l)
+    zero = torch.zeros((), device=raw.device)
+    return d.reshape(raw.shape), c, dict(m, class_loss=zero, iou_loss=zero)
+
+
+def cost_delta(raw, truths, l, net_w, net_h):
+    """A [cost] layer's delta: the truths are the flat target, and the
+    delta is scaled by cost_scale."""
+    flat = raw.reshape(raw.shape[0], -1)
+    c, d = cost_layer(flat, truths.reshape(truths.shape[0], -1).float(),
+                      l.cost_type, l.ratio)
+    zero = torch.zeros((), device=raw.device)
+    return ((d * l.cost_scale).reshape(raw.shape), c,
+            {"loss": c / flat.shape[0], "avg_iou": zero, "count": zero,
+             "class_loss": zero, "iou_loss": zero})
+
+
+# the training delta of each head kind (`darknet_tpu/train/step.py:32-71`)
 HEAD_DELTA = {"yolo": yolo_head_delta,
-              "gaussian_yolo": gaussian_yolo_head_delta}
+              "gaussian_yolo": gaussian_yolo_head_delta,
+              "detection": detection_delta,
+              "cost": cost_delta}
 
 
 # per-truth means: micro-batches combine them weighted by their counts
@@ -60,11 +88,14 @@ def aggregate_micro_metrics(m_stk):
 
 def make_train_step(graph, *, compute_dtype=None, remat: bool | str = False,
                     accum: int = 1, train_act_dtype=None):
-    """Build `train_step(params, opt_state, x, truths, lr)`, which updates
-    `params` (from `nn/params.train_params_to_torch`) and `opt_state` in
-    place and returns (params, opt_state, cost, metrics).
+    """Build `train_step(params, opt_state, x, truths, lr, generator=None)`,
+    which updates `params` (from `nn/params.train_params_to_torch`) and
+    `opt_state` in place and returns (params, opt_state, cost, metrics).
 
-    x: (B, H, W, C) on the params' device; truths: (B, max_boxes, 5).
+    x: (B, H, W, C) on the params' device; truths: (B, max_boxes, 5) (a
+    [cost] net's flat targets, reshaped).  `generator` (on x's device)
+    feeds dropout, dropblock and [crop], micro-batch after micro-batch;
+    None runs them deterministically (`nn/emit._make_train_forward`).
     compute_dtype bf16 runs the convs in bf16 (f32 epilogues);
     train_act_dtype bf16 (act16) stores the interlayer tensors and the BN
     residuals in bf16, the head-feeding convs' outputs excepted.
@@ -75,10 +106,10 @@ def make_train_step(graph, *, compute_dtype=None, remat: bool | str = False,
                        remat=remat, train_act_dtype=train_act_dtype)
     loss_scale = net.loss_scale
 
-    def one_micro_batch(params, x, truths):
+    def one_micro_batch(params, x, truths, generator):
         """Forward, deltas and backward of one micro-batch: .grad gains
         its ascent direction.  Returns (cost, metrics per head, stats)."""
-        r = fwd(params, x)
+        r = fwd(params, x, generator)
         costs, metrics, roots, cts = [], [], [], []
         for raw, l in zip(r["raw_heads"], heads):
             d, c, m = HEAD_DELTA[l.kind](raw.detach().float(), truths, l,
@@ -94,7 +125,7 @@ def make_train_step(graph, *, compute_dtype=None, remat: bool | str = False,
                 torch.autograd.backward(roots, grad_tensors=cts)
         return torch.stack(costs).sum(), metrics, r["bn_stats"]
 
-    def step(params, opt_state, x, truths, lr):
+    def step(params, opt_state, x, truths, lr, generator=None):
         for p in params:
             for v in p.values():
                 v.grad = None
@@ -103,7 +134,8 @@ def make_train_step(graph, *, compute_dtype=None, remat: bool | str = False,
             raise ValueError(f"batch {b} is not divisible by accum {accum}")
         costs, mets, stats = [], [], []
         for j in range(accum):
-            c, m, s = one_micro_batch(params, x[j::accum], truths[j::accum])
+            c, m, s = one_micro_batch(params, x[j::accum], truths[j::accum],
+                                      generator)
             costs.append(c)
             mets.append(m)
             stats.append(s)

@@ -22,7 +22,10 @@ Reproduced behaviours:
   (`evaluate_map`), with `<save_name>_best.weights` when it improves;
 * SIGTERM/SIGINT finish the iteration, save, and return;
 * `metric_lag`: iteration i's metrics are read once i + metric_lag steps
-  have been queued, so the host does not wait for the card every step.
+  have been queued, so the host does not wait for the card every step;
+* dropout, dropblock and [crop] draw on the training device, from a
+  generator seeded every step from the trainer's checkpointed CPU
+  generator (`_step_generator`), never on the host.
 
 The device is the CUDA card unless the caller passes device="cpu"
 (without a card any other call raises).  On the card the defaults are the
@@ -100,9 +103,9 @@ class DetectorTrainer:
         self.opt_state = init_opt_state(self.graph, self.params,
                                         iter0=self.curr_iter)
 
-        # the JAX package's PRNG key: no ported layer draws from it yet
-        # (dropout and crop in training are not ported), but its state is
-        # checkpointed with the rest
+        # the JAX package's PRNG key, checkpointed with the rest: each
+        # step's dropout, dropblock and crop draw from a generator on the
+        # training device seeded from it (`_step_generator`)
         self._gen = torch.Generator().manual_seed(0)
         self._avg_loss = -1.0
         self._best_map = 0.0
@@ -161,6 +164,14 @@ class DetectorTrainer:
     @property
     def curr_iter(self) -> int:
         return self.seen // max(self.net.optimizer_batch, 1)
+
+    def _step_generator(self) -> torch.Generator:
+        """The generator of one step's random layers: on the training
+        device (the masks are drawn where the activations are, never on
+        the host), seeded from the trainer's CPU generator, so a resumed
+        run draws the masks the uninterrupted run would."""
+        seed = int(torch.randint(2 ** 62, (), generator=self._gen))
+        return torch.Generator(device=self.device).manual_seed(seed)
 
     # ------------------------------------------------------------------
     def _step_for(self, w: int, h: int):
@@ -286,7 +297,8 @@ class DetectorTrainer:
                 xt = torch.from_numpy(x).to(self.device, non_blocking=True)
                 yt = torch.from_numpy(y).to(self.device, non_blocking=True)
                 self.params, self.opt_state, _cost, metrics = step(
-                    self.params, self.opt_state, xt, yt, lr)
+                    self.params, self.opt_state, xt, yt, lr,
+                    self._step_generator())
 
                 self.seen += net.optimizer_batch
                 it = self.curr_iter

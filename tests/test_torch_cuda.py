@@ -29,7 +29,12 @@ the reference-order decode (boxes, objectness, scaled class scores and
 the sigmas) on the card within rtol 1e-4 / atol 1e-5 of the CPU's and
 the served kept set equal once slots are matched; a network resized
 from 64 to 96 px launches the kernel once on the 96 plan and serves
-bitwise what a network built at 96 serves.
+bitwise what a network built at 96 serves.  YOLOv1 and the rare kinds
+(chip_smoke.py's NARROW_V1_CFG, RARE_KINDS_CFG, RARE_COST_CFG): the
+narrow YOLOv1's heads and decode within 1e-5 of the CPU's (2e-5 for the
+decode's squared sizes), its steps as the narrow CSP graph's; the rare
+cfgs through the region kernel within 1e-4 of the CPU's; the quantized
+antialiased conv's int8 launch bitwise equal to its plain version.
 """
 
 import warnings
@@ -541,3 +546,130 @@ def test_resized_network_launches_new_plan(cuda, gaussian_weights,
     b = fresh.submit_detect_device(x, thresh=0.25)
     for u, v in zip(a, b):
         assert torch.equal(u, v)
+
+
+def _v1_nets(cfg, device, scale=1.5, **kw):
+    """The folded init of `cfg` (BN scales times `scale`) as a Network on
+    `device` and on the CPU."""
+    cs = chip_smoke()
+    g = cs.quiet_graph(cfg)
+    raw = tparams.init_params(g, seed=0)
+    for p in raw:
+        if "scales" in p:
+            p["scales"] = p["scales"] * np.float32(scale)
+    npar = tparams.fuse_conv_batchnorm(g, raw)
+    return [Network(g, tparams.params_to_torch(g, npar, dev), device=dev,
+                    **kw) for dev in (device, "cpu")]
+
+
+def _scaled(a, b):
+    a, b = np.asarray(a), np.asarray(b)
+    return float(np.abs(a - b).max()) / float(np.abs(b).max())
+
+
+@pytest.mark.cuda
+def test_v1_request_on_card_matches_cpu(cuda):
+    """The narrow YOLOv1 in f32 (TF32 off): heads within 1e-5 of their
+    scale of the CPU's, the [detection] decode on the card likewise, no
+    host detections, and the device path refused."""
+    from darknet_tpu_torch.ops.detection_v1 import detection_decode
+
+    gpu, cpu = _v1_nets(chip_smoke().NARROW_V1_CFG, cuda)
+    x = np.random.default_rng(0).uniform(0, 1, (4, 64, 64, 3)).astype(
+        np.float32)
+    h, _ = gpu.forward_heads(x)
+    ch, _ = cpu.forward_heads(x)
+    assert _scaled(h[0], ch[0]) <= 1e-5
+    l = gpu.graph.layers[-1]
+    with torch.inference_mode():
+        r = gpu._fwd(gpu.params, torch.from_numpy(x).to(cuda))
+    for a, b in zip(detection_decode(r["heads"][0].reshape(4, -1), l),
+                    detection_decode(torch.from_numpy(ch[0]).reshape(4, -1),
+                                     l)):
+        assert a.is_cuda and _scaled(a.cpu(), b) <= 2e-5
+    assert gpu.detect_batch(x) == [[]] * 4
+    with pytest.raises(ValueError, match="detection"):
+        gpu.submit_detect_device(x)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("name", ["RARE_KINDS_CFG", "RARE_COST_CFG"])
+def test_rare_kinds_on_card_match_cpu(cuda, name):
+    """One region launch a request (layers 1-3), the output within 1e-4 of
+    its scale of the CPU's (the FFMA kernel and cuDNN sum in another
+    order)."""
+    gpu, cpu = _v1_nets(getattr(chip_smoke(), name), cuda)
+    x = np.random.default_rng(1).uniform(0, 1, (4, 64, 64, 3)).astype(
+        np.float32)
+    before = cfr.launches
+    out = gpu.predict(x)
+    assert cfr.launches == before + 1
+    assert np.isfinite(out).all() and _scaled(out, cpu.predict(x)) <= 1e-4
+
+
+@pytest.mark.cuda
+def test_v1_step_on_card_matches_cpu(cuda):
+    """Two f32 steps (accum 2) of the narrow YOLOv1 on the card, no
+    generator, against the CPU: updates and rolling statistics within 1e-4
+    of the largest change after one step, 2e-3 after two; the cost within
+    1e-5 at the first step and 1e-4 at the second, which starts from
+    states whose momentum differs by up to 7e-5 of its scale (a card run
+    of phase 12).  A generator on the CPU is refused for the card's
+    tensors; one on the card drops."""
+    cs = chip_smoke()
+    g = cs.quiet_graph(cs.NARROW_V1_CFG, train=True)
+    p0 = tparams.init_params(g, seed=0)
+    x, y = cs.train_batch(g, 4, seed=cs.V1_PARITY_SEED)
+    on_card, on_cpu = cs.train_stepper(g, cuda), cs.train_stepper(g, "cpu")
+    card = cpu = cs.train_state0(g, p0)
+    for tol, c_tol in ((1e-4, 1e-5), (2e-3, 1e-4)):
+        card, c_card = on_card(card, x, y)
+        cpu, c_cpu = on_cpu(cpu, x, y)
+        np.testing.assert_allclose(c_card, c_cpu, rtol=c_tol)
+        for keys in (("w", "b", "scales"), ("mean", "var")):
+            err, scale = cs.update_gap(card[0], cpu[0], p0, keys)
+            assert scale > 0 and err <= tol * scale, (tol, keys, err, scale)
+    from darknet_tpu_torch.train.step import init_opt_state, make_train_step
+
+    step = make_train_step(g)
+    p = tparams.train_params_to_torch(g, p0, cuda)
+    o = init_opt_state(g, p)
+    xt, yt = torch.from_numpy(x).to(cuda), torch.from_numpy(y).to(cuda)
+    with pytest.raises(ValueError, match="generator"):
+        step(p, o, xt, yt, g.net.lr, torch.Generator().manual_seed(0))
+    p = tparams.train_params_to_torch(g, p0, cuda)
+    o = init_opt_state(g, p)
+    _p, _o, cost, _m = step(p, o, xt[:2], yt[:2], g.net.lr,
+                            torch.Generator(device=cuda).manual_seed(0))
+    p = tparams.train_params_to_torch(g, p0, cuda)
+    o = init_opt_state(g, p)
+    _p, _o, kept, _m = step(p, o, xt[:2], yt[:2], g.net.lr)
+    assert torch.isfinite(cost) and float(cost) != float(kept)
+
+
+@pytest.mark.cuda
+def test_rare_int8_antialiased_conv_on_card(cuda, monkeypatch):
+    """The antialiased 128 -> 128 conv of RARE_KINDS_CFG quantizes: one
+    int8 launch a request, bitwise equal to the plain version, then the
+    blur."""
+    cs = chip_smoke()
+    with warnings.catch_warnings():
+        warnings.simplefilter("ignore")
+        net = Network.from_cfg(cs.RARE_KINDS_CFG, seed=0, int8=True,
+                               compute_dtype=torch.bfloat16, device=cuda)
+    recs = []
+    orig = tconv.int8_conv
+
+    def spy(*a, **kw):
+        y = orig(*a, **kw)
+        recs.append((a, kw, y))
+        return y
+
+    monkeypatch.setattr(tconv, "int8_conv", spy)
+    before = tqm.launches
+    out = net.predict(np.random.default_rng(2).uniform(
+        0, 1, (4, 64, 64, 3)).astype(np.float32))
+    assert tqm.launches == before + 1 and len(recs) == 1
+    a, kw, y = recs[0]
+    assert torch.equal(y, tqm.int8_conv_plain(*a, **kw))
+    assert np.isfinite(out).all()

@@ -154,28 +154,3 @@ def test_int8_convs_match_jax(int8_run):
         np.testing.assert_array_max_ulp(got, want, maxulp=1)
     tb, _ov, _probs = tnet.submit_detect_device(frames(), thresh=0.1)
     assert tb.shape == (2, 252, 4) and torch.isfinite(tb).all()
-
-
-V1_HEADS = {
-    "detection": ("[net]\nwidth=64\nheight=64\nchannels=3\n"
-                  "[convolutional]\nfilters=7\nsize=32\nstride=32\n"
-                  "activation=linear\n[detection]\nclasses=2\ncoords=4\n"
-                  "rescore=1\nside=2\nnum=1\n"),
-    "cost": ("[net]\nwidth=8\nheight=8\nchannels=3\n[convolutional]\n"
-             "filters=2\nsize=8\nstride=8\nactivation=linear\n[cost]\n"
-             "type=sse\n"),
-}
-
-
-@pytest.mark.parametrize("kind", sorted(V1_HEADS))
-def test_v1_and_cost_heads_still_refused(kind):
-    """The [detection] and [cost] heads are not ported: serving and
-    training raise NotImplementedError naming them."""
-    from darknet_tpu_torch.train.step import make_train_step
-
-    cfg = V1_HEADS[kind]
-    with pytest.raises(NotImplementedError, match=kind):
-        net = Network.from_cfg(cfg, device="cpu")
-        net.predict(np.zeros((1, net.net.h, net.net.w, 3), np.float32))
-    with pytest.raises(NotImplementedError, match=kind):
-        make_train_step(build_graph(cfg, train=True))

@@ -10,7 +10,10 @@ and cv2 blocked, runs the CLI's `-mode video -device cpu` on a y4m clip
 with tracking, and `-mode image` on a PNG; a fifth, with jax, jaxlib and
 `darknet_tpu` blocked, serves chip_smoke.py's narrow Gaussian graph
 (host and device paths, uc on the host's detections) and takes one
-training step of it; and no source of the port (`eval/` and `apps/`
+training step of it; a sixth, with the same three blocked, serves
+chip_smoke.py's narrow YOLOv1 (heads, the host path's empty lists, the
+device path's ValueError, and the rare-kind cfgs) and steps it, without
+and with a generator; and no source of the port (`eval/` and `apps/`
 included), nor the chip scripts (chip_smoke.py, chip_int8_shapes.py,
 chip_region_tiles.py), imports any of the three."""
 
@@ -259,6 +262,60 @@ assert not bad, bad
 print("GAUSSIAN", sum(len(d) for d in host), float(cost))
 """
 
+BLOCKED_V1 = r"""
+import sys
+
+class Block:
+    def find_spec(self, name, path=None, target=None):
+        if name.split(".")[0] in ("jax", "jaxlib", "darknet_tpu"):
+            raise ImportError(f"blocked: {name}")
+        return None
+
+sys.meta_path.insert(0, Block())
+import warnings
+import numpy as np
+import torch
+torch.set_num_threads(2)
+from chip_smoke import (NARROW_V1_CFG, RARE_COST_CFG, RARE_KINDS_CFG,
+                        train_batch)
+from darknet_tpu_torch import Network
+from darknet_tpu_torch.graph.builder import build_graph
+from darknet_tpu_torch.nn import params as tparams
+from darknet_tpu_torch.ops.detection_v1 import detection_decode
+from darknet_tpu_torch.train.step import init_opt_state, make_train_step
+
+warnings.simplefilter("ignore")
+net = Network.from_cfg(NARROW_V1_CFG, seed=0, device="cpu")
+x = np.random.default_rng(0).uniform(0, 1, (2, 64, 64, 3)).astype(np.float32)
+heads, dec = net.forward_heads(x)
+assert heads[0].shape == (2, 1, 1, 208) and dec is None
+boxes, conf, cls = detection_decode(torch.from_numpy(heads[0]).reshape(2, -1),
+                                    net.graph.layers[-1])
+assert boxes.shape == (2, 32, 4) and torch.isfinite(boxes).all()
+assert net.detect_batch(x) == [[], []]
+try:
+    net.submit_detect_device(x)
+    raise AssertionError("the device path served a [detection] head")
+except ValueError as e:
+    assert "detection" in str(e)
+for cfg in (RARE_KINDS_CFG, RARE_COST_CFG):
+    out = Network.from_cfg(cfg, seed=0, device="cpu").predict(x)
+    assert np.isfinite(out).all()
+
+g = build_graph(NARROW_V1_CFG, train=True)
+xb, yb = train_batch(g, 4, seed=1)
+for gen in (None, torch.Generator().manual_seed(0)):
+    p = tparams.train_params_to_torch(g, tparams.init_params(g, seed=0), "cpu")
+    p, o, cost, m = make_train_step(g)(p, init_opt_state(g, p),
+                                       torch.from_numpy(xb),
+                                       torch.from_numpy(yb), g.net.lr, gen)
+    assert torch.isfinite(cost) and float(m["count"]) > 0
+bad = [m for m in sys.modules
+       if m.split(".")[0] in ("jax", "jaxlib", "darknet_tpu")]
+assert not bad, bad
+print("YOLOV1", float(cost))
+"""
+
 TRAIN_CFG = """[net]
 batch=4
 subdivisions=2
@@ -339,6 +396,10 @@ def test_port_streams_video_without_jax_or_opencv(tmp_path):
 
 def test_port_serves_and_trains_gaussian_with_jax_blocked():
     assert "GAUSSIAN" in run_blocked(BLOCKED_GAUSSIAN)
+
+
+def test_port_serves_and_trains_yolov1_with_jax_blocked():
+    assert "YOLOV1" in run_blocked(BLOCKED_V1)
 
 
 @pytest.mark.parametrize("path", sorted(
