@@ -3,7 +3,9 @@ kernel and the int8 GEMM, check each against its plain version, serve
 yolov4-608 through the public API in bf16 and in int8, train it,
 validate it and the rest of the yolo zoo, stream video through the CLI,
 serve, resize, train and validate Gaussian YOLOv3, serve and train
-YOLOv1 and the rare layer kinds, and report.
+YOLOv1 and the rare layer kinds, run the CLI's bench, per-layer
+profile, debug and augmentation-sample flags, serve region_int8, train
+from pinned bf16 uploads, and report.
 
     python3 chip_smoke.py
 
@@ -174,9 +176,38 @@ Phases, each of which fails the run (non-zero exit) on any error:
          antialiased conv quantizes, its launch bitwise equal to the plain
          version.
 
-`python3 chip_smoke.py --only video` (or `--only gaussian`, `--only v1`)
-builds the kernels and runs phase 10 (11, 12) alone (its last line is
-then not the contract's).
+ 13. the CLI's remaining flags, region_int8 and the training upload
+     (`--only cli`; its own timing line), yolov4-608:
+     (a) `-mode bench` through the CLI's main at b=8 without training:
+         its JSON line (bench.py's keys, no vs_baseline, the card named),
+         positive rates, 1 region and 91 int8 launches an int8 request, 1
+         region launch a bf16 request;
+     (b) region_int8, calibrated, b=8: 107 int8 launches and no region
+         launch a request, every launch bitwise equal to the plain
+         version, the triple and kept set equal to the plain path's; the
+         16 padded convs' kernel time; region_int8, int8 and bf16 img/s;
+     (c) `-benchmark_layers 1 -mode valid` (f32, 8 synth images, probe
+         weights): a row for the region and every conv after it, TOTAL
+         within 10% of the trace's device time, the region row's kernel
+         within 10% of its CUDA-event time (f32 and bf16), the top ten
+         rows; the bf16 report; the request rate with the profiler ranges
+         and with them stubbed out;
+     (d) the debug modes: the same triples at levels 1 and 2, a NaN
+         planted in layer 25 named in serving and in layer 2 of a
+         training step, `-mode valid -dbg_sync 2` printing the same
+         report;
+     (e) training at batch 64, subdivisions 8, bf16/act16: the first step
+         from the f32 batch and from its bf16 cast through the pinned
+         staging buffers bitwise equal (deterministic cuDNN); an
+         iteration's upload bytes, as the uploaders count them (halved),
+         and the pinned copies a trace of the uploads keeps (phase 8
+         gives the end-to-end rate);
+     (f) `-mode train -show_imgs` on a narrow cfg: three PNGs a batch.
+     The kernels line gives each path's launches (`launches_by_path`).
+
+`python3 chip_smoke.py --only video` (or `--only gaussian`, `--only v1`,
+`--only cli`) builds the kernels and runs phase 10 (11, 12, 13) alone
+(its last line is then not the contract's).
 
 Weights are random (numpy, seed 0); the training images are drawn from a
 seed into a temporary directory; no file outside the checkout is read.
@@ -1089,22 +1120,25 @@ def graph_ms(fn, reps=5) -> float:
 def profiled_ms(fn, name=None):
     """(device ms, kernels) of one fn() call in a torch.profiler trace:
     the summed durations of the device events whose name contains `name`
-    (all device events when None).  (None, 0) if the trace holds no
-    device event."""
+    (all kernels when None: the trace's first event, a one-byte copy, is
+    no kernel).  (None, 0) if the trace holds no device event."""
     import torch
     from torch.profiler import ProfilerActivity, profile
+
+    from darknet_tpu_torch.utils.profiler import device_events
 
     fn()
     torch.cuda.synchronize()
     with profile(activities=[ProfilerActivity.CPU,
                              ProfilerActivity.CUDA]) as prof:
+        first_device_event()
         fn()
         torch.cuda.synchronize()
-    dev = [e for e in prof.events()
-           if e.device_type == torch.autograd.DeviceType.CUDA]
+    dev = device_events(prof.events())
     if not dev:
         return None, 0
-    hit = [e for e in dev if name is None or name in e.name]
+    hit = [e for e in dev if (name in e.name if name is not None
+                              else not e.name.startswith("Memcpy"))]
     return sum(e.time_range.elapsed_us() for e in hit) / 1e3, len(hit)
 
 
@@ -1116,12 +1150,14 @@ def trace_summary(fn, label, card, n=8):
     import torch
     from torch.profiler import ProfilerActivity, profile
 
+    from darknet_tpu_torch.utils.profiler import device_events
+
     with profile(activities=[ProfilerActivity.CPU,
                              ProfilerActivity.CUDA]) as prof:
         fn()
         torch.cuda.synchronize()
-    dev = [e for e in prof.events()
-           if e.device_type == torch.autograd.DeviceType.CUDA]
+    # the kernels and copies, not the profiler ranges' device spans
+    dev = device_events(prof.events())
     if not dev:
         print(f"{label} profile: no device events", flush=True)
         return None
@@ -1199,26 +1235,27 @@ def unfused_cudnn(sub, x, wc, bc):
     return slots[sub.out_slot]
 
 
-def serve_rate(net, frame, request=None):
+def serve_rate(net, frame, request=None, warmup=RATE_WARMUP,
+               windows=RATE_WINDOWS, requests=RATE_REQUESTS):
     """Throughput: whole requests (`request()`; by default the device
     serving program and its detections), host clock around synchronised
-    work, RATE_WINDOWS windows of RATE_REQUESTS requests after a warm-up.
+    work, `windows` windows of `requests` requests after `warmup`.
     Returns (median img/s, spread (max - min) / median, the rates)."""
     import torch
 
     def served():
         net.device_out_to_dets(*net.submit_detect_device(frame))
     request = request or served
-    for _ in range(RATE_WARMUP):
+    for _ in range(warmup):
         request()
     rates = []
-    for _ in range(RATE_WINDOWS):
+    for _ in range(windows):
         torch.cuda.synchronize()
         t0 = time.perf_counter()
-        for _ in range(RATE_REQUESTS):
+        for _ in range(requests):
             request()
         torch.cuda.synchronize()
-        rates.append(RATE_REQUESTS * SERVE_BATCH / (time.perf_counter() - t0))
+        rates.append(requests * SERVE_BATCH / (time.perf_counter() - t0))
     img_s = float(np.median(rates))
     return img_s, (max(rates) - min(rates)) / img_s, rates
 
@@ -1733,7 +1770,8 @@ def phase_int8_serve(card, bf16_img_s):
           f"windows of {RATE_REQUESTS} requests ({', '.join(f'{r:.2f}' for r in rates)}; "
           f"spread {100 * spread:.2f}%) beside bf16 {bf16_img_s:.2f} img/s "
           f"[{card}]", flush=True)
-    return {"launches": launches, "img_s": img_s,
+    return {"launches": launches, "region_launches": region_counts[-1],
+            "img_s": img_s,
             "ms": prof_req if prof_req is not None else g_k,
             "plain_ms": p_ms, "max_abs_err": err,
             "library_ms": prof_lib if prof_lib is not None else g_l,
@@ -1935,7 +1973,7 @@ def train_full(card, root):
             torch.cuda.synchronize()
             marks["start"] = time.perf_counter()
         x, y = next_batch(self)
-        batches.append((x.shape[1:3], float((x != 0).mean()),
+        batches.append((x.shape[1:3], float(np.asarray(x != 0).mean()),
                         int((y[:, :, 0] > 0).sum())))
         return x, y
 
@@ -3672,13 +3710,476 @@ def v1_rare(card):
             "the plain version")
 
 
+CLI_BENCH_BATCH = 8        # phase 13 (a): -mode bench at b=8, no training
+REGION_INT8_CONVS = 107    # INT8_CONVS + the 16 region convs without w_q
+CLI_RATE = dict(warmup=5, windows=3, requests=20)
+CLI_VALID_IMAGES = 8
+CLI_SHOW_TRAIN = 8         # phase 13 (f): images, two batches of 4
+TOL_TRACE = 0.10           # the trace report against CUDA events
+
+
+def captured(fn, *args):
+    """fn(*args) with its standard output caught: (result, lines)."""
+    import contextlib
+    import io
+
+    buf = io.StringIO()
+    with contextlib.redirect_stdout(buf):
+        out = fn(*args)
+    return out, buf.getvalue().splitlines()
+
+
+def table_rows(lines):
+    """The rows of a trace_report table: {scope: ms}, TOTAL, the trace's
+    device time and its line of launches with their kernel."""
+    rows, device, kernels = {}, None, None
+    start = next(i for i, ln in enumerate(lines) if ln.startswith("layer "))
+    end = next(i for i in range(start, len(lines))
+               if lines[i].startswith("TOTAL"))
+    for ln in lines[start + 1:end]:
+        parts = ln.split()
+        rows[parts[0]] = float(parts[1])
+    if end + 2 < len(lines) and lines[end + 1].startswith("device time"):
+        device = float(lines[end + 1].split()[-1])
+        kernels = lines[end + 2]
+    return rows, float(lines[end].split()[-1]), device, kernels
+
+
+def first_device_event():
+    """A one-byte copy to the card, synchronised, first in a profile: a
+    trace can lose its first device event (phase 11's one-launch profile
+    of the region kernel lost it, and phase 13 (e) a batch's upload)."""
+    import torch
+
+    torch.ones(1, dtype=torch.int8).to(DEVICE)
+    torch.cuda.synchronize()
+
+
+def phase_cli(card):
+    """Phase 13, the CLI's bench, -benchmark_layers, -dbg_sync and
+    -show_imgs, region_int8 and the pinned bf16 uploads, with its own
+    timing line."""
+    t0 = time.perf_counter()
+    root = tempfile.mkdtemp(prefix="chip_smoke_cli_")
+    try:
+        return cli_phase(card, root)
+    finally:
+        shutil.rmtree(root, ignore_errors=True)
+        print(f"phase 13: {time.perf_counter() - t0:.1f} s", flush=True)
+
+
+def cli_phase(card, root):
+    import contextlib
+
+    import torch
+
+    from darknet_tpu_torch import Network, model_zoo
+    from darknet_tpu_torch.apps import cli
+    from darknet_tpu_torch.data import synth
+    from darknet_tpu_torch.data.image import (load_image_rgb,
+                                              resize_image_darknet)
+    from darknet_tpu_torch.data.loader import bf16_from_f32
+    from darknet_tpu_torch.nn import emit as emitmod
+    from darknet_tpu_torch.nn import params as tparams
+    from darknet_tpu_torch.ops import conv as convmod
+    from darknet_tpu_torch.ops import fused_region as fr
+    from darknet_tpu_torch.ops import quant_matmul as qm
+    from darknet_tpu_torch.ops.cuda import fused_region as kfr
+    from darknet_tpu_torch.train.step import init_opt_state, make_train_step
+    from darknet_tpu_torch.train.trainer import PinnedUploader
+    from darknet_tpu_torch.utils import debug, profiler
+    from darknet_tpu_torch.weights import io as wio
+
+    cfg_text = model_zoo.yolov4_cfg(SERVE_PX, SERVE_PX)
+    out = {}
+
+    # (a) -mode bench through the CLI at b=8, counted: reset just before,
+    # read just after
+    kfr.launches = qm.launches = 0
+    t = time.perf_counter()
+    _r, lines = captured(cli.main, ["-mode", "bench", str(CLI_BENCH_BATCH),
+                                    "--no-train"])
+    bench = json.loads(lines[-1])
+    print(lines[-1], flush=True)
+    out["bench"] = (kfr.launches, qm.launches)
+    print(f"(a) -mode bench b={CLI_BENCH_BATCH}: {time.perf_counter() - t:.1f}"
+          f" s; launches over the run: region {kfr.launches}, int8 "
+          f"{qm.launches}; a request: int8 {bench['launches_per_request']}, "
+          f"bf16 {bench['bf16_launches_per_request']} [{card}]", flush=True)
+    require(bench["value"] > 0 and bench["bf16_img_s"] > 0
+            and bench["p50_latency_ms_batch1_sync"] > 0
+            and bench["batch1_ms_amortized"] > 0, "positive bench rates")
+    require(bench["launches_per_request"] == {
+        "fused_region": 1, "int8_gemm": INT8_CONVS}, "1 region and "
+        f"{INT8_CONVS} int8 launches an int8 bench request")
+    require(bench["bf16_launches_per_request"] == {
+        "fused_region": 1, "int8_gemm": 0}, "1 region launch a bf16 bench "
+        "request")
+    require("vs_baseline" not in bench and bench["card"] == card,
+            "no vs_baseline; the card named")
+
+    # (b) region_int8, calibrated, b=8
+    t = time.perf_counter()
+    rng = np.random.default_rng(13)
+    shape = (SERVE_BATCH, SERVE_PX, SERVE_PX, 3)
+    frame = rng.uniform(0, 1, shape).astype(np.float32)
+    calib = [rng.uniform(0, 1, shape[1:]).astype(np.float32)
+             for _ in range(INT8_CALIB_FRAMES)]
+    with warnings.catch_warnings():
+        warnings.simplefilter("ignore")
+        net = Network.from_cfg(cfg_text, seed=0, int8=True,
+                               compute_dtype=torch.bfloat16, device=DEVICE)
+        bnet = Network.from_cfg(cfg_text, seed=0,
+                                compute_dtype=torch.bfloat16, device=DEVICE)
+    net.calibrate_int8(calib)
+    int8_rate = serve_rate(net, frame, **CLI_RATE)[0]
+    net.calibrate_int8(calib, region_int8=True)
+    n_scaled = sum("x_scale" in p for p in net.params)
+    require(n_scaled == REGION_INT8_CONVS and not any(
+        p.stem for p in net._fwd.region_plans.values()),
+        f"{REGION_INT8_CONVS} calibrated convs, no stem: {n_scaled}")
+    records = []
+    orig_conv = convmod.int8_conv
+
+    def recorded(x_q, w_q, ws, bias, xs, **kw):
+        y = orig_conv(x_q, w_q, ws, bias, xs, **kw)
+        records.append({"ops": (x_q, w_q, ws, bias, xs), "kw": kw, "out": y})
+        return y
+
+    convmod.int8_conv = recorded
+    kfr.launches = qm.launches = 0
+    try:
+        got = net.submit_detect_device(frame)
+        torch.cuda.synchronize()
+    finally:
+        convmod.int8_conv = orig_conv
+    out["region_int8"] = (kfr.launches, qm.launches)
+    require(out["region_int8"] == (0, REGION_INT8_CONVS),
+            f"0 region and {REGION_INT8_CONVS} int8 launches a region_int8 "
+            f"request, got {out['region_int8']}")
+    n_eq, padded, err = 0, [], 0.0
+    for r in records:
+        ref = qm.int8_conv_plain(*r["ops"], **r["kw"])
+        n_eq += bool(torch.equal(r["out"], ref))
+        err = max(err, float((r["out"].float() - ref.float()).abs().max()))
+        if min(r["ops"][0].shape[-1], r["ops"][1].shape[0]) < 128:
+            padded.append(r)          # a region conv without its own w_q
+        del r["out"]
+    n_pad = sum(r["ops"][0].shape[-1] % 128 > 0 for r in padded)
+    require(n_eq == len(records) == REGION_INT8_CONVS and len(padded) == 16,
+            f"every int8 conv bitwise equal ({n_eq} of {len(records)}), 16 "
+            f"new ({len(padded)})")
+    convmod.int8_conv = qm.int8_conv_plain
+    try:
+        want = net.submit_detect_device(frame)
+    finally:
+        convmod.int8_conv = orig_conv
+    require(all(torch.equal(a, b) for a, b in zip(got, want))
+            and kept(got[2]) == kept(want[2]), "the region_int8 triple and "
+            "kept set equal to the plain path's")
+    with torch.inference_mode():
+        pad_ms = sum(cuda_ms(lambda r=r: qm.int8_conv(*r["ops"], **r["kw"]),
+                             iters=5, warmup=1) for r in padded)
+        pad_plain = sum(cuda_ms(lambda r=r: qm.int8_conv_plain(
+            *r["ops"], **r["kw"]), iters=3, warmup=1) for r in padded)
+        req_ms, n_k = profiled_ms(lambda: net.submit_detect_device(frame),
+                                  "int8_gemm_kernel")
+    macs = sum(r["ops"][0].shape[0] * r["kw"]["out_hw"][0]
+               * r["kw"]["out_hw"][1] * r["ops"][1].numel() for r in padded)
+    padded_macs = sum(r["ops"][0].shape[0] * r["kw"]["out_hw"][0]
+                      * r["kw"]["out_hw"][1] * r["ops"][1].shape[0]
+                      * r["kw"]["size"] ** 2
+                      * -(-r["ops"][0].shape[-1] // 128) * 128
+                      for r in padded)
+    del records, padded
+    region_rate = serve_rate(net, frame, **CLI_RATE)[0]
+    bf16_rate = serve_rate(bnet, frame, **CLI_RATE)[0]
+    print(f"(b) region_int8 yolov4-{SERVE_PX} b={SERVE_BATCH}: "
+          f"{REGION_INT8_CONVS} int8 launches a request, 0 region, every "
+          f"launch bitwise equal to the plain version (max abs err {err}), "
+          f"the triple equal to the plain path's; the 16 new convs "
+          f"({n_pad} with C padded to 128) {pad_ms:.3f} ms by CUDA events "
+          f"(plain {pad_plain:.3f} ms; {macs / 1e9:.3f} useful GMAC, "
+          f"{padded_macs / 1e9:.3f} executed); int8 kernels over a "
+          f"request {req_ms} ms "
+          f"({n_k} kernels, profiler); img/s ({CLI_RATE['windows']} windows "
+          f"of {CLI_RATE['requests']}): region_int8 {region_rate:.2f}, int8 "
+          f"{int8_rate:.2f}, bf16 {bf16_rate:.2f}; "
+          f"{time.perf_counter() - t:.1f} s [{card}]", flush=True)
+    del net
+
+    # (c) -benchmark_layers 1 in front of -mode valid (f32, the CLI's
+    # network), then the same table for the bf16 network; probe weights
+    # whose threshold sits in a gap of the set's logits, as in phase 9
+    t = time.perf_counter()
+    files = synth.generate(os.path.join(root, "data"), n_train=CLI_SHOW_TRAIN,
+                           n_val=CLI_VALID_IMAGES, seed=2)
+    names = os.path.join(root, "all.names")
+    with open(names, "w") as f:
+        f.write("\n".join(synth.NAMES + [f"c{i}" for i in range(
+            len(synth.NAMES), VALID_CLASSES)]) + "\n")
+    data = os.path.join(root, "obj.data")
+    with open(data, "w") as f:
+        f.write(f"classes = {VALID_CLASSES}\ntrain = {files['train_list']}\n"
+                f"valid = {files['val_list']}\nnames = {names}\n"
+                f"save = {os.path.join(root, 'backup')}\n")
+    cfg = os.path.join(root, "yolov4.cfg")
+    with open(cfg, "w") as f:
+        f.write(cfg_text)
+    g = quiet_graph(cfg_text)
+    weights = os.path.join(root, "probe.weights")
+    val = np.stack([resize_image_darknet(load_image_rgb(p), SERVE_PX,
+                                         SERVE_PX)
+                    for p in files["val_paths"]])
+    with warnings.catch_warnings():
+        warnings.simplefilter("ignore")
+        pnet = Network(g, tparams.params_to_torch(g, probe_params(g),
+                                                  DEVICE),
+                       device=DEVICE, fuse_regions="plain")
+    with torch.inference_mode():
+        raw = pnet._fwd(pnet.params, torch.from_numpy(val).to(DEVICE))[
+            "raw_heads"]
+    bias = obj_bias_for(raw, VALID_THRESH, VALID_PASS * CLI_VALID_IMAGES)
+    del pnet, raw
+    wio.save_weights(g, unfolded(g, probe_params(g, obj_bias=bias)), weights)
+    argv = ["-mode", "valid", "-data_file", data, "-model_file", cfg,
+            "-weights_file", weights]
+    _r, lines = captured(cli.main, argv + ["-benchmark_layers", "1"])
+    rows, total, device, kernels = table_rows(lines)
+    convs = {f"L{l.index:03d}_convolutional" for l in g.layers
+             if l.kind == "convolutional" and l.index > 23}
+    report = [ln for ln in lines if ln.startswith((" # of", " Recall",
+                                                   " Precision", " cid",
+                                                   " mAP"))]
+    top = sorted(rows.items(), key=lambda kv: -kv[1])[:10]
+    print("(c) -benchmark_layers 1 -mode valid f32, the top ten rows: "
+          + "; ".join(f"{k} {v:.3f}" for k, v in top)
+          + f"; TOTAL {total} ms, the trace's device time {device} ms, "
+          f"{len(rows)} rows; {kernels} [{card}]", flush=True)
+    require("L000-023_region" in rows and convs <= set(rows),
+            f"a row for the region and every conv: missing "
+            f"{sorted(convs - set(rows))[:5]}")
+    require(device and abs(total - device) <= TOL_TRACE * device,
+            f"TOTAL {total} within 10% of the trace's device time {device}")
+
+    def region_kernel_check(rnet, label, kernel):
+        """The region row's kernel time in a trace against the kernel's
+        CUDA-event time on the same input (b=1)."""
+        from torch.profiler import ProfilerActivity, profile
+
+        x1 = torch.from_numpy(val[:1]).to(DEVICE)
+        with torch.inference_mode():
+            rnet._fwd(rnet.params, x1)
+            torch.cuda.synchronize()
+            with profile(activities=[ProfilerActivity.CPU,
+                                     ProfilerActivity.CUDA]) as prof:
+                first_device_event()
+                for _ in range(5):
+                    rnet._fwd(rnet.params, x1)
+                torch.cuda.synchronize()
+            ks = [e.time_range.elapsed_us() for e in
+                  profiler.device_events(prof.events()) if kernel in e.name]
+            per = profiler.attribute(prof.events(), True)
+            # per launch in the trace: a dropped event would not count
+            k_ms = sum(us for name, us in per["L000-023_region"].items()
+                       if kernel in name) / max(len(ks), 1) / 1e3
+            plan = rnet._fwd.region_plans[0]
+            sub, k = fr.hybrid_prefix(plan)
+            ws, bs = fr.step_weights(sub.steps, rnet.params,
+                                     rnet.compute_dtype or torch.float32)
+            cd = rnet.compute_dtype or torch.float32
+            xc = x1.to(cd)
+
+            def call():
+                kfr.region_call(sub, xc, ws, bs, compute_dtype=cd)
+            loop_ms = cuda_ms(call, iters=10)
+            ev_ms = graph_ms(call, reps=10)
+        print(f"(c) {label}: the region row's {kernel} {k_ms:.4f} ms a "
+              f"launch in the trace ({len(ks)} of 5 launches); by CUDA events {ev_ms:.4f} ms over CUDA-graph "
+              f"replays, {loop_ms:.4f} ms over a loop of launches [{card}]",
+              flush=True)
+        require(abs(k_ms - ev_ms) <= TOL_TRACE * ev_ms,
+                f"{label}: the trace's region kernel within 10% of its "
+                f"CUDA-event time")
+
+    with warnings.catch_warnings():
+        warnings.simplefilter("ignore")
+        fnet = Network.from_cfg(cfg, weights=weights, device=DEVICE)
+    region_kernel_check(fnet, "f32", "region_kernel")
+    del fnet
+    region_kernel_check(bnet, "bf16", "region_tc_kernel")
+    blines = []
+    x1 = torch.from_numpy(val[:1]).to(DEVICE)
+    with torch.inference_mode():
+        profiler.trace_report(
+            lambda p, x: sum(h.float().sum()
+                             for h in bnet._fwd(p, x)["heads"]),
+            bnet.params, x1, graph=bnet.graph, log=blines.append, top=10)
+    brows, btotal, bdevice, bkernels = table_rows(blines)
+    print("(c) bf16 per-layer report, the top ten rows: " + "; ".join(
+        f"{k} {v:.3f}" for k, v in list(brows.items())[:10])
+        + f"; TOTAL {btotal} ms, the trace's device time {bdevice} ms; "
+        f"{bkernels} [{card}]", flush=True)
+    require(bdevice and abs(btotal - bdevice) <= TOL_TRACE * bdevice,
+            "bf16 TOTAL within 10% of the trace's device time")
+
+    # the profiler ranges are free when nothing profiles: the request rate
+    # with them and with them stubbed out, in turns
+    scoped = emitmod.scope
+    with_s, without = [], []
+    for turn in (0, 1):
+        emitmod.scope = scoped if turn == 0 else (
+            lambda name: contextlib.nullcontext())
+        try:
+            (with_s if turn == 0 else without).append(
+                serve_rate(bnet, frame, **CLI_RATE)[0])
+        finally:
+            emitmod.scope = scoped
+    print(f"(c) bf16 img/s with the profiler ranges {with_s}, without "
+          f"{without}; {time.perf_counter() - t:.1f} s [{card}]", flush=True)
+    t = time.perf_counter()
+
+    # (d) -dbg_sync: the same results; a planted NaN named by its layer
+    with torch.inference_mode():
+        want = bnet.submit_detect_device(frame)
+        for level in (1, 2):
+            with debug.debug_sync_mode():
+                if level == 2:
+                    with debug.debug_nans():
+                        got = bnet.submit_detect_device(frame)
+                else:
+                    got = bnet.submit_detect_device(frame)
+            require(all(torch.equal(a, b) for a, b in zip(got, want)),
+                    f"-dbg_sync {level}: the same triple")
+    bnet.params = [dict(p) for p in bnet.params]
+    w = bnet.params[25]["w"].clone()
+    w[0, 0, 0, 0] = float("nan")
+    bnet.params[25]["w"] = w
+    try:
+        with debug.debug_sync_mode(), debug.debug_nans():
+            bnet.submit_detect_device(frame)
+        raised = ""
+    except FloatingPointError as e:
+        raised = str(e)
+    require("L025_convolutional" in raised, f"a NaN in layer 25 named in "
+            f"serving: {raised!r}")
+    tg = quiet_graph(TRAIN_CSP_CFG, train=True)
+    p0 = tparams.init_params(tg, seed=0)
+    p0[2]["w"][0, 0, 0, 0] = np.nan
+    params = tparams.train_params_to_torch(tg, p0, DEVICE)
+    bx, by = train_batch(tg, 4, 1)
+    try:
+        with debug.debug_sync_mode(), debug.debug_nans():
+            make_train_step(tg)(params, init_opt_state(tg, params),
+                                torch.from_numpy(bx).to(DEVICE),
+                                torch.from_numpy(by).to(DEVICE), 1e-3)
+        raised_t = ""
+    except FloatingPointError as e:
+        raised_t = str(e)
+    require("L002_convolutional" in raised_t, f"a NaN in layer 2 named in "
+            f"a training step: {raised_t!r}")
+    _r, dlines = captured(cli.main, argv + ["-dbg_sync", "2"])
+    dreport = [ln for ln in dlines if ln.startswith((
+        " # of", " Recall", " Precision", " cid", " mAP"))]
+    require(dreport == report and report, "-mode valid -dbg_sync 2 prints "
+            "the report of the run without")
+    print(f"(d) -dbg_sync 1 and 2: the same triples and valid report; a NaN "
+          f"named in serving ({raised!r}) and in a step ({raised_t!r}); "
+          f"{time.perf_counter() - t:.1f} s", flush=True)
+    del bnet
+
+    # (e) yolov4-608 training at batch 64, subdivisions 8, bf16/act16: the
+    # first step from the f32 batch and from its bf16 cast through the
+    # pinned staging buffers, bitwise; the H2D bytes of each profiled
+    # iteration (phase 8 gives the end-to-end rate)
+    from torch.profiler import ProfilerActivity, profile
+
+    t = time.perf_counter()
+
+    gt = quiet_graph(cfg_text, train=True)
+    n_img, accum = gt.net.optimizer_batch, gt.net.subdiv
+    tp0 = tparams.init_params(gt, seed=0)
+    tx, ty = train_batch(gt, n_img, 7)
+    step = make_train_step(gt, compute_dtype=torch.bfloat16, accum=accum,
+                           train_act_dtype=torch.bfloat16)
+    # the profiler's events carry no byte counts here, and its traces
+    # lose events (the uploads among them in calls where a whole step was
+    # traced), so the bytes are the uploaders' counts of what they copied;
+    # a trace of the uploads alone shows the copies' kind (pinned,
+    # asynchronous) and device time where it keeps them
+    firsts, sent, copies = [], [], []
+    prev = (torch.backends.cudnn.deterministic,
+            torch.are_deterministic_algorithms_enabled())
+    for batch in (tx, bf16_from_f32(tx)):
+        params = tparams.train_params_to_torch(gt, tp0, DEVICE)
+        opt = init_opt_state(gt, params)
+        ux, uy = PinnedUploader(DEVICE), PinnedUploader(DEVICE)
+        torch.cuda.synchronize()
+        with profile(activities=[ProfilerActivity.CPU,
+                                 ProfilerActivity.CUDA]) as prof:
+            first_device_event()
+            xt, yt = ux(batch), uy(ty)
+            torch.cuda.synchronize()
+        sent.append(ux.bytes + uy.bytes)
+        copies.append([round(e.time_range.elapsed_us() / 1e3, 4)
+                       for e in profiler.device_events(prof.events())
+                       if e.name.startswith("Memcpy HtoD (Pinned")])
+        torch.backends.cudnn.deterministic = True
+        torch.use_deterministic_algorithms(True, warn_only=True)
+        try:
+            params, opt, cost, _m = step(params, opt, xt, yt, 1e-4)
+            torch.cuda.synchronize()
+        finally:
+            torch.backends.cudnn.deterministic = prev[0]
+            torch.use_deterministic_algorithms(prev[1])
+        del prof, xt, yt
+        firsts.append((params, float(cost)))
+        del opt
+    same = firsts[0][1] == firsts[1][1] and all(
+        torch.equal(a[k], b[k]) for a, b in zip(firsts[0][0], firsts[1][0])
+        for k in a)
+    print(f"(e) yolov4-{SERVE_PX} batch {n_img} subdivisions {accum} bf16 "
+          f"act16: the first step from the f32 and the bf16 upload bitwise "
+          f"equal: {same} (costs {firsts[0][1]}, {firsts[1][1]}); an "
+          f"iteration's uploads by the uploaders' counts: f32 {sent[0]} "
+          f"bytes, bf16 {sent[1]} (the images {tx.nbytes} and {tx.nbytes // 2}, the "
+          f"truths {ty.nbytes}); the pinned copies' ms in a trace of the "
+          f"uploads: f32 {copies[0]}, bf16 {copies[1]}; "
+          f"{time.perf_counter() - t:.1f} s [{card}]", flush=True)
+    require(same, "the first step bitwise equal from either upload")
+    require(sent[0] - sent[1] == tx.nbytes // 2
+            and sent[1] == tx.nbytes // 2 + ty.nbytes,
+            "the uploads' bytes halved")
+    del firsts
+
+    # (f) -show_imgs in -mode train: three PNGs a batch
+    t = time.perf_counter()
+    tcfg = os.path.join(root, "narrow.cfg")
+    with open(tcfg, "w") as f:
+        f.write(TRAIN_CSP_CFG.replace("burn_in=0", "burn_in=0\nmax_epoch=1"))
+    tdata = os.path.join(root, "train.data")
+    show = os.path.join(root, "show")
+    with open(files["data"]) as f, open(tdata, "w") as fo:
+        fo.write(f.read() + f"save = {show}\n")
+    captured(cli.main, ["-mode", "train", "-data_file", tdata, "-model_file",
+                        tcfg, "-weights_file", "none", "-show_imgs",
+                        "-no_calc_map", "-loader_processes", "0"])
+    shown = sorted(n for n in os.listdir(show) if n.startswith("aug_"))
+    print(f"(f) -show_imgs: {len(shown)} PNGs ({shown[:3]}); "
+          f"{time.perf_counter() - t:.1f} s", flush=True)
+    require(len(shown) >= 6 and len(shown) % 3 == 0
+            and shown[:3] == ["aug_00001.png", "aug_00002.png",
+                              "aug_00003.png"], "three PNGs a batch")
+    return out
+
+
 def main(argv=None) -> int:
     import argparse
 
     import torch
 
     parser = argparse.ArgumentParser(description="smoke run on one card")
-    parser.add_argument("--only", choices=["video", "gaussian", "v1"],
+    parser.add_argument("--only", choices=["video", "gaussian", "v1", "cli"],
                         help="build the kernels and run this phase alone "
                              "(no kernels line, no contract line)")
     only = parser.parse_args(argv).only
@@ -3702,7 +4203,7 @@ def main(argv=None) -> int:
 
     if only is not None:
         {"video": phase_video, "gaussian": phase_gaussian,
-         "v1": phase_v1}[only](card)
+         "v1": phase_v1, "cli": phase_cli}[only](card)
         print(card, flush=True)
         print(json.dumps({"only": only, "ok": True}), flush=True)
         return 0
@@ -3717,6 +4218,7 @@ def main(argv=None) -> int:
     phase_video(card)
     phase_gaussian(card)
     phase_v1(card)
+    cli = phase_cli(card)
 
     print(card, flush=True)
     print(json.dumps({"kernels": [{
@@ -3727,7 +4229,12 @@ def main(argv=None) -> int:
         "max_abs_err": serve["max_abs_err"],
         "ms": serve["ms"], "plain_ms": serve["plain_ms"],
         "bound_ms": serve["bound_ms"], "bound_by": serve["bound_by"],
-        "library_ms": None}, {
+        "library_ms": None,
+        "launches_by_path": {
+            "phase4_serve_bf16": serve["launches"],
+            "phase6_int8_calibrated": int8["region_launches"],
+            "phase13_bench_run": cli["bench"][0],
+            "phase13_region_int8_request": cli["region_int8"][0]}}, {
         "name": "int8_gemm", "route": "cuda",
         "source": "darknet_tpu_torch/csrc/int8_gemm.cu",
         "replaces": "darknet_tpu/ops/pallas/quant_matmul.py:91",
@@ -3735,7 +4242,12 @@ def main(argv=None) -> int:
         "max_abs_err": int8["max_abs_err"],
         "ms": int8["ms"], "plain_ms": int8["plain_ms"],
         "bound_ms": int8["bound_ms"], "bound_by": int8["bound_by"],
-        "library_ms": int8["library_ms"]}]}), flush=True)
+        "library_ms": int8["library_ms"],
+        "launches_by_path": {
+            "phase6_int8_calibrated": int8["launches"],
+            "phase13_bench_run": cli["bench"][1],
+            "phase13_region_int8_request": cli["region_int8"][1]}}]}),
+        flush=True)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),
         "count": torch.cuda.device_count()}}), flush=True)

@@ -1,6 +1,6 @@
 """Command-line interface, the `yolo_core` executable
 (yolo_core.cpp:139-399; `darknet_tpu/apps/cli.py`) on torch: the train,
-valid, image, video and multi-video modes.
+valid, image, video, multi-video and bench modes.
 
     python -m darknet_tpu_torch.apps.cli -mode video -data_file obj.data \
         -model_file yolov4.cfg -weights_file yolov4.weights \
@@ -11,23 +11,26 @@ chooses the CUDA card (the default) or the CPU.  The streaming modes read
 `.y4m` clips and PNG images with the port's own code, and other formats
 through OpenCV where it is installed (`data/video`, `data/image`); they
 draw with the port's own raster primitives; -save_output needs OpenCV's
-mp4 writer and raises before any work without it.  Not ported yet, each
-raising NotImplementedError before any work: the bench mode,
--benchmark_layers, -dbg_sync and -show_imgs (ROADMAP A6), and -num_chips
-above 1 (ROADMAP A7).
+mp4 writer and raises before any work without it.  -mode bench runs the
+port's benchmark (`apps/bench.py`; arguments the CLI does not know, such
+as a batch or --no-train, go to it); -benchmark_layers N profiles the
+valid mode's network per layer first (`utils/profiler`: the trace report,
+and from 2 the prefix-marginal table); -dbg_sync 1 synchronises the card
+after every layer of any mode, 2 also stops at the first layer that
+makes a NaN or an Inf (`utils/debug`); -show_imgs writes three augmented
+samples a training batch.  Not ported yet: -num_chips above 1 (ROADMAP
+A7), which raises NotImplementedError before any work.
 """
 
 from __future__ import annotations
 
 import argparse
+import contextlib
 import os
 import sys
 import time
 
 import numpy as np
-
-UNPORTED_MODES = ("bench",)
-UNPORTED_FLAGS = ("benchmark_layers", "dbg_sync", "show_imgs")
 
 
 def build_parser() -> argparse.ArgumentParser:
@@ -36,7 +39,7 @@ def build_parser() -> argparse.ArgumentParser:
         formatter_class=argparse.ArgumentDefaultsHelpFormatter)
     p.add_argument("-mode", "--mode", default="video",
                    choices=["train", "valid", "image", "video",
-                            "multi-video", *UNPORTED_MODES])
+                            "multi-video", "bench"])
     p.add_argument("-data_file", "--data_file", default="yolo.data")
     p.add_argument("-model_file", "--model_file", default="yolo.cfg")
     p.add_argument("-weights_file", "--weights_file", default="yolo.weights")
@@ -157,7 +160,8 @@ def mode_train(args):
         calc_map=args.calc_map and bool(val_paths), val_paths=val_paths,
         save_dir=md.backup_dir,
         save_name=os.path.splitext(os.path.basename(args.model_file))[0],
-        metrics_path=args.metrics_file or None, remat=args.remat,
+        metrics_path=args.metrics_file or None,
+        show_imgs=3 if args.show_imgs else 0, remat=args.remat,
         act16=True if args.act16 else (False if args.no_act16 else None),
         loader_processes=args.loader_processes, resume=args.resume,
         metric_lag=None if args.metric_lag < 0 else args.metric_lag,
@@ -176,6 +180,30 @@ def mode_valid(args):
 
     md = _load_metadata(args)
     net = _load_network(args)
+    if args.benchmark_layers:
+        # -benchmark_layers (network_kernels.cu:46-114): 1 = the per-layer
+        # profiler report; 2 and up also the prefix-marginal table
+        import torch
+
+        from darknet_tpu_torch.utils.profiler import (benchmark_layers,
+                                                      trace_report)
+
+        xb = torch.from_numpy(np.random.default_rng(0).uniform(
+            0, 1, (1, net.net.h, net.net.w, net.net.c)).astype(
+                np.float32)).to(net.device)
+
+        def _probe(p, x):
+            # every head, so the profiled program is the whole graph
+            with torch.inference_mode():
+                r = net._fwd(p, x)
+                outs = r["heads"] if r["heads"] else [r["output"]]
+                return sum(o.float().sum() for o in outs)
+
+        trace_report(_probe, net.params, xb, graph=net.graph)
+        if args.benchmark_layers >= 2:
+            benchmark_layers(net.graph, net.params,
+                             compute_dtype=net.compute_dtype,
+                             fused_bn=net.fused)
     paths = md.load_paths("valid")
     # (_load_network already applied -calib_file if it existed)
     if args.int8 and args.int8_calib and net._calib_absmax is None:
@@ -673,34 +701,51 @@ def mode_multi_video(args):
     print(f"processed {curr} frames from {len(files)} cameras")
 
 
+def mode_bench(args, bench_argv):
+    """The port's benchmark (`apps/bench.py`) on -device, with the
+    arguments the CLI does not know (a batch, --bf16, --headline-only,
+    --no-train, --size)."""
+    from darknet_tpu_torch.apps import bench
+
+    bench.main(list(bench_argv) + ["--device", args.device])
+
+
 def main(argv=None):
-    args = build_parser().parse_args(argv)
+    parser = build_parser()
+    args, rest = parser.parse_known_args(argv)
+    if rest and args.mode != "bench":
+        parser.error(f"unrecognized arguments: {' '.join(rest)}")
     if args.latency:
         # low-latency preset: top_k=64, depth 1 (the freshest result)
-        if args.top_k == build_parser().get_default("top_k"):
+        if args.top_k == parser.get_default("top_k"):
             args.top_k = 64
         args.pipeline_depth = 1
-    if args.mode in UNPORTED_MODES:
-        raise NotImplementedError(
-            f"-mode {args.mode} is not ported yet (ROADMAP A6)")
     if args.num_chips > 1:
         raise NotImplementedError(
             "-num_chips above 1 is not ported yet (ROADMAP A7)")
-    for flag in UNPORTED_FLAGS:
-        if getattr(args, flag):
-            raise NotImplementedError(
-                f"-{flag} is not ported yet (ROADMAP A6)")
-    if args.mode == "train":
-        mode_train(args)
-    elif args.mode == "valid":
-        # not the mAP: a console script passes main's value to sys.exit
-        mode_valid(args)
-    elif args.mode == "image":
-        mode_image(args)
-    elif args.mode == "video":
-        mode_video(args)
-    else:
-        mode_multi_video(args)
+    with contextlib.ExitStack() as stack:
+        if args.dbg_sync:
+            # -cuda_dbg_sync (dark_cuda.h:9): the card synchronised after
+            # every layer, and from 2 the first NaN or Inf raises; both
+            # restored when the mode returns
+            from darknet_tpu_torch.utils import debug
+
+            stack.enter_context(debug.debug_sync_mode())
+            if args.dbg_sync >= 2:
+                stack.enter_context(debug.debug_nans())
+        if args.mode == "train":
+            mode_train(args)
+        elif args.mode == "valid":
+            # not the mAP: a console script passes main's value to sys.exit
+            mode_valid(args)
+        elif args.mode == "image":
+            mode_image(args)
+        elif args.mode == "video":
+            mode_video(args)
+        elif args.mode == "multi-video":
+            mode_multi_video(args)
+        else:
+            mode_bench(args, rest)
 
 
 if __name__ == "__main__":

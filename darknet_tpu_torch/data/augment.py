@@ -240,6 +240,26 @@ def blend_truth_mosaic(new_truth, old_truth, w, h, cut_x, cut_y, i_quad,
             new_t += 1
 
 
+def save_augmented_sample(img, truth, path) -> None:
+    """-show_imgs (data.cpp:631-666; `darknet_tpu/data/augment.py:250-263`):
+    the augmented image with its transformed truth boxes drawn, for
+    augmentation debugging.  The boxes are `apps/raster.rectangle`'s (the
+    reference's colour and thickness), and the file is a PNG
+    (`data/image.write_png`) where the JAX package writes a JPEG."""
+    from darknet_tpu_torch.apps.raster import rectangle
+
+    out = (np.clip(img, 0, 1) * 255).astype(np.uint8)
+    h, w = out.shape[:2]
+    for t in truth:
+        if not t[0]:
+            break
+        x, y, bw, bh = t[0], t[1], t[2], t[3]
+        p1 = (int((x - bw / 2) * w), int((y - bh / 2) * h))
+        p2 = (int((x + bw / 2) * w), int((y + bh / 2) * h))
+        rectangle(out, p1, p2, (150, 100, 50), 1)
+    imageops.write_png(path, out)
+
+
 def load_detection_sample(path, w, h, boxes, classes, *, jitter=0.3,
                           hue=0.1, saturation=1.5, exposure=1.5,
                           use_flip=True, use_blur=0, use_gaussian_noise=0,

@@ -17,12 +17,18 @@ single assembler thread.  Spawned workers import numpy and torch (CPU
 ops only) and keep to one torch thread each; spawning (not forking)
 keeps the parent's CUDA context out of them.
 
+`out_dtype=torch.bfloat16` has the assembler emit the image batch as a
+bf16 CPU tensor (`bf16_from_f32`: round to nearest even, as torch's cast
+rounds), so the upload is half the bytes; the augmentation stays f32.
+`show_imgs=N` writes the first N samples of every batch, boxes drawn, to
+`show_imgs_dir/aug_%05d.png` (`data/augment.save_augmented_sample`).
+
 The port's copy of `darknet_tpu/data/loader.py`, with two repairs: a
 sample is replaced by zeros (and logged to bad.list) only when its image
 cannot be read or decoded (`OSError`, `data/image.ImageDecodeError`); a
 missing library or a failed assertion propagates, so the loader never
-trains on zeros for want of a decoder.  Batches are float32 (the trainer
-casts them on the device).
+trains on zeros for want of a decoder.  Batches are float32 numpy
+arrays unless out_dtype says otherwise.
 """
 
 from __future__ import annotations
@@ -33,10 +39,25 @@ import os
 import threading
 
 import numpy as np
+import torch
 
 from darknet_tpu_torch.data.augment import (blend_truth, blend_truth_mosaic,
-                                            load_detection_sample)
+                                            load_detection_sample,
+                                            save_augmented_sample)
 from darknet_tpu_torch.data.image import ImageDecodeError
+
+
+def bf16_from_f32(x) -> torch.Tensor:
+    """float32 -> a bfloat16 CPU tensor with torch's own rounding (to
+    nearest even, NaN to 0x7FC0; c10's round_to_nearest_even), built
+    from the bit patterns: numpy has no bf16 type."""
+    x = np.ascontiguousarray(x, np.float32)
+    u = x.view(np.uint32)
+    bits = ((u + (((u >> 16) & 1) + np.uint32(0x7FFF))) >> 16).astype(
+        np.uint16)
+    bits[np.isnan(x)] = 0x7FC0
+    return torch.from_numpy(bits.view(np.int16)).view(torch.bfloat16)
+
 
 # ---- process-worker plumbing (module-level: must pickle by reference) ----
 _WCFG: dict = {}
@@ -79,7 +100,8 @@ class DetectionLoader:
     def __init__(self, paths, *, w, h, batch, boxes=90, classes=80,
                  jitter=0.3, hue=0.1, saturation=1.5, exposure=1.5,
                  flip=True, blur=0, gaussian_noise=0, mixup=0,
-                 threads=6, processes=0, seed=0, bad_dir="."):
+                 threads=6, processes=0, seed=0, bad_dir=".",
+                 show_imgs=0, show_imgs_dir=".", out_dtype=None):
         # cutmix: the reference refuses it for detection training
         # (data.cpp:428-432 prints and exits); mosaic+cutmix degrades to
         # plain mosaic with a warning
@@ -95,6 +117,15 @@ class DetectionLoader:
             mixup = 3
         self.paths = list(paths)
         self.bad_dir = bad_dir              # where bad.list is written
+        self.show_imgs = show_imgs          # samples written a batch
+        self.show_imgs_dir = show_imgs_dir
+        self._show_counter = 0
+        if show_imgs:
+            os.makedirs(show_imgs_dir, exist_ok=True)
+        if out_dtype not in (None, torch.bfloat16):
+            raise ValueError(f"out_dtype is None (float32) or bfloat16, "
+                             f"not {out_dtype}")
+        self.out_dtype = out_dtype
         self.w, self.h = w, h
         self.batch = batch
         self.boxes = boxes
@@ -201,6 +232,12 @@ class DetectionLoader:
                                              ls:ls + (w - cx)]
                     blend_truth_mosaic(y[i], truth, w, h, cx, cy, quad,
                                        ls, rs, ts, bs)
+        for i in range(min(self.show_imgs, self.batch)):
+            self._show_counter += 1
+            save_augmented_sample(x[i], y[i], os.path.join(
+                self.show_imgs_dir, f"aug_{self._show_counter:05d}.png"))
+        if self.out_dtype == torch.bfloat16:
+            return bf16_from_f32(x), y
         return x, y
 
     # ------------------------------------------------------------------

@@ -24,14 +24,21 @@ against on the card).
 A conv whose params carry "w_q" (`Network.from_cfg(int8=True)`) runs
 `ops/conv.conv_block_int8`, the int8 GEMM kernel on a CUDA tensor; inside
 a region, a step whose layer carries a calibrated "x_scale" does too.
+`make_forward(region_int8=True)` plans the regions without the stem fold
+and runs them as plain steps: with every region conv quantized
+(`Network.calibrate_int8(region_int8=True)`), layer 0 runs as its own
+int8 conv on the raw input and each region step as an int8 conv, and no
+region kernel launches.
 """
 
 from __future__ import annotations
 
+import contextlib
 import dataclasses
 
 import torch
 import torch.nn.functional as F
+from torch.autograd.profiler import record_function
 from torch.utils.checkpoint import checkpoint
 
 from darknet_tpu_torch.ops import shapes as shapeops
@@ -43,6 +50,20 @@ from darknet_tpu_torch.ops.conv import (antialias_backref_view,
                                         conv_block_int8, precise_matmul)
 from darknet_tpu_torch.ops.pooling import (global_avgpool, maxpool,
                                            maxpool_block)
+from darknet_tpu_torch.utils import debug
+
+_NO_SCOPE = contextlib.nullcontext()
+
+
+def scope(name: str):
+    """A profiler range named after a cfg layer or a step phase (the JAX
+    emitter's `jax.named_scope` names: `L{i:03d}_{kind}`,
+    `L{a:03d}-{b:03d}_region`, `head_delta_{n}`, `optimizer_update`),
+    which `utils/profiler.trace_report` attributes device time to.  A
+    range only while torch.profiler records: serving pays one check."""
+    return (record_function(name) if torch.autograd._profiler_enabled()
+            else _NO_SCOPE)
+
 
 HEAD_KINDS = ("yolo", "gaussian_yolo", "detection", "cost")
 
@@ -125,6 +146,19 @@ def _common(k, l, cur, outs, params):
     return None
 
 
+def _refuse_unservable(layers) -> None:
+    """Layer forms the port refuses when a forward is built, before any
+    work: a legacy [reorg] (reorg_old) needs C >= stride^2 input
+    channels, since darknet's reorg_cpu divides by C // stride^2 (the
+    JAX package serves all-NaN heads there instead)."""
+    for l in layers:
+        if l.kind == "reorg_old" and l.c < l.stride * l.stride:
+            raise ValueError(
+                f"layer {l.index}: [reorg] with stride {l.stride} needs "
+                f"C >= stride^2 = {l.stride * l.stride} input channels, "
+                f"got C = {l.c}")
+
+
 def _liveness(graph) -> set:
     """Indices whose outputs a non-adjacent later layer reads, plus the
     heads and the last layer."""
@@ -193,10 +227,18 @@ def region_conv_indices(graph) -> set:
             if graph.layers[k].kind == "convolutional"}
 
 
+def region_int8_convs(graph) -> set:
+    """The convs region_int8 quantizes: the region convs, less those that
+    feed a head (`darknet_tpu/nn/network.py:185-197`)."""
+    return region_conv_indices(graph) - {
+        l.index - 1 for l in graph.layers
+        if l.kind in ("yolo", "gaussian_yolo", "detection")}
+
+
 def make_forward(graph, *, compute_dtype=None, fuse_regions="hybrid",
                  fused_bn: bool = True, probe_conv_absmax: bool = False,
-                 train: bool = False, train_act_dtype=None,
-                 remat: bool | str = False):
+                 region_int8: bool = False, train: bool = False,
+                 train_act_dtype=None, remat: bool | str = False):
     """Build `forward(params, x) -> {"heads", "raw_heads", "output"}`:
     the activated heads, the head inputs before activation, and the last
     layer's output.  A conv whose params carry "w_q" runs the int8 conv
@@ -205,6 +247,10 @@ def make_forward(graph, *, compute_dtype=None, fuse_regions="hybrid",
     probe_conv_absmax adds "conv_in_absmax": {layer index: max |input|}
     (a device scalar per conv), the int8 calibration probe; it plans no
     region and no stem fold, so every conv is observed.
+
+    region_int8 plans the regions without the stem fold and runs them as
+    plain steps (no region kernel), for params whose region convs all
+    carry "w_q" and "x_scale".
 
     compute_dtype None (or float32) is the f32 parity path; bfloat16 is
     the serving path (convs on the tensor cores, activations stored in
@@ -220,6 +266,7 @@ def make_forward(graph, *, compute_dtype=None, fuse_regions="hybrid",
     from darknet_tpu_torch.ops.fused_region import plan_graph_regions
     from darknet_tpu_torch.ops.stem import stem_pattern
 
+    _refuse_unservable(graph.layers)
     cd = compute_dtype or torch.float32
     live = _liveness(graph)
     layers = graph.layers
@@ -227,61 +274,74 @@ def make_forward(graph, *, compute_dtype=None, fuse_regions="hybrid",
         raise ValueError(f"fuse_regions must be 'hybrid' or 'plain', "
                          f"got {fuse_regions!r}")
     plans = {} if probe_conv_absmax or not fused_bn else plan_graph_regions(
-        graph, stem=stem_pattern(graph) and 0 not in live)
-    runners = {a: region_runner(p, compute_dtype=cd, mode=fuse_regions)
+        graph, stem=(stem_pattern(graph) and 0 not in live
+                     and not region_int8))
+    runners = {a: region_runner(p, compute_dtype=cd,
+                                mode="plain" if region_int8 else fuse_regions)
                for a, p in plans.items()}
+
+    def layer(i, l, cur, outs, absmax, heads, raw_heads, params):
+        k = l.kind
+        aa_backref = _aa_backref_needed(l, i, live)
+        y = _common(k, l, cur, outs, params)
+        if y is not None:
+            cur = y
+        elif k == "convolutional":
+            if probe_conv_absmax:
+                absmax[i] = cur.float().abs().amax()
+            p = params[l.share_index if l.share_index is not None else i]
+            block = conv_block_int8 if "w_q" in p else conv_block
+            cur = block(cur, p, _no_aa(l) if aa_backref else l,
+                        compute_dtype=cd)
+        elif k == "maxpool":
+            cur = maxpool(cur, l) if aa_backref else maxpool_block(cur, l)
+        elif k == "connected":
+            cur, _st = connected_block(cur, params[i], l, compute_dtype=cd)
+            cur = cur.reshape(cur.shape[0], 1, 1, -1)
+        elif k == "batchnorm":
+            cur, _st = batchnorm_block(cur, params[i], l)
+        elif k == "crop":
+            cur = shapeops.crop_layer(cur, l)
+        elif k in ACTIVATE:
+            raw_heads.append(cur)
+            cur = ACTIVATE[k](cur, l)
+            heads.append(cur)
+        elif k in ("empty", "blank", "dropout", "cost"):
+            pass                        # identity at inference
+        else:
+            raise NotImplementedError(f"layer {i}: kind {k!r}")
+        if aa_backref:
+            cur, backref = _aa_split(cur, l)
+            outs[i] = backref
+        elif i in live:
+            outs[i] = cur
+        return cur
 
     def forward(params, x):
         outs: dict = {}
         absmax: dict = {}
         heads: list = []
         raw_heads: list = []
+        check = debug.layer_check()
         cur = x
         skip_until = 0
         for i, l in enumerate(layers):
             if i < skip_until:
                 continue
             if i in runners:
-                cur = runners[i](params, cur)
+                name = f"L{i:03d}-{plans[i].stop:03d}_region"
+                with scope(name):
+                    cur = runners[i](params, cur)
                 skip_until = plans[i].stop + 1
                 if plans[i].stop in live:
                     outs[plans[i].stop] = cur
-                continue
-            k = l.kind
-            aa_backref = _aa_backref_needed(l, i, live)
-            y = _common(k, l, cur, outs, params)
-            if y is not None:
-                cur = y
-            elif k == "convolutional":
-                if probe_conv_absmax:
-                    absmax[i] = cur.float().abs().amax()
-                p = params[l.share_index if l.share_index is not None else i]
-                block = conv_block_int8 if "w_q" in p else conv_block
-                cur = block(cur, p, _no_aa(l) if aa_backref else l,
-                            compute_dtype=cd)
-            elif k == "maxpool":
-                cur = maxpool(cur, l) if aa_backref else maxpool_block(cur, l)
-            elif k == "connected":
-                cur, _st = connected_block(cur, params[i], l,
-                                           compute_dtype=cd)
-                cur = cur.reshape(cur.shape[0], 1, 1, -1)
-            elif k == "batchnorm":
-                cur, _st = batchnorm_block(cur, params[i], l)
-            elif k == "crop":
-                cur = shapeops.crop_layer(cur, l)
-            elif k in ACTIVATE:
-                raw_heads.append(cur)
-                cur = ACTIVATE[k](cur, l)
-                heads.append(cur)
-            elif k in ("empty", "blank", "dropout", "cost"):
-                pass                        # identity at inference
             else:
-                raise NotImplementedError(f"layer {i}: kind {k!r}")
-            if aa_backref:
-                cur, backref = _aa_split(cur, l)
-                outs[i] = backref
-            elif i in live:
-                outs[i] = cur
+                name = f"L{i:03d}_{l.kind}"
+                with scope(name):
+                    cur = layer(i, l, cur, outs, absmax, heads, raw_heads,
+                                params)
+            if check is not None:
+                check(name, cur)
         r = {"heads": heads, "raw_heads": raw_heads, "output": cur}
         if probe_conv_absmax:
             r["conv_in_absmax"] = absmax
@@ -319,6 +379,7 @@ def _make_train_forward(graph, *, compute_dtype=None, train_act_dtype=None,
             f"remat={remat!r}: only False and True are ported (the "
             f"region-only levels have no region in the port's training)")
     layers = graph.layers
+    _refuse_unservable(layers)
     live = _liveness(graph)
     head_feed = {j - 1 for j, l in enumerate(layers) if l.kind in HEAD_KINDS}
 
@@ -331,67 +392,78 @@ def _make_train_forward(graph, *, compute_dtype=None, train_act_dtype=None,
         bn_stats: dict = {}
         heads: list = []
         raw_heads: list = []
+        check = debug.layer_check()
         cur = x
         for i, l in enumerate(layers):
-            k = l.kind
-            aa_backref = _aa_backref_needed(l, i, live)
-            st = None
-            y = _common(k, l, cur, outs, params)
-            if y is not None:
-                cur = y
-            elif k == "convolutional":
-                p = params[l.share_index if l.share_index is not None else i]
-                res_dt = train_act_dtype if i not in head_feed else None
-                l_eff = _no_aa(l) if aa_backref else l
-                if remat:
-                    cur, st = checkpoint(conv, cur, p, l_eff, res_dt,
-                                         use_reentrant=False)
-                else:
-                    cur, st = conv(cur, p, l_eff, res_dt)
-                if aa_backref:
-                    cur, outs[i] = _aa_split(cur, l)
-                if train_act_dtype is not None and i not in head_feed:
-                    cur = cur.to(train_act_dtype)
-            elif k == "maxpool":
-                if aa_backref:
-                    cur, outs[i] = _aa_split(maxpool(cur, l, train=True), l)
-                else:
-                    cur = maxpool_block(cur, l, train=True)
-            elif k == "connected":
-                cur, st = connected_block(cur, params[i], l, train=True,
-                                          compute_dtype=compute_dtype)
-                cur = cur.reshape(cur.shape[0], 1, 1, -1)
-            elif k == "batchnorm":
-                cur, st = batchnorm_block(cur, params[i], l, train=True)
-            elif k == "dropout":
-                if generator is not None:
-                    if l.dropblock:
-                        cur = shapeops.dropblock(
-                            cur, generator, l.probability,
-                            l.dropblock_size_abs, l.dropblock_size_rel)
-                    else:
-                        cur = shapeops.dropout(cur, generator, l.probability)
-            elif k == "crop":
-                cur = shapeops.crop_layer(cur, l, train=True,
-                                          generator=generator)
-            elif k in ACTIVATE:
-                raw_heads.append(cur)
-                cur = ACTIVATE[k](cur, l)
-                heads.append(cur)
-            elif k == "cost":
-                raw_heads.append(cur)
-            elif k in ("empty", "blank"):
-                pass
-            else:
-                raise NotImplementedError(f"layer {i}: kind {k!r}")
-            if st is not None:
-                bn_stats[i] = (st[0].detach(), st[1].detach())
-            if l.stopbackward or l.onlyforward:
-                # BackwardNetwork stops here (network.cpp:179-181)
-                cur = cur.detach()
-            if i in live:
-                outs[i] = outs.get(i, cur) if aa_backref else cur
+            name = f"L{i:03d}_{l.kind}"
+            with scope(name):
+                cur = layer(i, l, cur, outs, bn_stats, heads, raw_heads,
+                            params, generator)
+            if check is not None:
+                check(name, cur)
         return {"heads": heads, "raw_heads": raw_heads,
                 "bn_stats": bn_stats, "output": cur}
+
+    def layer(i, l, cur, outs, bn_stats, heads, raw_heads, params,
+              generator):
+        k = l.kind
+        aa_backref = _aa_backref_needed(l, i, live)
+        st = None
+        y = _common(k, l, cur, outs, params)
+        if y is not None:
+            cur = y
+        elif k == "convolutional":
+            p = params[l.share_index if l.share_index is not None else i]
+            res_dt = train_act_dtype if i not in head_feed else None
+            l_eff = _no_aa(l) if aa_backref else l
+            if remat:
+                cur, st = checkpoint(conv, cur, p, l_eff, res_dt,
+                                     use_reentrant=False)
+            else:
+                cur, st = conv(cur, p, l_eff, res_dt)
+            if aa_backref:
+                cur, outs[i] = _aa_split(cur, l)
+            if train_act_dtype is not None and i not in head_feed:
+                cur = cur.to(train_act_dtype)
+        elif k == "maxpool":
+            if aa_backref:
+                cur, outs[i] = _aa_split(maxpool(cur, l, train=True), l)
+            else:
+                cur = maxpool_block(cur, l, train=True)
+        elif k == "connected":
+            cur, st = connected_block(cur, params[i], l, train=True,
+                                      compute_dtype=compute_dtype)
+            cur = cur.reshape(cur.shape[0], 1, 1, -1)
+        elif k == "batchnorm":
+            cur, st = batchnorm_block(cur, params[i], l, train=True)
+        elif k == "dropout":
+            if generator is not None:
+                if l.dropblock:
+                    cur = shapeops.dropblock(
+                        cur, generator, l.probability,
+                        l.dropblock_size_abs, l.dropblock_size_rel)
+                else:
+                    cur = shapeops.dropout(cur, generator, l.probability)
+        elif k == "crop":
+            cur = shapeops.crop_layer(cur, l, train=True,
+                                      generator=generator)
+        elif k in ACTIVATE:
+            raw_heads.append(cur)
+            cur = ACTIVATE[k](cur, l)
+            heads.append(cur)
+        elif k == "cost":
+            raw_heads.append(cur)
+        elif k in ("empty", "blank"):
+            pass
+        else:
+            raise NotImplementedError(f"layer {i}: kind {k!r}")
+        if st is not None:
+            bn_stats[i] = (st[0].detach(), st[1].detach())
+        if l.stopbackward or l.onlyforward:
+            # BackwardNetwork stops here (network.cpp:179-181)
+            cur = cur.detach()
+        if i in live:
+            outs[i] = outs.get(i, cur) if aa_backref else cur
+        return cur
 
     return forward

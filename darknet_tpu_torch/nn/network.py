@@ -36,7 +36,7 @@ import torch
 from darknet_tpu_torch.config.cfg import patch_cfg_dims
 from darknet_tpu_torch.graph.builder import Graph, build_graph
 from darknet_tpu_torch.nn import params as paramlib
-from darknet_tpu_torch.nn.emit import make_forward
+from darknet_tpu_torch.nn.emit import make_forward, region_int8_convs
 from darknet_tpu_torch.ops import nms as nmslib
 from darknet_tpu_torch.ops import yolo as yoloops
 from darknet_tpu_torch.weights import io as wio
@@ -99,10 +99,12 @@ DECODE = {"yolo": yoloops.yolo_decode,
 class Network:
     def __init__(self, graph: Graph, params: list, *, fused: bool = True,
                  train: bool = False, compute_dtype=None, device="cuda",
-                 seen: int = 0, fuse_regions="hybrid"):
+                 seen: int = 0, fuse_regions="hybrid",
+                 region_int8: bool = False):
         """`params`: the port's torch params (`nn/params.params_to_torch`),
         BN folded unless fused=False.  train=True runs the training
-        forward (BN from the batch statistics)."""
+        forward (BN from the batch statistics).  region_int8: the params'
+        region convs are quantized and calibrated (`calibrate_int8`)."""
         self.graph = graph
         self.net = graph.net
         self.params = params
@@ -112,15 +114,18 @@ class Network:
         self.device = paramlib.resolve_device(device)
         self.seen = seen
         self.fuse_regions = fuse_regions
+        self.region_int8 = region_int8
         self._calib_absmax: dict | None = None
         self._cfg_text: str | None = None
+        # int8 weights of the region convs that region_int8 quantizes
+        self._region_q: dict | None = None
         # uint8 v -> v / 255, the host's correctly rounded f32 quotients
         self._u8_unit = torch.from_numpy(
             np.arange(256, dtype=np.float32) / np.float32(255)).to(
                 self.device)
         self._fwd = make_forward(graph, compute_dtype=compute_dtype,
                                  fuse_regions=fuse_regions, fused_bn=fused,
-                                 train=train)
+                                 region_int8=region_int8, train=train)
         self._heads = graph.heads()
         decoded = [l for l in self._heads if l.kind in DECODE]
         self._nms_kind = decoded[0].nms_kind if decoded else "greedynms"
@@ -136,7 +141,9 @@ class Network:
         fold when not training), move to `device` in the compute dtype.
         clear=True resets `seen`.  int8=True also quantizes the eligible
         convs (`nn/params.quantize_conv_params`) for the int8 path
-        (`ops/conv.conv_block_int8`); it needs folded inference params."""
+        (`ops/conv.conv_block_int8`); it needs folded inference params.
+        It also quantizes the region convs aside, for
+        `calibrate_int8(region_int8=True)`."""
         device = paramlib.resolve_device(device)
         graph = build_graph(cfg, train=train)
         seen = 0
@@ -153,6 +160,8 @@ class Network:
             if train or not fuse:
                 raise ValueError("int8 is an inference mode: it needs "
                                  "train=False and fused BN")
+            region_q = paramlib.quantize_conv_params(
+                graph, params, only=region_int8_convs(graph))
             params = paramlib.quantize_conv_params(graph, params)
         if clear:
             seen = 0
@@ -161,6 +170,10 @@ class Network:
         net = cls(graph, tparams, fused=fuse, train=train,
                   compute_dtype=compute_dtype, device=device, seen=seen,
                   fuse_regions=fuse_regions)
+        if int8:
+            net._region_q = {
+                i: paramlib.int8_weights_to_torch(p, device)
+                for i, p in enumerate(region_q) if "w_q" in p}
         if isinstance(cfg, str) and "\n" in cfg:
             net._cfg_text = cfg
         else:
@@ -188,8 +201,18 @@ class Network:
         arrays, network-sized) and store per-tensor scales, so that
         serving skips the dynamic absmax reduce in front of every
         quantized conv.  A no-op when nothing is quantized.
-        region_int8 (int8 for the region convs without "w_q") is not
-        ported: it raises NotImplementedError."""
+
+        region_int8 also gives int8 to the region convs that have no
+        "w_q" (the JAX package's option, off by default there too).  The
+        port's own definition: each region conv is quantized per output
+        filter over the layer's own HWIO weights (`quantize_conv_params`'
+        rule without its width filter), and the regions are planned
+        without the stem fold, so layer 0 runs as its own int8 conv on
+        the raw input; the int8 integers are the unpacked int8 chain's.
+        The JAX package quantizes the packed weights per packed channel
+        instead, a grid of the TPU's pixel-pair packing.  Every region
+        conv then launches the int8 GEMM, and no region kernel runs.
+        The convs that feed a head stay in floating point."""
         if not any("w_q" in p for p in self.params):
             return
         batches = []
@@ -220,13 +243,24 @@ class Network:
         self._apply_calibration(absmax, region_int8=region_int8)
 
     def _apply_calibration(self, absmax: dict, *, region_int8: bool) -> None:
+        params = self.params
         if region_int8:
-            raise NotImplementedError("region_int8 is not ported yet")
+            if self._region_q is None:
+                raise ValueError("region_int8 needs a network built with "
+                                 "int8=True")
+            params = [dict(p, **self._region_q[i]) if i in self._region_q
+                      else p for i, p in enumerate(params)]
         self._calib_absmax = dict(absmax)
         self.params = paramlib.x_scale_to_torch(
-            paramlib.apply_conv_input_scales(self.params, absmax,
+            paramlib.apply_conv_input_scales(params, absmax,
                                              graph=self.graph),
             self.device)
+        if region_int8 and not self.region_int8:
+            self.region_int8 = True
+            self._fwd = make_forward(
+                self.graph, compute_dtype=self.compute_dtype,
+                fuse_regions=self.fuse_regions, fused_bn=self.fused,
+                region_int8=True)
 
     # ------------------------------------------------------------- input
     def _check_shape(self, x) -> None:
@@ -337,9 +371,11 @@ class Network:
         net = Network(build_graph(cfg, train=self.train), self.params,
                       fused=self.fused, train=self.train,
                       compute_dtype=self.compute_dtype, device=self.device,
-                      seen=self.seen, fuse_regions=self.fuse_regions)
+                      seen=self.seen, fuse_regions=self.fuse_regions,
+                      region_int8=self.region_int8)
         net._cfg_text = cfg
         net._calib_absmax = self._calib_absmax
+        net._region_q = self._region_q
         return net
 
     # ----------------------------------------------------------- serving

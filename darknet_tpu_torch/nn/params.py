@@ -96,14 +96,17 @@ def fuse_conv_batchnorm(graph, params: list) -> list:
 
 
 def quantize_conv_params(graph, params: list, *, min_ch: int = 128,
-                         skip_heads: bool = True) -> list:
+                         skip_heads: bool = True, only=None) -> list:
     """Add int8 weights to eligible convs for the quantized inference path
     (ops/conv.conv_block_int8): per-output-channel symmetric absmax
     scales, "w_q" int8 HWIO and "w_scale" (n,) f32.
 
     Call AFTER fuse_conv_batchnorm.  Eligible: groups==1, dilation==1, no
     weight sharing, min(c, n) >= min_ch, and (when skip_heads) not a
-    conv feeding a detection head."""
+    conv feeding a detection head.  `only` (a set of layer indices)
+    quantizes those convs instead, whatever their width: the region convs
+    of region_int8 (`Network.calibrate_int8`), by the same per-filter
+    rule over the layer's own HWIO weights."""
     head_inputs = set()
     if skip_heads:
         for l in graph.layers:
@@ -114,8 +117,9 @@ def quantize_conv_params(graph, params: list, *, min_ch: int = 128,
         p = dict(p)
         if (l.kind == "convolutional" and l.groups == 1 and l.dilation == 1
                 and l.share_index is None and "w" in p
-                and min(l.c, l.n) >= min_ch
-                and l.index not in head_inputs):
+                and (l.index in only if only is not None
+                     else min(l.c, l.n) >= min_ch
+                     and l.index not in head_inputs)):
             w = np.asarray(p["w"], dtype=np.float32)
             absmax = np.maximum(np.abs(w).reshape(-1, w.shape[-1]).max(axis=0),
                                 1e-8)
@@ -191,6 +195,16 @@ def x_scale_to_torch(params: list, device) -> list:
                 device=device)
         out.append(p)
     return out
+
+
+def int8_weights_to_torch(p: dict, device) -> dict:
+    """A quantized conv's "w_q" as int8 (n, kh*kw*c), K ordered (kh, kw,
+    c), and its "w_scale" (n,) f32, on `device`."""
+    w_q = np.asarray(p["w_q"], np.int8)
+    return {"w_q": torch.from_numpy(np.ascontiguousarray(
+                w_q.reshape(-1, w_q.shape[-1]).T)).to(device),
+            "w_scale": torch.from_numpy(
+                np.asarray(p["w_scale"], np.float32).copy()).to(device)}
 
 
 def resolve_device(device) -> torch.device:
@@ -302,11 +316,7 @@ def params_to_torch(graph, np_params: list, device="cuda",
                     q[k] = torch.from_numpy(
                         np.asarray(p[k], np.float32).copy()).to(device)
             if "w_q" in p:
-                w_q = np.asarray(p["w_q"], np.int8)
-                q["w_q"] = torch.from_numpy(np.ascontiguousarray(
-                    w_q.reshape(-1, w_q.shape[-1]).T)).to(device)
-                q["w_scale"] = torch.from_numpy(
-                    np.asarray(p["w_scale"], np.float32).copy()).to(device)
+                q.update(int8_weights_to_torch(p, device))
             if "x_scale" in p:
                 q["x_scale"] = p["x_scale"]
         elif l.kind in PARAM_KINDS:

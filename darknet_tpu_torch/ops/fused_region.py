@@ -447,10 +447,11 @@ def run_steps_plain(steps, slots: dict, weights, biases, compute_dtype,
     in bf16 the weights may be their f32 copies, see `ops/conv.conv2d_raw`).
 
     With `params` (the layer list), a conv step whose layer carries a
-    calibrated "x_scale" and its "w_scale" runs the int8 conv
-    (`ops/conv.conv2d_int8`), as the reference's packed int8 step does
-    (`_run_steps_xla`, bit-exact with the unpacked int8 chain there); a
-    step without "x_scale" stays in floating point."""
+    calibrated "x_scale" and its "w_q" runs the int8 conv
+    (`ops/conv.conv2d_int8`: the int8 GEMM kernel for a CUDA tensor), the
+    same integers as the unpacked int8 chain (`conv_block_int8`); a step
+    without "x_scale" stays in floating point.  Under region_int8 every
+    conv step of a region carries both (`Network.calibrate_int8`)."""
     cd = compute_dtype
     wi = 0
     for step in steps:
@@ -466,9 +467,9 @@ def run_steps_plain(steps, slots: dict, weights, biases, compute_dtype,
         if "x_scale" in p_l:
             if ("w_q" not in p_l or p_l["w_q"].shape[1]
                     != step.kh * step.kw * step.c_tot):
-                # no w_q, or a stem step whose packed geometry is not the
-                # layer's (region_int8 is not ported)
-                raise NotImplementedError(
+                # no w_q, or a stem step, whose packed geometry is not the
+                # layer's (region_int8 plans no stem)
+                raise ValueError(
                     f"layer {step.li}: an int8 region step needs the "
                     f"layer's own w_q over the step's window")
             out_hw = ((src.shape[1] - 1) // step.sy + 1,

@@ -87,7 +87,8 @@ def _reorg_perm_chw(dims, stride, forward):
         perm[np.broadcast_to(out_index, in_index.shape).ravel()] = \
             np.broadcast_to(in_index, out_index.shape).ravel()
         return perm
-    return np.ascontiguousarray(np.broadcast_to(out_index, (C, H, W)).ravel())
+    # a writable copy: torch.from_numpy warns on a read-only view
+    return np.broadcast_to(out_index, (C, H, W)).ravel().copy()
 
 
 def _chw_permuted(x, perm, out_shape):

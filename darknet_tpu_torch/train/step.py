@@ -18,13 +18,19 @@ micro-batches; one optimizer update follows.  The batch statistics of
 each micro-batch feed the rolling mean/var 0.9/0.1 in sequence
 (batchnorm_layer.cpp:221-224), folded into one update applied after the
 optimizer.
+
+The deltas and the update run in profiler ranges named as the JAX step's
+scopes (`head_delta_{n}`, `optimizer_update`); under
+`utils/debug.debug_nans` the backward runs with anomaly detection, and
+under `debug_sync_mode` the card is synchronised after the backward and
+the update as well as after every layer of the forward.
 """
 
 from __future__ import annotations
 
 import torch
 
-from darknet_tpu_torch.nn.emit import HEAD_KINDS, make_forward
+from darknet_tpu_torch.nn.emit import HEAD_KINDS, make_forward, scope
 from darknet_tpu_torch.ops.conv import precise
 from darknet_tpu_torch.ops.detection_v1 import (cost_layer,
                                                 detection_head_delta,
@@ -33,6 +39,7 @@ from darknet_tpu_torch.train import optimizer as opt
 from darknet_tpu_torch.train.gaussian_yolo_loss import \
     gaussian_yolo_head_delta
 from darknet_tpu_torch.train.yolo_loss import yolo_head_delta
+from darknet_tpu_torch.utils import debug
 
 
 def detection_delta(raw, truths, l, net_w, net_h):
@@ -111,19 +118,24 @@ def make_train_step(graph, *, compute_dtype=None, remat: bool | str = False,
         its ascent direction.  Returns (cost, metrics per head, stats)."""
         r = fwd(params, x, generator)
         costs, metrics, roots, cts = [], [], [], []
-        for raw, l in zip(r["raw_heads"], heads):
-            d, c, m = HEAD_DELTA[l.kind](raw.detach().float(), truths, l,
-                                        net.w, net.h)
+        for hi, (raw, l) in enumerate(zip(r["raw_heads"], heads)):
+            with scope(f"head_delta_{hi}"):
+                d, c, m = HEAD_DELTA[l.kind](raw.detach().float(), truths, l,
+                                            net.w, net.h)
             costs.append(c)
             metrics.append(m)
             if raw.requires_grad:
                 roots.append(raw)
                 cts.append(d.to(raw.dtype) * loss_scale)
+        cost = torch.stack(costs).sum()
         if roots:
             # the backward's f32 convs run without TF32, as the forward's
-            with precise(compute_dtype or torch.float32):
+            with precise(compute_dtype or torch.float32), debug.anomaly():
                 torch.autograd.backward(roots, grad_tensors=cts)
-        return torch.stack(costs).sum(), metrics, r["bn_stats"]
+            check = debug.layer_check()
+            if check is not None:
+                check("backward", cost)
+        return cost, metrics, r["bn_stats"]
 
     def step(params, opt_state, x, truths, lr, generator=None):
         for p in params:
@@ -151,14 +163,18 @@ def make_train_step(graph, *, compute_dtype=None, remat: bool | str = False,
                     g[k] = v.grad / loss_scale if loss_scale != 1.0 else v.grad
             grads.append(g)
 
-        if net.adam:
-            opt.adam_update(graph, params, grads, opt_state, lr=lr, B1=net.B1,
-                            B2=net.B2, eps=net.eps, decay=net.decay,
-                            batch=net.optimizer_batch)
-        else:
-            opt.sgd_update(graph, params, grads, opt_state, lr=lr,
-                           momentum=net.momentum, decay=net.decay,
-                           batch=net.optimizer_batch)
+        with scope("optimizer_update"):
+            if net.adam:
+                opt.adam_update(graph, params, grads, opt_state, lr=lr,
+                                B1=net.B1, B2=net.B2, eps=net.eps,
+                                decay=net.decay, batch=net.optimizer_batch)
+            else:
+                opt.sgd_update(graph, params, grads, opt_state, lr=lr,
+                               momentum=net.momentum, decay=net.decay,
+                               batch=net.optimizer_batch)
+        check = debug.layer_check()
+        if check is not None:
+            check("optimizer_update", cost)
         for p in params:
             for v in p.values():
                 v.grad = None

@@ -32,6 +32,13 @@ The device is the CUDA card unless the caller passes device="cpu"
 JAX package's accelerator defaults: bf16 compute, act16 and metric_lag 3;
 on the CPU f32, no act16 and metric_lag 0.
 
+Batches go up through pinned staging buffers (`PinnedUploader`), and in
+bf16 when the step computes in bf16 and layer 0 is a conv
+(`_loader_out_dtype`): the conv casts its input to the compute dtype
+first, so the host's cast is the same bits and the copy half the bytes.
+`show_imgs=N` writes N augmented samples a batch to save_dir
+(`data/augment.save_augmented_sample`).
+
 The loss/mAP chart is drawn to `<save_dir>/chart.png` every 10th
 iteration, at each mAP and at the end (`apps/visualize.draw_loss_chart`).
 Not ported, each refused or left out: a mesh, and the sharded
@@ -55,12 +62,51 @@ from darknet_tpu_torch.train.step import init_opt_state, make_train_step
 from darknet_tpu_torch.weights import io as wio
 
 
+class PinnedUploader:
+    """Host batches to `device` through two pinned staging buffers used in
+    turn, so that a non_blocking copy really runs asynchronously (a copy
+    from pageable memory waits for the host).  A buffer is refilled only
+    once the copy that last read it has finished: an event recorded
+    after each copy is waited on first.  The buffers follow the batch's
+    shape and dtype (the multi-scale bucket) and are made anew when it
+    changes.  On the CPU nothing is pinned: the batch passes through."""
+
+    def __init__(self, device):
+        self.device = torch.device(device)
+        self._slots: list = []           # [buffer, event after its copy]
+        self._turn = 0
+        self.bytes = 0                   # bytes uploaded so far
+
+    def __call__(self, batch) -> torch.Tensor:
+        t = torch.as_tensor(batch)
+        self.bytes += t.numel() * t.element_size()
+        if self.device.type != "cuda":
+            return t.to(self.device)
+        if not self._slots or self._slots[0][0].shape != t.shape or \
+                self._slots[0][0].dtype != t.dtype:
+            for _buf, ev in self._slots:
+                if ev is not None:
+                    ev.synchronize()
+            self._slots = [[torch.empty(t.shape, dtype=t.dtype,
+                                        pin_memory=True), None]
+                           for _ in range(2)]
+        slot = self._slots[self._turn]
+        self._turn ^= 1
+        if slot[1] is not None:
+            slot[1].synchronize()
+        slot[0].copy_(t)
+        out = slot[0].to(self.device, non_blocking=True)
+        slot[1] = torch.cuda.Event()
+        slot[1].record()
+        return out
+
+
 class DetectorTrainer:
     def __init__(self, cfg, train_paths, *, weights=None, classes=80,
                  clear=False, mesh=None, compute_dtype=None, seed=0,
                  calc_map=False, val_paths=None, save_dir="backup",
                  save_name="model", loader_threads=6, loader_processes=-1,
-                 log=print, metrics_path=None, remat=False,
+                 log=print, metrics_path=None, show_imgs=0, remat=False,
                  act16=None, resume=False,
                  metric_lag=None, device="cuda"):
         if mesh is not None:
@@ -136,7 +182,10 @@ class DetectorTrainer:
             gaussian_noise=self.net.gaussian_noise, mixup=self.net.mixup,
             threads=loader_threads, processes=self._auto_procs(
                 loader_processes, loader_threads), seed=seed,
-            bad_dir=save_dir)
+            bad_dir=save_dir, show_imgs=show_imgs, show_imgs_dir=save_dir,
+            out_dtype=self._loader_out_dtype())
+        self._upload_x = PinnedUploader(self.device)
+        self._upload_y = PinnedUploader(self.device)
 
         self._step_cache: dict = {}
         self._graph_cache: dict = {}
@@ -160,6 +209,18 @@ class DetectorTrainer:
             return max(loader_processes, 0)
         ncpu = os.cpu_count() or 1
         return 0 if ncpu <= 2 else min(loader_threads, ncpu - 1)
+
+    def _loader_out_dtype(self):
+        """bf16 batches when the step computes in bf16 and the graph opens
+        with a conv (`darknet_tpu/train/trainer.py:202-216`): the conv
+        casts its input to the compute dtype before anything reads it
+        (`ops/conv._conv_block_train`), so the host's cast gives the same
+        bits.  A graph that opens with [crop] (YOLOv1) computes on the
+        input first and keeps f32."""
+        if self.compute_dtype == torch.bfloat16 and \
+                self.graph.layers[0].kind == "convolutional":
+            return torch.bfloat16
+        return None
 
     @property
     def curr_iter(self) -> int:
@@ -294,8 +355,7 @@ class DetectorTrainer:
                 lr = get_lr(net, self.curr_iter + 1,
                             rand01=float(np.random.default_rng(
                                 self.curr_iter + 1).uniform()))
-                xt = torch.from_numpy(x).to(self.device, non_blocking=True)
-                yt = torch.from_numpy(y).to(self.device, non_blocking=True)
+                xt, yt = self._upload_x(x), self._upload_y(y)
                 self.params, self.opt_state, _cost, metrics = step(
                     self.params, self.opt_state, xt, yt, lr,
                     self._step_generator())

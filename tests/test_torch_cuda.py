@@ -24,6 +24,13 @@ Training: two f32 steps (accum 2) of chip_smoke.py's
 narrow CSP + SPP graph on the card against the CPU (updates and rolling
 statistics within 1e-4 of the largest change after one step, 2e-3
 after two), and DetectorTrainer on its card defaults (bf16, act16).
+region_int8 at 128 px: 107 int8 launches a request, none of the region
+kernel, each bitwise equal to the plain version, and the triple equal to
+the plain path's.  The debug modes leave a request's triple unchanged,
+bitwise, and name the layer of a planted NaN in serving and in a step.
+A bf16 step from a bf16 batch uploaded through the pinned staging
+buffers equals the step from the f32 batch, bitwise (deterministic
+cuDNN), at half the bytes.
 Gaussian YOLOv3 at 64 px (f32, TF32 off): one region launch a request,
 the reference-order decode (boxes, objectness, scaled class scores and
 the sigmas) on the card within rtol 1e-4 / atol 1e-5 of the CPU's and
@@ -673,3 +680,125 @@ def test_rare_int8_antialiased_conv_on_card(cuda, monkeypatch):
     a, kw, y = recs[0]
     assert torch.equal(y, tqm.int8_conv_plain(*a, **kw))
     assert np.isfinite(out).all()
+
+
+@pytest.mark.cuda
+def test_region_int8_on_card(cuda, monkeypatch):
+    """region_int8 on yolov4 at 128 px, b=2: 107 int8 launches a request
+    and no region launch; every launch bitwise equal to the plain version
+    on its operands; the triple equal to the plain path's (every int8
+    conv through its plain version on the card)."""
+    with warnings.catch_warnings():
+        warnings.simplefilter("ignore")
+        net = Network.from_cfg(model_zoo.yolov4_cfg(128, 128), seed=0,
+                               int8=True, compute_dtype=torch.bfloat16,
+                               device=cuda)
+    x = np.random.default_rng(3).uniform(0, 1, (2, 128, 128, 3)).astype(
+        np.float32)
+    net.calibrate_int8([x[0]], region_int8=True)
+    recs = []
+
+    def record(x_q, w_q, ws, bias, xs, **kw):
+        out = tqm.int8_conv(x_q, w_q, ws, bias, xs, **kw)
+        recs.append(((x_q, w_q, ws, bias, xs), kw, out))
+        return out
+
+    monkeypatch.setattr(tconv, "int8_conv", record)
+    q0, r0 = tqm.launches, cfr.launches
+    got = net.submit_detect_device(x, thresh=0.1)
+    torch.cuda.synchronize()
+    assert (tqm.launches - q0, cfr.launches - r0) == (107, 0)
+    assert len(recs) == 107
+    for ops, kw, out in recs:
+        assert torch.equal(out, tqm.int8_conv_plain(*ops, **kw))
+    monkeypatch.setattr(tconv, "int8_conv", tqm.int8_conv_plain)
+    want = net.submit_detect_device(x, thresh=0.1)
+    for a, b in zip(got, want):
+        assert torch.equal(a, b)
+
+
+@pytest.mark.cuda
+def test_debug_modes_on_card(cuda):
+    """debug_sync_mode and debug_nans on the card: the same triple as
+    without; a NaN planted in layer 25's weights raises
+    FloatingPointError naming the layer, in serving and in a training
+    step of the narrow CSP graph (layer 2)."""
+    from darknet_tpu_torch.utils import debug
+
+    with warnings.catch_warnings():
+        warnings.simplefilter("ignore")
+        net = Network.from_cfg(model_zoo.yolov4_cfg(128, 128), seed=0,
+                               compute_dtype=torch.bfloat16, device=cuda)
+    x = np.random.default_rng(4).uniform(0, 1, (2, 128, 128, 3)).astype(
+        np.float32)
+    want = net.submit_detect_device(x)
+    with debug.debug_sync_mode(), debug.debug_nans():
+        got = net.submit_detect_device(x)
+    for a, b in zip(got, want):
+        assert torch.equal(a, b)
+    net.params = [dict(p) for p in net.params]
+    w = net.params[25]["w"].clone()
+    w[0, 0, 0, 0] = float("nan")
+    net.params[25]["w"] = w
+    with debug.debug_sync_mode(), debug.debug_nans():
+        with pytest.raises(FloatingPointError, match="L025_convolutional"):
+            net.submit_detect_device(x)
+
+    from darknet_tpu_torch.train.step import init_opt_state, make_train_step
+
+    cs = chip_smoke()
+    g = cs.quiet_graph(cs.TRAIN_CSP_CFG, train=True)
+    p0 = tparams.init_params(g, seed=0)
+    p0[2]["w"][0, 0, 0, 0] = np.nan
+    params = tparams.train_params_to_torch(g, p0, cuda)
+    bx, by = cs.train_batch(g, 4, seed=1)
+    step = make_train_step(g)
+    with debug.debug_sync_mode(), debug.debug_nans():
+        with pytest.raises(FloatingPointError, match="L002_convolutional"):
+            step(params, init_opt_state(g, params), torch.from_numpy(bx).to(
+                cuda), torch.from_numpy(by).to(cuda), 1e-3)
+
+
+@pytest.mark.cuda
+def test_pinned_bf16_upload_step_is_bitwise(cuda):
+    """The narrow CSP graph's bf16 act16 step (accum 2) from the f32 batch
+    and from its bf16 cast uploaded through pinned staging buffers: equal
+    params and momentum, bitwise (deterministic cuDNN); the staging
+    buffers are pinned and the bf16 upload is half the bytes."""
+    from darknet_tpu_torch.data.loader import bf16_from_f32
+    from darknet_tpu_torch.train.step import init_opt_state, make_train_step
+    from darknet_tpu_torch.train.trainer import PinnedUploader
+
+    cs = chip_smoke()
+    g = cs.quiet_graph(cs.TRAIN_CSP_CFG.replace("subdivisions=1",
+                                                "subdivisions=2"), train=True)
+    p0 = tparams.init_params(g, seed=0)
+    bx, by = cs.train_batch(g, 4, seed=1)
+    step = make_train_step(g, compute_dtype=torch.bfloat16, accum=2,
+                           train_act_dtype=torch.bfloat16)
+    out, sent = [], []
+    prev = (torch.backends.cudnn.deterministic,
+            torch.are_deterministic_algorithms_enabled())
+    torch.backends.cudnn.deterministic = True
+    torch.use_deterministic_algorithms(True, warn_only=True)
+    try:
+        for batch in (bx, bf16_from_f32(bx)):
+            ux, uy = PinnedUploader(cuda), PinnedUploader(cuda)
+            xt, yt = ux(batch), uy(by)
+            assert ux._slots[0][0].is_pinned() and xt.dtype == (
+                torch.float32 if isinstance(batch, np.ndarray)
+                else torch.bfloat16)
+            sent.append(ux.bytes)
+            params = tparams.train_params_to_torch(g, p0, cuda)
+            opt = init_opt_state(g, params)
+            params, opt, cost, _m = step(params, opt, xt, yt, 1e-3)
+            out.append((params, opt["u"], float(cost)))
+    finally:
+        torch.backends.cudnn.deterministic = prev[0]
+        torch.use_deterministic_algorithms(prev[1])
+    (pa, ua, ca), (pb, ub, cb) = out
+    assert ca == cb
+    for a, b in zip(pa + ua, pb + ub):
+        for k in a:
+            assert torch.equal(a[k], b[k]), k
+    assert sent[1] * 2 == sent[0] == bx.nbytes

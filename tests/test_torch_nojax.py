@@ -13,7 +13,10 @@ with tracking, and `-mode image` on a PNG; a fifth, with jax, jaxlib and
 training step of it; a sixth, with the same three blocked, serves
 chip_smoke.py's narrow YOLOv1 (heads, the host path's empty lists, the
 device path's ValueError, and the rare-kind cfgs) and steps it, without
-and with a generator; and no source of the port (`eval/` and `apps/`
+and with a generator; a seventh, with the same three blocked, imports
+`utils/debug`, `utils/profiler` and `apps/bench`, serves a yolov4-64
+request with region_int8 (107 quantized convs, no stem, no region kernel)
+under `debug_nans` and profiles it per layer; and no source of the port (`eval/` and `apps/`
 included), nor the chip scripts (chip_smoke.py, chip_int8_shapes.py,
 chip_region_tiles.py), imports any of the three."""
 
@@ -360,6 +363,48 @@ iou_loss=ciou
 """
 
 
+BLOCKED_TOOLS = r"""
+import sys
+
+class Block:
+    def find_spec(self, name, path=None, target=None):
+        if name.split(".")[0] in ("jax", "jaxlib", "darknet_tpu"):
+            raise ImportError(f"blocked: {name}")
+        return None
+
+sys.meta_path.insert(0, Block())
+import warnings
+import numpy as np
+import torch
+torch.set_num_threads(2)
+from darknet_tpu_torch import Network, model_zoo
+from darknet_tpu_torch.apps import bench
+from darknet_tpu_torch.utils import debug, profiler
+
+with warnings.catch_warnings():
+    warnings.simplefilter("ignore")
+    net = Network.from_cfg(model_zoo.yolov4_cfg(64, 64), seed=0, int8=True,
+                           device="cpu")
+x = np.random.default_rng(0).uniform(0, 1, (2, 64, 64, 3)).astype(
+    np.float32)
+net.calibrate_int8([x], region_int8=True)
+assert sum("x_scale" in p for p in net.params) == 107
+assert [p.stem for p in net._fwd.region_plans.values()] == [False]
+with debug.debug_sync_mode(), debug.debug_nans():
+    tb, ov, probs = net.submit_detect_device(x, thresh=0.1)
+assert tb.shape == (2, 252, 4) and torch.isfinite(tb).all()
+rows = profiler.trace_report(lambda p, a: net._fwd(p, a)["output"],
+                             net.params, torch.from_numpy(x), iters=1,
+                             graph=net.graph, log=lambda s: None)
+assert "L000_convolutional" in {r[0] for r in rows}
+assert callable(bench.run)
+bad = [m for m in sys.modules
+       if m.split(".")[0] in ("jax", "jaxlib", "darknet_tpu")]
+assert not bad, bad
+print("TOOLS", len(rows))
+"""
+
+
 def run_blocked(script, *args):
     env = dict(os.environ)
     env["PYTHONPATH"] = os.pathsep.join(
@@ -400,6 +445,10 @@ def test_port_serves_and_trains_gaussian_with_jax_blocked():
 
 def test_port_serves_and_trains_yolov1_with_jax_blocked():
     assert "YOLOV1" in run_blocked(BLOCKED_V1)
+
+
+def test_tools_and_region_int8_with_jax_blocked():
+    assert "TOOLS" in run_blocked(BLOCKED_TOOLS)
 
 
 @pytest.mark.parametrize("path", sorted(

@@ -317,6 +317,68 @@ def test_reorg(op, reverse):
     np.testing.assert_array_equal(got.numpy(), np.asarray(want))
 
 
+@pytest.mark.parametrize("c", [2, 3, 4, 5, 6, 7, 8, 12])
+def test_reorg_old_channels(c):
+    """A legacy [reorg] at stride 2 needs C >= 4 input channels, because
+    darknet's reorg_cpu divides by C // stride^2.  Below that the port
+    refuses the cfg when the forward is built, naming the layer, where the
+    JAX package serves NaN (`jnp.take` fills the out-of-range gathers: a
+    standing deviation); from 4 up both give the same output, bitwise."""
+    cfg = _net(c=c) + "[reorg]\nstride=2\n"
+    jg, tg = _quiet(jbuild, cfg), _quiet(tbuild, cfg)
+    x = np.random.default_rng(c).normal(size=(2, 16, 12, c)).astype(
+        np.float32)
+    want = np.asarray(jemit.make_forward(jg, fused_bn=True)(
+        [{}], jnp.asarray(x))["output"])
+    if c < 4:
+        with pytest.raises(ValueError, match=r"layer 0: \[reorg\] .* C >= "
+                           r"stride\^2 = 4 .* got C = " + str(c)):
+            temit.make_forward(tg)
+        assert np.isnan(want).any()
+        return
+    got = temit.make_forward(tg)([{}], _t(x))["output"]
+    np.testing.assert_array_equal(got.numpy(), want)
+
+
+# the fuzz seeds whose [reorg] (stride 2) reads 2 channels
+FUZZ_REORG_FEW = [("sq", 415), ("rect", 415), ("sq", 1616), ("rect", 1616),
+                  ("sq", 2114)]
+
+
+@pytest.mark.parametrize("shape,seed", FUZZ_REORG_FEW,
+                         ids=[f"{a}{s}" for a, s in FUZZ_REORG_FEW])
+def test_fuzz_reorg_few_channels_refused(tmp_path, shape, seed):
+    """The fuzz cfgs with such a [reorg]: the port's Network raises the
+    ValueError before any work; the JAX package's heads are all NaN."""
+    size, width = (64, None) if shape == "sq" else (48, 64)
+    cfg = random_cfg(seed, size=size, width=width)
+    path = str(tmp_path / "m.weights")
+    with warnings.catch_warnings():
+        warnings.simplefilter("ignore")
+        JNetwork.from_cfg(cfg, train=True, fuse=False,
+                          seed=11).save_weights(path)
+        jn = JNetwork.from_cfg(cfg, weights=path)
+        x = np.random.default_rng(seed).uniform(
+            0, 1, (1, size, width or size, 3)).astype(np.float32)
+        jh, _jd = jn.forward_heads(x)
+    assert all(np.isnan(np.asarray(h)).all() for h in jh)
+    with pytest.raises(ValueError, match=r"layer \d+: \[reorg\] .* got C "
+                       r"= 2"):
+        Network.from_cfg(cfg, weights=path, device="cpu")
+
+
+def test_reorg_old_no_user_warning():
+    """reorg_old's gather table is a writable array: torch.from_numpy
+    warns on a read-only one, and no UserWarning may come out."""
+    tshapes._reorg_perm_chw.cache_clear()
+    x = _t(np.random.default_rng(0).normal(size=(1, 8, 8, 8)).astype(
+        np.float32))
+    with warnings.catch_warnings():
+        warnings.simplefilter("error", UserWarning)
+        tshapes.reorg_old(x, 2, False)
+        tshapes.reorg_old(x, 2, True)
+
+
 @pytest.mark.parametrize("scale_wh", [False, True])
 def test_scale_channels(scale_wh):
     rng = np.random.default_rng(int(scale_wh))
@@ -594,6 +656,49 @@ def test_fuzz_cfg_serves_as_jax(tmp_path, shape, seed):
     jobj, tobj = np.asarray(jd[1]), td[1].numpy()
     _close(tobj, jobj)
     assert int((tobj[0] > 0.2).sum()) == int((jobj[0] > 0.2).sum())
+
+
+# bf16 heads against the JAX package's, as a share of each head's largest
+# |value|: measured at most 1.52e-2 over FUZZ_SERVE (median 1.13e-2; one
+# bf16 ulp is 2^-7 = 7.8e-3)
+FUZZ_BF16_TOL = 2.0e-2
+
+
+@pytest.mark.parametrize("shape,seed", FUZZ_SERVE,
+                         ids=[f"{a}{s}" for a, s in FUZZ_SERVE])
+def test_fuzz_cfg_serves_bf16_as_jax(tmp_path, shape, seed):
+    """The bf16 twin of test_fuzz_cfg_serves_as_jax: every head against
+    the JAX package's bf16 heads within FUZZ_BF16_TOL of the head's
+    largest |value|, and the decoded objectness within 2^-8 (one bf16 ulp
+    below 1; measured at most 2^-8).  The port rounds each activation
+    once where the JAX package rounds at every bf16 op (ROADMAP C, "bf16
+    activations round once"); through these chains that moves a head by
+    1-2 ulps of its scale, and the tolerance fails if it grows past 2.6."""
+    size, width = (64, None) if shape == "sq" else (48, 64)
+    cfg = random_cfg(seed, size=size, width=width)
+    path = str(tmp_path / "m.weights")
+    with warnings.catch_warnings():
+        warnings.simplefilter("ignore")
+        JNetwork.from_cfg(cfg, train=True, fuse=False,
+                          seed=11).save_weights(path)
+        jn = JNetwork.from_cfg(cfg, weights=path,
+                               compute_dtype=jnp.bfloat16)
+        tn = Network.from_cfg(cfg, weights=path, device="cpu",
+                              compute_dtype=torch.bfloat16)
+    x = np.random.default_rng(seed).uniform(
+        0, 1, (1, size, width or size, 3)).astype(np.float32)
+    jh, jd = jn.forward_heads(x)
+    th, td = tn.forward_heads(x)
+    assert len(th) == len(jh) > 0
+    for a, b in zip(th, jh):
+        b = np.asarray(b, np.float32)
+        assert a.shape == b.shape
+        share = float(np.abs(a - b).max()) / max(float(np.abs(b).max()),
+                                                 1e-30)
+        assert share <= FUZZ_BF16_TOL, share
+    np.testing.assert_allclose(td[1].float().numpy(),
+                               np.asarray(jd[1], np.float32), rtol=0,
+                               atol=2.0 ** -8)
 
 
 KINKED = ("leaky", "relu", "relie", "ramp", "relu6")
