@@ -5,7 +5,9 @@ validate it and the rest of the yolo zoo, stream video through the CLI,
 serve, resize, train and validate Gaussian YOLOv3, serve and train
 YOLOv1 and the rare layer kinds, run the CLI's bench, per-layer
 profile, debug and augmentation-sample flags, serve region_int8, train
-from pinned bf16 uploads, and report.
+from pinned bf16 uploads, export the serving program and serve it from
+another process, run the C ABI twin and the walkthrough twins, and
+report.
 
     python3 chip_smoke.py
 
@@ -203,11 +205,33 @@ Phases, each of which fails the run (non-zero exit) on any error:
          and the pinned copies a trace of the uploads keeps (phase 8
          gives the end-to-end rate);
      (f) `-mode train -show_imgs` on a narrow cfg: three PNGs a batch.
-     The kernels line gives each path's launches (`launches_by_path`).
+ 14. the serving artifact, the C ABI twin and the walkthrough twins
+     (`--only export`; its own timing line), yolov4-608 at b=8 on probe
+     weights whose threshold .25 sits in a gap of the bf16 heads' logits:
+     (a) bf16: Network.export_serving, its seconds and bytes; the
+         artifact reloaded here serves eager submit_detect_device's
+         triple bitwise; a child process that imports only
+         darknet_tpu_torch loads it and serves the same frames: 1 region
+         and 0 int8 launches a request (its own counters), kept sets
+         equal to eager's once slots are matched by box, every value
+         within one bf16 ulp of its part's scale;
+     (b) calibrated int8: the same, with 1 region and 91 int8 launches a
+         request, and 1 region node and 91 int8_conv nodes in the
+         exported graph;
+     (c) the artifact's img/s against eager's in 3 windows of 20
+         requests each way, in turns, one request each way in a trace,
+         and the host time of one torch.ops int8_conv call against its
+         binding's;
+     (d) the C ABI twin built with gcc and native/capi/demo.c linked
+         against it on the card (DTPU_DEVICE=cuda), the fixture
+         yolov3-tiny cfg: test_capi's lines;
+     (e) the walkthrough twins 01-04 on the card at their test sizes.
+     The kernels line gives the children's launches
+     (`phase14_export_bf16_child`, `phase14_export_int8_child`).
 
 `python3 chip_smoke.py --only video` (or `--only gaussian`, `--only v1`,
-`--only cli`) builds the kernels and runs phase 10 (11, 12, 13) alone
-(its last line is then not the contract's).
+`--only cli`, `--only export`) builds the kernels and runs phase 10 (11,
+12, 13, 14) alone (its last line is then not the contract's).
 
 Weights are random (numpy, seed 0); the training images are drawn from a
 seed into a temporary directory; no file outside the checkout is read.
@@ -1419,7 +1443,7 @@ def phase_serve(card):
         u_ms2 = cuda_ms(lambda: unfused_cudnn(sub, x, wc, bc))
         p_ms2, k_ms2 = cuda_ms(plain), cuda_ms(kernel)
         prof_ms, n_prof = profiled_ms(kernel, "region_tc_kernel")
-        fwd_ms = cuda_ms(lambda: net._fwd(net.params, x), iters=5)
+        fwd_ms = cuda_ms(lambda: net._fwd(net.forward_params, x), iters=5)
         out = kernel()
         err, scale, share, ok = held_to_plain(out, plain(), TOL_BF16)
         u_err = float((unfused_cudnn(sub, x, wc, bc).float()
@@ -3419,7 +3443,7 @@ def v1_serve(card):
     del nets
     x = torch.from_numpy(frame).to(DEVICE)
     with torch.inference_mode():
-        fwd_ms = cuda_ms(lambda: net._fwd(net.params, x), iters=5)
+        fwd_ms = cuda_ms(lambda: net._fwd(net.forward_params, x), iters=5)
     trace_summary(lambda: v1_request(net, frame), "yolov1 bf16 request", card)
     img_s, spread, rates = serve_rate(
         net, frame, request=lambda: v1_request(net, frame))
@@ -4173,13 +4197,435 @@ def cli_phase(card, root):
     return out
 
 
+# phase 14: the serving artifact (Network.export_serving) of yolov4-608
+# at b=8, loaded in a child process that imports only darknet_tpu_torch;
+# the rates of the artifact against eager serving (3 windows of 20
+# requests each way, interleaved), the op dispatch's host cost, the C ABI
+# twin and the walkthrough twins at their test sizes
+EXPORT_RATE = dict(warmup=2, windows=1, requests=20)
+EXPORT_ROUNDS = 3         # windows each way, eager and artifact in turns
+EXPORT_CHILD_REQUESTS = 2
+DISPATCH_CALLS = 200
+EXPORT_CHILD = r"""
+import json, sys, time
+t0 = time.perf_counter()
+import numpy as np
+import torch
+from darknet_tpu_torch.nn.network import Network, load_exported_serving
+from darknet_tpu_torch.ops import quant_matmul as qm
+from darknet_tpu_torch.ops.cuda import fused_region as kfr
+
+art, frames, out, reps = sys.argv[1], sys.argv[2], sys.argv[3], int(sys.argv[4])
+x = np.load(frames)
+t1 = time.perf_counter()
+load_exported_serving(art)
+torch.cuda.synchronize()
+t2 = time.perf_counter()
+Network.run_exported_serving(art, x)
+torch.cuda.synchronize()
+t3 = time.perf_counter()
+kfr.launches = qm.launches = 0
+for _ in range(reps):
+    tb, ov, probs = Network.run_exported_serving(art, x)
+torch.cuda.synchronize()
+counts = {"region": kfr.launches, "int8": qm.launches, "requests": reps}
+np.savez(out, tb=tb.float().cpu().numpy(), ov=ov.float().cpu().numpy(),
+         probs=probs.float().cpu().numpy())
+bad = sorted(m for m in sys.modules
+             if m.split(".")[0] in ("jax", "jaxlib", "darknet_tpu"))
+print(json.dumps({"counts": counts, "import_s": t1 - t0, "load_s": t2 - t1,
+                  "first_request_s": t3 - t2, "foreign_modules": bad}))
+"""
+
+
+_started: list = []     # phase 14's processes, stopped if it fails
+
+
+def _start(*args, **kw):
+    proc = subprocess.Popen(*args, **kw)
+    _started.append(proc)
+    return proc
+
+
+def export_nodes(path) -> dict:
+    """Counts of the loaded artifact's op nodes: the port's ops, aten's
+    convolutions, and every call ("call_function")."""
+    import torch
+
+    from darknet_tpu_torch.ops import library  # noqa: F401 (the ops)
+
+    ep = torch.export.load(path)
+    out: dict = {}
+    for n in ep.graph.nodes:
+        t = str(n.target)
+        if t.startswith(("darknet_tpu_torch.", "aten.conv")):
+            out[t] = out.get(t, 0) + 1
+        if n.op == "call_function":
+            out[n.op] = out.get(n.op, 0) + 1
+    return out
+
+
+def triple_close(a, b) -> tuple:
+    """(kept sets equal once each slot of a is matched to b's slot of the
+    nearest box, one to one (`tests/torch_params.match_slots`' rule); the
+    largest difference of each part (boxes, objectness, probs) over b's
+    scale): a from the child (numpy), b eager (tensors)."""
+    b = [t.float().cpu().numpy() for t in b]
+    slot = np.abs(a[0][:, :, None, :] - b[0][:, None, :, :]).max(
+        -1).argmin(-1)
+    one_to_one = all(len(set(row)) == len(row) for row in slot)
+    b = [np.take_along_axis(w, slot.reshape(slot.shape + (1,) * (
+        w.ndim - 2)), 1) for w in b]
+    errs = [float(np.abs(part - w).max()) / max(float(np.abs(w).max()),
+                                                1e-30)
+            for part, w in zip(a, b)]
+    same = (set(zip(*np.nonzero(a[2] > 0)))
+            == set(zip(*np.nonzero(b[2] > 0))))
+    return one_to_one and same, errs
+
+
+def export_one(label, net, frames, root, n_q, children):
+    """Export `net`, reload it here (bitwise against eager), start the
+    child that loads it.  Returns the eager triple and the numbers."""
+    import torch
+
+    from darknet_tpu_torch import Network
+    from darknet_tpu_torch.nn import network as netmod
+
+    eager = net.submit_detect_device(frames)
+    art = os.path.join(root, f"yolov4-608-{label}.pt2")
+    t0 = time.perf_counter()
+    net.export_serving(art, batch=SERVE_BATCH)
+    export_s = time.perf_counter() - t0
+    size = os.path.getsize(art)
+    nodes = export_nodes(art)
+    n_region = nodes.get("darknet_tpu_torch.region.default", 0)
+    n_int8 = nodes.get("darknet_tpu_torch.int8_conv.default", 0)
+    netmod._loaded.clear()
+    t0 = time.perf_counter()
+    netmod.load_exported_serving(art)
+    load_s = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    got = Network.run_exported_serving(art, frames)
+    torch.cuda.synchronize()
+    first_s = time.perf_counter() - t0
+    bitwise = all(torch.equal(a, b) for a, b in zip(eager, got))
+    print(f"export {label}: {size} bytes, export {export_s:.2f} s, load "
+          f"{load_s:.2f} s, first request {first_s:.2f} s; nodes {nodes}; "
+          f"in-process reload bitwise equal to eager: {bitwise}; kept "
+          f"{len(kept(eager[2]))}", flush=True)
+    require(bitwise, f"{label}: the reloaded artifact serves eager's "
+            f"triple bitwise")
+    require((n_region, n_int8) == (1, n_q),
+            f"{label}: 1 region node and {n_q} int8_conv nodes, got "
+            f"{(n_region, n_int8)}")
+    require(len(kept(eager[2])) > 0, f"{label}: eager keeps candidates")
+    x_path = os.path.join(root, f"frames-{label}.npy")
+    np.save(x_path, frames)
+    out = os.path.join(root, f"child-{label}.npz")
+    children[label] = (_start(
+        [sys.executable, "-c", EXPORT_CHILD, art, x_path, out,
+         str(EXPORT_CHILD_REQUESTS)], stdout=subprocess.PIPE,
+        stderr=subprocess.PIPE, text=True, env=child_env()), out)
+    return {"eager": eager, "art": art, "bytes": size,
+            "export_s": export_s, "load_s": load_s, "first_s": first_s,
+            "nodes": nodes}
+
+
+def child_env():
+    env = dict(os.environ)
+    here = os.path.dirname(os.path.abspath(__file__))
+    env["PYTHONPATH"] = os.pathsep.join(
+        [here] + [p for p in env.get("PYTHONPATH", "").split(os.pathsep)
+                  if p])
+    return env
+
+
+def finish_child(label, children, res, n_q):
+    proc, out = children.pop(label)
+    stdout, stderr = proc.communicate(timeout=600)
+    require(proc.returncode == 0,
+            f"{label} child failed: {stderr[-3000:]}")
+    info = json.loads(stdout.strip().splitlines()[-1])
+    c = info["counts"]
+    per = (c["region"] / c["requests"], c["int8"] / c["requests"])
+    data = np.load(out)
+    same_kept, errs = triple_close(
+        [data[k] for k in ("tb", "ov", "probs")], res["eager"])
+    print(f"export {label} child (imports only darknet_tpu_torch): import "
+          f"{info['import_s']:.2f} s, load {info['load_s']:.2f} s, first "
+          f"request {info['first_request_s']:.2f} s; launches a request: "
+          f"region {per[0]}, int8 {per[1]}; kept sets equal {same_kept}, "
+          f"largest differences over the scale (boxes, objectness, probs) "
+          f"{errs}", flush=True)
+    require(not info["foreign_modules"],
+            f"{label} child imported {info['foreign_modules']}")
+    require(per == (1, n_q), f"{label} child: 1 region and {n_q} int8 "
+            f"launches a request, got {per}")
+    require(same_kept and max(errs) <= TOL_BF16,
+            f"{label} child: kept sets equal and within one bf16 ulp of "
+            f"the scale")
+    return {"region": c["region"], "int8": c["int8"],
+            "requests": c["requests"], "load_s": info["load_s"],
+            "first_s": info["first_request_s"]}
+
+
+def dispatch_us():
+    """Host µs of one torch.ops.darknet_tpu_torch.int8_conv.default call
+    (the call `ops/quant_matmul.int8_conv` makes) and of one call of its
+    CUDA backend (the binding, `int8_conv_cuda`) on a small shape (b=1,
+    8x8x128 -> 128, 1x1), in turns."""
+    import torch
+
+    from darknet_tpu_torch.ops import library  # noqa: F401 (the ops)
+    from darknet_tpu_torch.ops import quant_matmul as qm
+
+    ops, kw = int8_conv_operands(1, 8, 128, 128, 1, 1, seed=0)
+    x_q, w_q, ws, b, xs = ops
+    xs = qm._f32(xs, x_q.device).reshape(-1)
+    geo = (1, (1, 1), (0, 0), (8, 8), torch.float32, False)
+    op = torch.ops.darknet_tpu_torch.int8_conv.default
+
+    def via_op():
+        return op(x_q, w_q, ws, b, xs, *geo)
+
+    def direct():
+        return qm.int8_conv_cuda(x_q, w_q, ws, b, xs, size=1, stride=(1, 1),
+                                 pad_lo=(0, 0), out_hw=(8, 8))
+
+    require(torch.equal(via_op(), direct()), "the op and the binding agree")
+
+    def host_us(fn):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        for _ in range(DISPATCH_CALLS):
+            fn()
+        t = time.perf_counter() - t0
+        torch.cuda.synchronize()
+        return t / DISPATCH_CALLS * 1e6
+
+    for fn in (via_op, direct):
+        host_us(fn)
+    times = [host_us(f) for f in (via_op, direct, direct, via_op)]
+    return (times[0] + times[3]) / 2, (times[1] + times[2]) / 2
+
+
+def run_capi(root):
+    """Build the C ABI twin and start native/capi/demo.c linked against it
+    on the card (DTPU_DEVICE=cuda) with the fixture yolov3-tiny cfg."""
+    here = os.path.dirname(os.path.abspath(__file__))
+    out = os.path.join(root, "capi")
+    t0 = time.perf_counter()
+    r = subprocess.run(["sh", os.path.join(here, "darknet_tpu_torch", "capi",
+                                           "build.sh"), out],
+                       capture_output=True, text=True, timeout=300)
+    require(r.returncode == 0, f"C ABI twin build: {r.stderr[-2000:]}")
+    print(f"C ABI twin built with gcc in {time.perf_counter() - t0:.2f} s",
+          flush=True)
+    env = child_env()
+    import site
+
+    env["PYTHONPATH"] = os.pathsep.join([env["PYTHONPATH"],
+                                         *site.getsitepackages()])
+    env["DTPU_DEVICE"] = "cuda"
+    env["DTPU_DEMO_WEIGHTS"] = os.path.join(root, "dtpu_demo.weights")
+    return _start(
+        [r.stdout.strip().splitlines()[-1],
+         os.path.join(here, "tests", "fixtures", "yolov3-tiny.cfg"), "",
+         "0.05"], stdout=subprocess.PIPE, stderr=subprocess.PIPE, text=True,
+        env=env, cwd=root)
+
+
+def run_walkthroughs(root):
+    """The walkthrough twins 01-04 on the card at their test sizes, in one
+    workdir: 01, then 02-04 together.  Returns their outputs."""
+    here = os.path.dirname(os.path.abspath(__file__))
+    ex = os.path.join(here, "darknet_tpu_torch", "examples")
+    work = os.path.join(root, "shapes_demo")
+
+    def start(name, *args):
+        return _start(
+            [sys.executable, os.path.join(ex, name), "--workdir", work,
+             "--device", "cuda", *args], stdout=subprocess.PIPE,
+            stderr=subprocess.PIPE, text=True, env=child_env(), cwd=root)
+
+    def done(name, proc):
+        out, err = proc.communicate(timeout=600)
+        require(proc.returncode == 0, f"{name}: {err[-2000:]}")
+        return out
+
+    t0 = time.perf_counter()
+    outs = {"01": done("01", start("01_train_synthetic.py", "--iters", "12",
+                                   "--images", "48"))}
+    procs = {"02": start("02_detect.py", "--thresh", "0.01"),
+             "03": start("03_serving_export.py", "--batch", "4"),
+             "04": start("04_video_tracking.py")}
+    outs.update({k: done(k, p) for k, p in procs.items()})
+    marks = {"01": ("final EMA loss:", "mAP@0.5"), "02": ("JSON:",),
+             "03": ("img/s", "torch.export artifact"),
+             "04": ("output video:",)}
+    files = {"01": "backup/shapes_final.weights", "02": "detections.png",
+             "03": "shapes_serving.pt2", "04": "tracking.y4m"}
+    for k, out in outs.items():
+        require(all(m in out for m in marks[k])
+                and os.path.exists(os.path.join(work, files[k])),
+                f"walkthrough {k}: {out[-1500:]}")
+    lines = [ln for k in ("01", "03", "04") for ln in outs[k].splitlines()
+             if "mAP@0.5" in ln or "img/s" in ln or "fps" in ln]
+    print(f"walkthrough twins 01-04 on the card in "
+          f"{time.perf_counter() - t0:.2f} s: " + " | ".join(lines),
+          flush=True)
+
+
+def phase_export(card):
+    """Phase 14 (`--only export`): the serving artifact of yolov4-608 at
+    b=8, bf16 and calibrated int8; its rates against eager; the op
+    dispatch's cost; the C ABI twin; the walkthrough twins."""
+    t_phase = time.perf_counter()
+    try:
+        with tempfile.TemporaryDirectory() as root:
+            out = export_phase(card, root)
+    finally:
+        for proc in _started:
+            if proc.poll() is None:
+                proc.kill()
+                proc.wait()
+        _started.clear()
+    print(f"phase 14 (export) in {time.perf_counter() - t_phase:.1f} s "
+          f"({card})", flush=True)
+    return out
+
+
+def export_phase(card, root):
+    import torch
+
+    from darknet_tpu_torch import Network, model_zoo
+    from darknet_tpu_torch.nn import params as paramlib
+    from darknet_tpu_torch.weights import io as wio
+
+    cfg_text = model_zoo.yolov4_cfg(SERVE_PX, SERVE_PX)
+    cfg = os.path.join(root, "yolov4.cfg")
+    with open(cfg, "w") as f:
+        f.write(cfg_text)
+    rng = np.random.default_rng(14)
+    shape = (SERVE_BATCH, SERVE_PX, SERVE_PX, 3)
+    frames = rng.uniform(0, 1, shape).astype(np.float32)
+
+    # probe weights: the objectness threshold .25 sits in a gap of the
+    # bf16 heads' logits on these frames (PROBE_PASS candidates an image
+    # and head), so that the kept set does not rest on ties
+    t0 = time.perf_counter()
+    g = quiet_graph(cfg_text)
+    probe = Network(g, paramlib.params_to_torch(
+        g, probe_params(g), DEVICE, torch.bfloat16),
+        compute_dtype=torch.bfloat16, device=DEVICE)
+    with torch.inference_mode():
+        raw = probe._fwd(probe.params,
+                         torch.from_numpy(frames).to(DEVICE))["raw_heads"]
+    bias = obj_bias_for([h.float() for h in raw], 0.25,
+                        PROBE_PASS * SERVE_BATCH)
+    del probe, raw
+    weights = os.path.join(root, "probe.weights")
+    wio.save_weights(g, unfolded(g, probe_params(g, obj_bias=bias)), weights)
+
+    def net(int8):
+        with warnings.catch_warnings():
+            warnings.simplefilter("ignore")
+            return Network.from_cfg(cfg, weights=weights, int8=int8,
+                                    compute_dtype=torch.bfloat16,
+                                    device=DEVICE)
+
+    bf16, q = net(False), net(True)
+    q.calibrate_int8([rng.uniform(0, 1, shape[1:]).astype(np.float32)
+                      for _ in range(INT8_CALIB_FRAMES)])
+    n_q = sum("x_scale" in p for p in q.params)
+    require(n_q == INT8_CONVS, f"{INT8_CONVS} calibrated convs, got {n_q}")
+    print(f"export setup (probe weights, two networks, calibration): "
+          f"{time.perf_counter() - t0:.1f} s", flush=True)
+
+    # (a), (b): export, save, reload here; each child starts at once and
+    # runs beside what follows up to the rates, which want a quiet host
+    children: dict = {}
+    res = {"bf16": export_one("bf16", bf16, frames, root, 0, children),
+           "int8": export_one("int8", q, frames, root, INT8_CONVS,
+                              children)}
+    for label, n in (("bf16", 0), ("int8", INT8_CONVS)):
+        res[label]["child"] = finish_child(label, children, res[label], n)
+
+    # (c) the artifact's rate against eager's, interleaved, same frames
+    from darknet_tpu_torch.nn import network as netmod
+
+    rates = {}
+    for label, n in (("bf16", bf16), ("int8", q)):
+        art = res[label]["art"]
+
+        def artifact():
+            Network.device_out_to_dets(
+                *Network.run_exported_serving(art, frames))
+
+        netmod.load_exported_serving(art)
+        got = {"eager": [], "artifact": []}
+        for i in range(EXPORT_ROUNDS):
+            for way in ("eager", "artifact")[::1 if i % 2 == 0 else -1]:
+                got[way] += serve_rate(
+                    n, frames, request=artifact if way == "artifact"
+                    else None, **EXPORT_RATE)[2]
+        rates[label] = {}
+        for way, rs in got.items():
+            med = float(np.median(rs))
+            rates[label][way] = (med, (max(rs) - min(rs)) / med)
+        print(f"export {label} rates ({card}): eager "
+              f"{rates[label]['eager'][0]:.2f} img/s (spread "
+              f"{rates[label]['eager'][1]:.3f}), artifact "
+              f"{rates[label]['artifact'][0]:.2f} img/s (spread "
+              f"{rates[label]['artifact'][1]:.3f}), {EXPORT_ROUNDS} "
+              f"windows of {EXPORT_RATE['requests']} requests each way, in "
+              f"turns", flush=True)
+        # one request each way in a trace: device events, busy, idle
+        trace_summary(lambda: n.device_out_to_dets(
+            *n.submit_detect_device(frames)), f"export {label} eager",
+            card, 4)
+        trace_summary(artifact, f"export {label} artifact", card, 4)
+    op_us, direct_us = dispatch_us()
+    print(f"int8_conv dispatch ({card}): torch.ops call {op_us:.1f} us, "
+          f"the binding {direct_us:.1f} us, host time a call "
+          f"(b=1 8x8x128 -> 128 1x1, {DISPATCH_CALLS} calls)", flush=True)
+    del bf16, q
+    torch.cuda.empty_cache()
+
+    # (d), (e): the C ABI twin and the walkthrough twins, side by side
+    demo = run_capi(root)
+    run_walkthroughs(root)
+    stdout, stderr = demo.communicate(timeout=600)
+    require(demo.returncode == 0, f"C demo failed: {stderr[-2000:]}")
+    n = int([ln for ln in stdout.splitlines()
+             if ln.startswith("detections:")][0].split()[1])
+    for want in ("net 416x416x3 classes=80", "json head:", "weights saved",
+                 "ok"):
+        require(want in stdout, f"C demo prints {want!r}: {stdout[-800:]}")
+    require(n > 0, "the C demo detects")
+    # the unchanged client saves to a fixed /tmp path, which the twin's
+    # build sends to DTPU_DEMO_WEIGHTS (`run_capi`)
+    saved = os.path.join(root, "dtpu_demo.weights")
+    require(os.path.getsize(saved) > 0, "the C demo saved weights")
+    print("C demo (native/capi/demo.c against libdarknet_tpu_torch_c.so, "
+          "DTPU_DEVICE=cuda): " + " | ".join(
+              ln for ln in stdout.splitlines()
+              if ln.startswith(("net ", "detections:", "tracks:", "ok"))),
+          flush=True)
+    return {label: {"child": res[label]["child"], "rates": rates[label],
+                    "bytes": res[label]["bytes"]}
+            for label in ("bf16", "int8")}
+
+
 def main(argv=None) -> int:
     import argparse
 
     import torch
 
     parser = argparse.ArgumentParser(description="smoke run on one card")
-    parser.add_argument("--only", choices=["video", "gaussian", "v1", "cli"],
+    parser.add_argument("--only", choices=["video", "gaussian", "v1", "cli",
+                                           "export"],
                         help="build the kernels and run this phase alone "
                              "(no kernels line, no contract line)")
     only = parser.parse_args(argv).only
@@ -4203,7 +4649,8 @@ def main(argv=None) -> int:
 
     if only is not None:
         {"video": phase_video, "gaussian": phase_gaussian,
-         "v1": phase_v1, "cli": phase_cli}[only](card)
+         "v1": phase_v1, "cli": phase_cli,
+         "export": phase_export}[only](card)
         print(card, flush=True)
         print(json.dumps({"only": only, "ok": True}), flush=True)
         return 0
@@ -4219,6 +4666,7 @@ def main(argv=None) -> int:
     phase_gaussian(card)
     phase_v1(card)
     cli = phase_cli(card)
+    export = phase_export(card)
 
     print(card, flush=True)
     print(json.dumps({"kernels": [{
@@ -4234,7 +4682,10 @@ def main(argv=None) -> int:
             "phase4_serve_bf16": serve["launches"],
             "phase6_int8_calibrated": int8["region_launches"],
             "phase13_bench_run": cli["bench"][0],
-            "phase13_region_int8_request": cli["region_int8"][0]}}, {
+            "phase13_region_int8_request": cli["region_int8"][0],
+            "phase14_export_bf16_child": export["bf16"]["child"]["region"],
+            "phase14_export_int8_child":
+                export["int8"]["child"]["region"]}}, {
         "name": "int8_gemm", "route": "cuda",
         "source": "darknet_tpu_torch/csrc/int8_gemm.cu",
         "replaces": "darknet_tpu/ops/pallas/quant_matmul.py:91",
@@ -4246,7 +4697,10 @@ def main(argv=None) -> int:
         "launches_by_path": {
             "phase6_int8_calibrated": int8["launches"],
             "phase13_bench_run": cli["bench"][1],
-            "phase13_region_int8_request": cli["region_int8"][1]}}]}),
+            "phase13_region_int8_request": cli["region_int8"][1],
+            "phase14_export_bf16_child": export["bf16"]["child"]["int8"],
+            "phase14_export_int8_child":
+                export["int8"]["child"]["int8"]}}]}),
         flush=True)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

@@ -199,7 +199,7 @@ def mode_valid(args):
                 outs = r["heads"] if r["heads"] else [r["output"]]
                 return sum(o.float().sum() for o in outs)
 
-        trace_report(_probe, net.params, xb, graph=net.graph)
+        trace_report(_probe, net.forward_params, xb, graph=net.graph)
         if args.benchmark_layers >= 2:
             benchmark_layers(net.graph, net.params,
                              compute_dtype=net.compute_dtype,

@@ -35,6 +35,7 @@ from __future__ import annotations
 
 import contextlib
 import dataclasses
+import zlib
 
 import torch
 import torch.nn.functional as F
@@ -173,7 +174,15 @@ def _liveness(graph) -> set:
 
 def region_runner(plan, *, compute_dtype=torch.float32,
                   mode: str = "hybrid"):
-    """run(params, x) -> region output (NHWC) for one plan."""
+    """run(params, x) -> region output (NHWC) for one plan.
+
+    run.step_weights(params) derives the conv steps' weights and f32
+    biases in the forms the runner reads: the kernel's prefix in the
+    compute dtype, the plain remainder as f32 copies of those values (in
+    bf16 the plain convs read bf16 weights so, `ops/conv.conv2d_raw`).
+    run.keys names them in a params entry (`make_forward(...).
+    with_step_weights`); params whose start layer holds them are read as
+    they are, other params derive them for the call."""
     from darknet_tpu_torch.ops import fused_region as fr
     from darknet_tpu_torch.ops.cuda.fused_region import region_call
 
@@ -181,38 +190,44 @@ def region_runner(plan, *, compute_dtype=torch.float32,
     pre = fr.hybrid_prefix(plan) if mode == "hybrid" else None
     if pre is None and mode == "hybrid" and not plan.xla_only:
         pre = (plan, len(plan.steps))
-    cache: dict = {}
+    n_pre = 0 if pre is None else len(pre[0].conv_steps)
+    n_conv = len(plan.conv_steps)
+    tag = zlib.crc32(f"{plan.to_json()}|{mode}|{cd}".encode())
+    keys = ([f"step{tag:08x}_w{j}" for j in range(n_conv)]
+            + [f"step{tag:08x}_b{j}" for j in range(n_conv)])
+
+    def step_weights(params):
+        ws, bs = fr.step_weights(plan.steps, params, cd)
+        return ws[:n_pre] + [w.float() for w in ws[n_pre:]], bs
 
     def weights(params):
-        # pack_w0/pack_w1 and the casts run once per params list (the
-        # entry holds the list, so its id stays unique); the plain steps
-        # read bf16 weights as f32 copies (`ops/conv.conv2d_raw`)
-        if id(params) not in cache:
-            cache.clear()
-            ws, bs = fr.step_weights(plan.steps, params, cd)
-            cache[id(params)] = (params, ws, bs, [w.float() for w in ws])
-        return cache[id(params)][1:]
+        held = params[plan.start]
+        if keys and keys[0] in held:
+            return ([held[k] for k in keys[:n_conv]],
+                    [held[k] for k in keys[n_conv:]])
+        return step_weights(params)
 
     if pre is None:
-        def run_plain(params, x):
-            _ws, bs, ws32 = weights(params)
-            return fr.region_plain(plan, x, ws32, bs, compute_dtype=cd,
+        def run(params, x):
+            ws, bs = weights(params)
+            return fr.region_plain(plan, x, ws, bs, compute_dtype=cd,
                                    params=params)
-        return run_plain
+    else:
+        sub, k = pre
+        rest = plan.steps[k:]
+        sub_json = sub.to_json()
 
-    sub, k = pre
-    rest = plan.steps[k:]
+        def run(params, x):
+            ws, bs = weights(params)
+            y = region_call(sub_json, x, ws[:n_pre], bs[:n_pre],
+                            compute_dtype=cd)
+            slots = {sub.out_slot: y}
+            fr.run_steps_plain(rest, slots, ws[n_pre:], bs[n_pre:], cd,
+                               params)
+            return slots[plan.out_slot]
 
-    def run_hybrid(params, x):
-        ws, bs, ws32 = weights(params)
-        n_pre = len(sub.conv_steps)
-        y = region_call(sub, x, ws[:n_pre], bs[:n_pre], compute_dtype=cd)
-        slots = {sub.out_slot: y}
-        fr.run_steps_plain(rest, slots, ws32[n_pre:], bs[n_pre:], cd,
-                           params)
-        return slots[plan.out_slot]
-
-    return run_hybrid
+    run.step_weights, run.keys = step_weights, keys
+    return run
 
 
 def region_conv_indices(graph) -> set:
@@ -347,7 +362,26 @@ def make_forward(graph, *, compute_dtype=None, fuse_regions="hybrid",
             r["conv_in_absmax"] = absmax
         return r
 
+    def with_step_weights(params) -> list:
+        """A copy of `params` whose region start layers also hold their
+        runners' step weights (`region_runner`), which the forward then
+        reads instead of deriving them a call: the Network holds it
+        (`Network.forward_params`), for eager serving and its export
+        alike.  Each is a copy with the strides of the tensor it copies,
+        so every conv sees the layout a derived one has, and no two
+        params share storage."""
+        out = list(params)
+        for a, run in runners.items():
+            ws, bs = run.step_weights(params)
+            out[a] = dict(out[a])
+            for key, t in zip(run.keys, ws + bs):
+                out[a][key] = torch.empty_strided(
+                    t.shape, t.stride(), dtype=t.dtype,
+                    device=t.device).copy_(t)
+        return out
+
     forward.region_plans = plans
+    forward.with_step_weights = with_step_weights
     return forward
 
 

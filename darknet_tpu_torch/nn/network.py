@@ -22,13 +22,18 @@ package: the host path gives no detections for it
 (`ops/detection_v1.detection_decode` decodes it), and the device path
 refuses a network without a [yolo] or [Gaussian_yolo] head.
 `resize(w, h)` rebuilds the network at another input size on the same
-params.
+params.  `export_serving(path)` writes the serving program as one
+`torch.export` artifact, which `Network.run_exported_serving(path, x)`
+runs without the cfg, the weights or the graph builder.
 """
 
 from __future__ import annotations
 
 import dataclasses
 import json
+import os
+import warnings
+import zipfile
 
 import numpy as np
 import torch
@@ -126,6 +131,7 @@ class Network:
         self._fwd = make_forward(graph, compute_dtype=compute_dtype,
                                  fuse_regions=fuse_regions, fused_bn=fused,
                                  region_int8=region_int8, train=train)
+        self._held: tuple | None = None      # `forward_params`
         self._heads = graph.heads()
         decoded = [l for l in self._heads if l.kind in DECODE]
         self._nms_kind = decoded[0].nms_kind if decoded else "greedynms"
@@ -284,7 +290,7 @@ class Network:
 
     def _forward(self, x: np.ndarray) -> dict:
         with torch.inference_mode():
-            return self._fwd(self.params,
+            return self._fwd(self.forward_params,
                              torch.from_numpy(x).to(self.device))
 
     # ----------------------------------------------------------- forward
@@ -378,10 +384,27 @@ class Network:
         net._region_q = self._region_q
         return net
 
+    @property
+    def forward_params(self) -> list:
+        """The params the inference forward reads: `self.params` with each
+        region's step weights (`make_forward(...).with_step_weights`),
+        made once per params list and forward, for eager serving and its
+        export alike.  A forward with no regions to hold for (the
+        training forward, or any callable put in its place) reads the
+        params as they are."""
+        held = self._held
+        if held is None or held[0] is not self.params \
+                or held[1] is not self._fwd:
+            hold = getattr(self._fwd, "with_step_weights", None)
+            held = self._held = (self.params, self._fwd, self.params
+                                 if hold is None else hold(self.params))
+        return held[2]
+
     # ----------------------------------------------------------- serving
-    def _serve(self, x, thresh, nms, top_k, score_dtype):
+    def _serve(self, x, thresh, nms, top_k, score_dtype, params=None):
         """The device serving program: (boxes (B,K,4), obj (B,K),
-        probs (B,K,classes)) on the device."""
+        probs (B,K,classes)) on the device; `params` defaults to the
+        network's own (`forward_params`)."""
         if x.dtype == torch.uint8:
             # frames upload as raw uint8 (1/4 of the f32 bytes) and
             # normalize on the device through the host's own quotients:
@@ -389,7 +412,7 @@ class Network:
             # torch's CUDA division by a scalar computes it) differs from
             # the host's division by one ulp for half of the 256 values
             x = self._u8_unit[x.int()]
-        r = self._fwd(self.params, x)
+        r = self._fwd(self.forward_params if params is None else params, x)
         # a Gaussian head's sigmas stay behind: the triple is the same
         # for every head kind
         boxes, obj, cls, _uc = self._decode([h.float() for h in r["heads"]],
@@ -419,11 +442,7 @@ class Network:
         check; a uint8 array uploads as uint8.  A network without a
         [yolo] or [Gaussian_yolo] head has nothing to decode here and
         raises ValueError before any work."""
-        if not any(l.kind in DECODE for l in self._heads):
-            raise ValueError(
-                f"the device serving program decodes [yolo] and "
-                f"[Gaussian_yolo] heads; this network's heads are "
-                f"{[l.kind for l in self._heads]}")
+        self._require_decoded_head()
         if isinstance(images, torch.Tensor):
             x = images if images.dim() == 4 else images[None]
             x = x.to(self.device)
@@ -436,6 +455,63 @@ class Network:
         self._check_shape(x)
         with torch.inference_mode():
             return self._serve(x, thresh, nms, top_k, score_dtype)
+
+    def _require_decoded_head(self) -> None:
+        if not any(l.kind in DECODE for l in self._heads):
+            raise ValueError(
+                f"the device serving program decodes [yolo] and "
+                f"[Gaussian_yolo] heads; this network's heads are "
+                f"{[l.kind for l in self._heads]}")
+
+    # ------------------------------------------------------------ export
+    def export_serving(self, path, *, batch: int = 1, thresh: float = 0.25,
+                       nms: float = 0.45, top_k: int = 256,
+                       score_dtype=None) -> None:
+        """Write the whole serving program (forward, decode, top-k and
+        device NMS, with the params as buffers) to `path` as one
+        `torch.export` artifact: the counterpart of the JAX package's
+        jax.export artifact.  The region kernel and the int8 GEMM are in
+        it as the custom ops of `ops/library.py`, so the loaded program
+        launches the same kernels as `submit_detect_device`.  Run it with
+        `run_exported_serving`: that needs `darknet_tpu_torch` importable
+        (the op registrations and the kernels' sources, built at first
+        use) but neither the cfg, the weights nor the graph builder.  The
+        artifact is specialised to the batch, the net size, the
+        thresholds and the device it was exported on; one exported on the
+        card refuses to load without one.  Its input is (batch, H, W, C)
+        float32 in [0, 1].  A network without a [yolo] or [Gaussian_yolo]
+        head raises before any work."""
+        self._require_decoded_head()
+        x = torch.zeros((batch, self.net.h, self.net.w, self.net.c),
+                        dtype=torch.float32, device=self.device)
+        program = ServingProgram(self, x, thresh=thresh, nms=nms,
+                                 top_k=top_k, score_dtype=score_dtype)
+        ep = torch.export.export(program, (x,))
+        ep.example_inputs = None           # the zero frames are not saved
+        meta = {"device": self.device.type,
+                "compute_dtype": str(self.compute_dtype or torch.float32),
+                "input": list(x.shape)}
+        with warnings.catch_warnings():
+            # channels_last weights are not "complete" to the archive
+            # writer, which then saves each one's whole storage: as meant
+            warnings.filterwarnings("ignore", "No complete tensor found")
+            torch.export.save(ep, path,
+                              extra_files={SERVING_META: json.dumps(meta)})
+
+    @staticmethod
+    def run_exported_serving(path, x):
+        """Run an `export_serving` artifact on x ((B, H, W, C) float32, a
+        numpy array or a tensor, moved to the artifact's device): the
+        device triple (boxes (B,K,4), objectness (B,K),
+        probs (B,K,classes)).  An artifact loads once per file (and again
+        when the file changes); the last four loaded stay loaded."""
+        program, meta = load_exported_serving(path)
+        from darknet_tpu_torch.ops.conv import precise, precise_matmul
+
+        x = torch.as_tensor(x, dtype=torch.float32).to(meta["device"])
+        cd = getattr(torch, meta["compute_dtype"].split(".")[-1])
+        with torch.no_grad(), precise(cd), precise_matmul(cd):
+            return program(x)
 
     @staticmethod
     def device_out_to_dets(tb, ov, probs) -> list:
@@ -457,3 +533,113 @@ class Network:
         return self.device_out_to_dets(
             *self.submit_detect_device(images, thresh=thresh, nms=nms,
                                        top_k=top_k))
+
+
+# the artifact's own record: the device it runs on, its compute dtype (its
+# convs' TF32 setting) and its input shape
+SERVING_META = "darknet_tpu_torch_serving.json"
+_loaded: dict = {}
+
+
+class ServingProgram(torch.nn.Module):
+    """A Network's device serving program as a module for `torch.export`:
+    the params the program reads (`Network.forward_params`, region step
+    weights included) are buffers, so the artifact saves them under their
+    layer and key; forward(x) is `Network._serve` on an f32 (B, H, W, C)
+    input.  Which params it reads is taken from one request on `example`:
+    an int8 conv reads its int8 weights, not its float ones, and a region
+    its step weights, not its layers' own, so those stay out."""
+
+    def __init__(self, net: Network, example, *, thresh, nms, top_k,
+                 score_dtype):
+        super().__init__()
+        self._net = net
+        self._cfg = (thresh, nms, top_k, score_dtype)
+        params = net.forward_params
+        read = [set() for _ in params]
+        with torch.no_grad():
+            net._serve(example, *self._cfg, params=[
+                _Reads(p, seen) for p, seen in zip(params, read)])
+        self._names = []
+        for i, (p, seen) in enumerate(zip(params, read)):
+            names = [(k, f"p{i}_{k}") for k in p if k in seen]
+            for k, name in names:
+                self.register_buffer(name, p[k])
+            self._names.append(names)
+
+    def forward(self, x):
+        params = [{k: getattr(self, name) for k, name in names}
+                  for names in self._names]
+        return self._net._serve(x, *self._cfg, params=params)
+
+
+class _Reads(dict):
+    """A params entry that records the keys the forward reads: a lookup, a
+    `get` or an `in` that finds the key, or any walk over them all."""
+
+    def __init__(self, entry, seen: set):
+        super().__init__(entry)
+        self._seen = seen
+
+    def __getitem__(self, k):
+        self._seen.add(k)
+        return super().__getitem__(k)
+
+    def __contains__(self, k):
+        found = super().__contains__(k)
+        if found:
+            self._seen.add(k)
+        return found
+
+    def get(self, k, default=None):
+        return self[k] if k in self else default
+
+    def _all(self):
+        self._seen.update(super().keys())
+
+    def __iter__(self):
+        self._all()
+        return super().__iter__()
+
+    def keys(self):
+        self._all()
+        return super().keys()
+
+    def items(self):
+        self._all()
+        return super().items()
+
+    def values(self):
+        self._all()
+        return super().values()
+
+
+def _read_meta(path) -> dict:
+    with zipfile.ZipFile(path) as z:
+        names = [n for n in z.namelist()
+                 if n.endswith(f"/extra/{SERVING_META}")]
+        if not names:
+            raise ValueError(f"{path}: not an export_serving artifact")
+        return json.loads(z.read(names[0]))
+
+
+def load_exported_serving(path):
+    """(the loaded program's module, its meta) of an `export_serving`
+    artifact; the ops are registered first.  An artifact exported on the
+    card raises without one."""
+    from darknet_tpu_torch.ops import library  # noqa: F401 (the ops)
+
+    st = os.stat(path)
+    key = (os.path.abspath(path), st.st_mtime_ns, st.st_size)
+    if key not in _loaded:
+        meta = _read_meta(path)
+        paramlib.resolve_device(meta["device"])
+        if len(_loaded) >= 4:
+            _loaded.pop(next(iter(_loaded)))
+        with warnings.catch_warnings():
+            # the archive's weights are read through read-only buffers and
+            # copied to the device: nothing writes to them
+            warnings.filterwarnings("ignore", "The given buffer is not "
+                                    "writable")
+            _loaded[key] = (torch.export.load(path).module(), meta)
+    return _loaded[key]

@@ -12,9 +12,12 @@ m16n8k16), whose slots keep channels padded to 16 at a pitch of
 channels + 8 (conflict-free `ldmatrix` rows) and whose weights are one
 (N_pad, K) K-contiguous matrix per step, K ordered (tap, source, channel).
 
-A CPU tensor goes to the plain version (`fused_region.region_plain`); a
-CUDA tensor launches the kernel or raises.  `launches` counts the kernel
-launches, and `variant_launches` counts them by kernel.
+`region_call` goes through the custom op `darknet_tpu_torch::region`
+(`ops/library.py`), which carries the plan as its JSON string and which
+`torch.export` records as a node.  A CPU tensor goes to the plain
+version (`fused_region.region_plain`); a CUDA tensor launches the kernel
+(`region_cuda`, the op's CUDA backend) or raises.  `launches` counts the
+kernel launches, and `variant_launches` counts them by kernel.
 """
 
 from __future__ import annotations
@@ -25,8 +28,7 @@ import dataclasses
 import numpy as np
 import torch
 
-from darknet_tpu_torch.ops.fused_region import (IN_SLOT, ConvStep,
-                                                RegionPlan, region_plain)
+from darknet_tpu_torch.ops.fused_region import IN_SLOT, ConvStep, RegionPlan
 
 ACT_CODES = {"linear": 0, "leaky": 1, "relu": 2, "relu6": 3, "relie": 4,
              "ramp": 5, "mish": 6, "swish": 7, "logistic": 8, "loggy": 9,
@@ -379,25 +381,45 @@ def pack_weights(kp: KernelPlan, weights, biases, dtype):
     return torch.cat(ws).contiguous(), torch.cat(bs).contiguous()
 
 
-_cache: dict = {}
+# (plan JSON, dtype, device) -> (kernel plan, its table on the card)
+_plans: dict = {}
+# (plan JSON, dtype, device, weight and bias pointers and shapes) ->
+# (packed weights, packed biases, the source tensors: held, so that their
+# pointers stay theirs while the entry lives)
+_packed: dict = {}
+
+
+def _bounded_put(cache: dict, key, value, size: int = 16):
+    if len(cache) >= size:
+        cache.pop(next(iter(cache)))
+    cache[key] = value
+    return value
 
 
 def _prepared(plan, weights, biases, dtype, device):
-    """Kernel plan, uploaded table and packed weights, cached per plan and
-    weight tensors (the entry holds them, so their pointers stay valid)."""
-    key = (id(plan), dtype, str(device),
-           tuple(w.data_ptr() for w in weights),
-           tuple(b.data_ptr() for b in biases))
-    hit = _cache.get(key)
+    """Kernel plan, uploaded table and packed weights of a plan (a
+    RegionPlan or its JSON string): the plan laid out once per JSON
+    string, the weights packed once per weight tensors."""
+    from darknet_tpu_torch.ops.library import parse_plan
+
+    if not isinstance(plan, str):
+        plan = plan.to_json()
+    key = (plan, dtype, str(device))
+    hit = _plans.get(key)
     if hit is None:
-        kp = kernel_plan(plan, torch.tensor([], dtype=dtype).element_size())
-        wbuf, bbuf = pack_weights(kp, weights, biases, dtype)
-        tab = torch.from_numpy(kp.table).to(device)
-        if len(_cache) >= 16:
-            _cache.pop(next(iter(_cache)))
-        hit = _cache[key] = (kp, tab, wbuf, bbuf, plan,
-                             list(weights), list(biases))
-    return hit[:4]
+        kp = kernel_plan(parse_plan(plan),
+                         torch.tensor([], dtype=dtype).element_size())
+        hit = _bounded_put(_plans, key,
+                           (kp, torch.from_numpy(kp.table).to(device)))
+    kp, tab = hit
+    wkey = key + tuple((t.data_ptr(), tuple(t.shape), t.stride())
+                       for t in (*weights, *biases))
+    packed = _packed.get(wkey)
+    if packed is None:
+        packed = _bounded_put(_packed, wkey, (
+            *pack_weights(kp, weights, biases, dtype), list(weights),
+            list(biases)))
+    return kp, tab, packed[0], packed[1]
 
 
 def _lib():
@@ -414,28 +436,39 @@ def _lib():
     return lib
 
 
-def region_call(plan: RegionPlan, x, weights, biases, *,
+def region_call(plan, x, weights, biases, *,
                 compute_dtype=torch.float32):
-    if x.device.type == "cpu":
-        return region_plain(plan, x, weights, biases,
-                            compute_dtype=compute_dtype)
-    if x.device.type != "cuda":
+    """Run a stride-1 plan (a RegionPlan, or its `to_json` string) on x
+    through the op `darknet_tpu_torch::region`: the plain version for a
+    CPU tensor, the kernel for a CUDA tensor."""
+    from darknet_tpu_torch.ops import library  # noqa: F401 (the ops)
+
+    if x.device.type not in ("cpu", "cuda"):
         raise ValueError(f"region_call: no kernel for device {x.device}")
-    if compute_dtype not in _DTYPE_CODE:
+    if not isinstance(plan, str):
+        plan = plan.to_json()
+    return torch.ops.darknet_tpu_torch.region.default(
+        x, list(weights), list(biases), plan, compute_dtype)
+
+
+def region_cuda(x, weights, biases, plan: str, dtype):
+    """The op's CUDA backend: check the operands against the plan, lay out
+    and pack once (`_prepared`), launch (counted in `launches`)."""
+    from darknet_tpu_torch.ops.library import parse_plan
+
+    if dtype not in _DTYPE_CODE:
         raise ValueError(f"region kernel takes float32 or bfloat16, "
-                         f"not {compute_dtype}")
-    h, w = plan.h, 2 * plan.w2
-    want = (2 * h, 2 * w, plan.in_c // 4) if plan.stem else \
-        (h, w, plan.in_c)
+                         f"not {dtype}")
+    rp = parse_plan(plan)
+    h, w = rp.h, 2 * rp.w2
+    want = (2 * h, 2 * w, rp.in_c // 4) if rp.stem else (h, w, rp.in_c)
     if x.dim() != 4 or tuple(x.shape[1:]) != want:
         raise ValueError(f"region input must be (B, {want}), "
                          f"got {tuple(x.shape)}")
     if any(t.device != x.device for t in (*weights, *biases)):
         raise ValueError("region weights must be on the input's device")
-    kp, tab, wbuf, bbuf = _prepared(plan, weights, biases, compute_dtype,
-                                    x.device)
-    return launch(kp, tab, wbuf, bbuf, x.to(compute_dtype).contiguous(),
-                  plan.out_c)
+    kp, tab, wbuf, bbuf = _prepared(plan, weights, biases, dtype, x.device)
+    return launch(kp, tab, wbuf, bbuf, x.to(dtype).contiguous(), rp.out_c)
 
 
 def launch(kp: KernelPlan, tab, wbuf, bbuf, x, out_c: int):

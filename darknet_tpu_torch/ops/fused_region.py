@@ -21,12 +21,14 @@ on every device.
 from __future__ import annotations
 
 import dataclasses
+import json
 from typing import Callable
 
 import torch
 
 from darknet_tpu_torch.ops.activations import apply_activation
 from darknet_tpu_torch.ops.conv import conv2d_int8, conv2d_raw
+from darknet_tpu_torch.ops.stem import pack_w0, pack_w1
 
 ELEMENTWISE_ACTS = frozenset({
     "linear", "leaky", "relu", "relu6", "relie", "ramp", "mish", "swish",
@@ -39,6 +41,30 @@ IN_SLOT = -1          # region input tensor
 class _Unplannable(Exception):
     """A layer inside the candidate region references an unresolvable
     slot (e.g. a stem region whose body routes to raw layer 0)."""
+
+
+@dataclasses.dataclass(frozen=True)
+class StepParam:
+    """A conv step's weight (HWIO) or f32 bias, read from the params list:
+    layer `li`'s own ("hwio", "bias"), or the stem's packed forms
+    ("pack_w0", "pack_w1", "bias_x4").  A value, so that a plan compares
+    and serialises (`RegionPlan.to_json`) with its accessors."""
+
+    li: int
+    form: str
+
+    def __call__(self, params):
+        q = params[self.li]
+        if self.form == "bias":
+            return q["b"]
+        if self.form == "bias_x4":
+            return q["b"].repeat(4)
+        w = q["w"].permute(2, 3, 1, 0)
+        if self.form == "pack_w0":
+            return pack_w0(w)
+        if self.form == "pack_w1":
+            return pack_w1(w)
+        return w
 
 
 @dataclasses.dataclass(frozen=True)
@@ -105,6 +131,24 @@ class RegionPlan:
     @property
     def conv_steps(self):
         return [s for s in self.steps if isinstance(s, ConvStep)]
+
+    def to_json(self) -> str:
+        """The plan as a canonical JSON string (the region op's `plan`
+        argument, which an exported program carries as a constant)."""
+        return json.dumps(dataclasses.asdict(self), sort_keys=True,
+                          separators=(",", ":"))
+
+    @classmethod
+    def from_json(cls, text: str) -> "RegionPlan":
+        """The inverse of `to_json`: an equal plan."""
+        d = json.loads(text)
+        d["steps"] = tuple(
+            ConvStep(**dict(f, srcs=tuple(f["srcs"]),
+                            srcs_c=tuple(f["srcs_c"]),
+                            w_fn=StepParam(**f["w_fn"]),
+                            b_fn=StepParam(**f["b_fn"])))
+            if "srcs" in f else AddStep(**f) for f in d["steps"])
+        return cls(**d)
 
 
 # --------------------------------------------------------------------------
@@ -254,8 +298,7 @@ def _build_steps(layers, a, end, steps, slot_of, chan_of, resolve):
                 srcs_c=tuple(p[1] for p in pairs),
                 kh=l.size, kw=l.size, pt=l.pad, pl_=l.pad, n=l.n,
                 act=l.activation, out_slot=k,
-                w_fn=(lambda p, k=k: p[k]["w"].permute(2, 3, 1, 0)),
-                b_fn=(lambda p, k=k: p[k]["b"]),
+                w_fn=StepParam(k, "hwio"), b_fn=StepParam(k, "bias"),
                 sy=l.stride_y, sx=l.stride_x, li=k))
             slot_of[k] = k
             chan_of[k] = l.n
@@ -382,21 +425,17 @@ def make_stem_steps(graph):
     """Fold the s2d stem into region steps: conv0 becomes a 3x3 conv over
     s2d coordinates (pack_w0), conv1 a 2x2 conv with taps {-1, 0}
     (pack_w1, pad (1, 0))."""
-    from darknet_tpu_torch.ops.stem import pack_w0, pack_w1
-
     l0, l1 = graph.layers[0], graph.layers[1]
     c_in = 4 * l0.c
     s0 = ConvStep(
         srcs=(IN_SLOT,), srcs_c=(c_in,), kh=3, kw=3, pt=1, pl_=1,
         n=4 * l0.n, act=l0.activation, out_slot=-100,
-        w_fn=lambda p: pack_w0(p[0]["w"].permute(2, 3, 1, 0)),
-        b_fn=lambda p: p[0]["b"].repeat(4),
+        w_fn=StepParam(0, "pack_w0"), b_fn=StepParam(0, "bias_x4"),
         li=0)
     s1 = ConvStep(
         srcs=(-100,), srcs_c=(4 * l0.n,), kh=2, kw=2, pt=1, pl_=1,
         n=l1.n, act=l1.activation, out_slot=1,
-        w_fn=lambda p: pack_w1(p[1]["w"].permute(2, 3, 1, 0)),
-        b_fn=lambda p: p[1]["b"],
+        w_fn=StepParam(1, "pack_w1"), b_fn=StepParam(1, "bias"),
         li=1)
     return [s0, s1], c_in
 

@@ -82,7 +82,16 @@ def nms_device(boxes, probs, thresh: float, kind: str = "greedynms",
     f(K)[i] = active[i] & no j with K[j], rank_j < rank_i and sim > thresh,
     where rank_j < rank_i is (p_j > p_i) | (p_j == p_i & j < i).  It is
     squeezed between the monotone bounds Lo' = f(Hi), Hi' = f(Lo), which
-    meet after as many rounds as the longest suppression chain."""
+    meet after as many rounds as the longest suppression chain.  The
+    rounds run under the `while_loop` operator of
+    `torch._higher_order_ops`, the counterpart of the JAX package's
+    `lax.while_loop` (`darknet_tpu/ops/nms.py:179`): one node of the
+    program that `torch.export` records, and its dense implementation, a
+    Python loop, when called eagerly.  The operator is called itself, its
+    tensors passed in, not through the public `while_loop`, which
+    compiles its call with dynamo at every eager call."""
+    from torch._higher_order_ops.while_loop import while_loop_op
+
     n = boxes.shape[1]
     a, b = boxes[:, :, None, :], boxes[:, None, :, :]
     if kind == "greedynms":
@@ -97,10 +106,18 @@ def nms_device(boxes, probs, thresh: float, kind: str = "greedynms",
     P = ((pj > pi) | ((pj == pi) & lt)) & suppress[:, None]  # (B,C,N,N)
     active = pT > 0
 
-    def step(K):
+    def step(K, active, P):
         return active & ~(P & K[..., None, :]).any(dim=-1)
 
-    lo, hi = torch.zeros_like(active), active
-    while bool((lo != hi).any()):
-        lo, hi = lo | step(hi), hi & step(lo)
+    def unsettled(lo, hi, active, P):
+        return (lo != hi).any()
+
+    def round_(lo, hi, active, P):
+        # fresh tensors: a carried value returned as it came in is an
+        # alias, which the loop's tracing refuses
+        return lo | step(hi, active, P), hi & step(lo, active, P)
+
+    lo, _hi = while_loop_op(unsettled, round_,
+                            (torch.zeros_like(active), active.clone()),
+                            (active, P))
     return torch.where(lo.transpose(1, 2), probs, torch.zeros_like(probs))

@@ -15,11 +15,14 @@ JAX function takes (K, N)); conv weights are stored that way once
 on the operands' device (the kernel reads it through a pointer, so no
 host sync) or a Python float.
 
-A CPU tensor goes to the plain version (`int8_matmul_plain`,
-`int8_conv_plain`: the explicit `im2col_int8`, then the GEMM); a CUDA
-tensor launches the CUDA kernel (`csrc/int8_gemm.cu`, which reads the
-NHWC input in place) or raises.  `launches` counts the kernel launches
-of both.
+Both go through the custom ops `darknet_tpu_torch::int8_matmul` and
+`darknet_tpu_torch::int8_conv` (`ops/library.py`), which `torch.export`
+records as nodes.  A CPU tensor goes to the plain version
+(`int8_matmul_plain`, `int8_conv_plain`: the explicit `im2col_int8`,
+then the GEMM); a CUDA tensor launches the CUDA kernel (`csrc/
+int8_gemm.cu`, which reads the NHWC input in place; `int8_matmul_cuda`,
+`int8_conv_cuda`) or raises.  `launches` counts the kernel launches of
+both.
 
 The plain version sums in float64, which is exact (|acc| <= K * 127^2 is
 far below 2^53) on the CPU and on the card alike (torch has no integer
@@ -107,19 +110,31 @@ def _check_epilogue(name, dev, n, w_scales, bias, x_scale):
                              f"{shape}, got {tuple(t.shape)}")
 
 
+def _device_ok(name, t):
+    if t.device.type not in ("cpu", "cuda"):
+        raise ValueError(f"{name}: no kernel for device {t.device}")
+
+
 def int8_matmul(a_q, b_q, w_scales, bias, x_scale, *, leaky: bool = False):
     """(M, K) int8 . (N, K) int8^T -> (M, N) f32 with the dequant, bias
-    and optional leaky epilogue: the plain version for a CPU tensor, the
-    CUDA kernel for a CUDA tensor (operands checked, output allocated
-    here, launched on the current stream, counted in `launches`).  A K
-    that is not a multiple of 16 is zero-padded (exact) and a misaligned
-    operand copied, as the kernel's TMA loads need."""
+    and optional leaky epilogue, through the op `darknet_tpu_torch::
+    int8_matmul`: the plain version for a CPU tensor, the CUDA kernel for
+    a CUDA tensor (`int8_matmul_cuda`)."""
+    from darknet_tpu_torch.ops import library  # noqa: F401 (the ops)
+
+    _device_ok("int8_matmul", a_q)
+    return torch.ops.darknet_tpu_torch.int8_matmul.default(
+        a_q, b_q, w_scales, bias, _f32(x_scale, a_q.device).reshape(-1),
+        leaky)
+
+
+def int8_matmul_cuda(a_q, b_q, w_scales, bias, x_scale, *,
+                     leaky: bool = False):
+    """The op's CUDA backend: operands checked, output allocated here,
+    launched on the current stream, counted in `launches`.  A K that is
+    not a multiple of 16 is zero-padded (exact) and a misaligned operand
+    copied, as the kernel's TMA loads need."""
     global launches
-    if a_q.device.type == "cpu":
-        return int8_matmul_plain(a_q, b_q, w_scales, bias, x_scale,
-                                 leaky=leaky)
-    if a_q.device.type != "cuda":
-        raise ValueError(f"int8_matmul: no kernel for device {a_q.device}")
     if a_q.dim() != 2 or b_q.dim() != 2 or a_q.shape[1] != b_q.shape[1]:
         raise ValueError(f"int8_matmul takes (M, K) and (N, K), got "
                          f"{tuple(a_q.shape)} and {tuple(b_q.shape)}")
@@ -128,7 +143,6 @@ def int8_matmul(a_q, b_q, w_scales, bias, x_scale, *, leaky: bool = False):
             raise ValueError(f"int8_matmul: {name} must be int8 on "
                              f"{a_q.device}, got {t.dtype} on {t.device}")
     n = b_q.shape[0]
-    x_scale = _f32(x_scale, a_q.device).reshape(-1)
     _check_epilogue("int8_matmul", a_q.device, n, w_scales, bias, x_scale)
     from darknet_tpu_torch.ops.cuda import int8_gemm
 
@@ -183,22 +197,38 @@ def pad_channels(x_q, w_q, size, multiple: int = 128):
             F.pad(w_q.reshape(n, size * size, c), (0, c_pad)).reshape(n, -1))
 
 
+def full_padding(in_hw, size, stride, pad_lo, out_hw) -> tuple:
+    """((lo, hi), (lo, hi)) from the low edges: hi is what the last window
+    reads beyond the input (padding past it is never read)."""
+    return tuple((lo, max(0, (o - 1) * s + size - n - lo))
+                 for n, s, lo, o in zip(in_hw, stride, pad_lo, out_hw))
+
+
 def int8_conv(x_q, w_q, w_scale, bias, x_scale, *, size, stride, padding,
               out_hw, out_dtype=torch.float32, leaky: bool = False):
     """int8 conv: x_q (B, H, W, C) NHWC int8 and w_q (N, size*size*C) int8
     ((kh, kw, c) order) -> (B, OH, OW, N) in out_dtype (float32 or
     bfloat16) = epilogue of the exact int32 sums, cast, then leaky.
-    padding is darknet's ((lo, hi), (lo, hi)).  The plain version for a
-    CPU tensor; for a CUDA tensor the implicit-GEMM kernel, which reads
-    x_q in place (counted in `launches`).  A C that is not a multiple of
-    128 is zero-padded (`pad_channels`)."""
+    padding is darknet's ((lo, hi), (lo, hi)); the op takes the low edges
+    (the high ones follow from out_hw).  Through the op
+    `darknet_tpu_torch::int8_conv`: the plain version for a CPU tensor;
+    for a CUDA tensor the implicit-GEMM kernel (`int8_conv_cuda`)."""
+    from darknet_tpu_torch.ops import library  # noqa: F401 (the ops)
+
+    _device_ok("int8_conv", x_q)
+    return torch.ops.darknet_tpu_torch.int8_conv.default(
+        x_q, w_q, w_scale, bias, _f32(x_scale, x_q.device).reshape(-1),
+        size, stride, (padding[0][0], padding[1][0]), out_hw, out_dtype,
+        leaky)
+
+
+def int8_conv_cuda(x_q, w_q, w_scale, bias, x_scale, *, size, stride,
+                   pad_lo, out_hw, out_dtype=torch.float32,
+                   leaky: bool = False):
+    """The op's CUDA backend: the implicit-GEMM kernel, which reads x_q in
+    place (counted in `launches`).  A C that is not a multiple of 128 is
+    zero-padded (`pad_channels`) and a misaligned operand copied."""
     global launches
-    if x_q.device.type == "cpu":
-        return int8_conv_plain(x_q, w_q, w_scale, bias, x_scale, size=size,
-                               stride=stride, padding=padding, out_hw=out_hw,
-                               out_dtype=out_dtype, leaky=leaky)
-    if x_q.device.type != "cuda":
-        raise ValueError(f"int8_conv: no kernel for device {x_q.device}")
     if out_dtype not in (torch.float32, torch.bfloat16):
         raise ValueError(f"int8_conv writes float32 or bfloat16, not "
                          f"{out_dtype}")
@@ -212,7 +242,6 @@ def int8_conv(x_q, w_q, w_scale, bias, x_scale, *, size, stride, padding,
         raise ValueError(f"int8_conv takes (B, H, W, C) and (N, {size}*"
                          f"{size}*C), got {tuple(x_q.shape)} and "
                          f"{tuple(w_q.shape)}")
-    x_scale = _f32(x_scale, x_q.device).reshape(-1)
     _check_epilogue("int8_conv", x_q.device, n, w_scale, bias, x_scale)
     from darknet_tpu_torch.ops.cuda import int8_gemm
 
@@ -221,8 +250,7 @@ def int8_conv(x_q, w_q, w_scale, bias, x_scale, *, size, stride, padding,
                       device=x_q.device)
     int8_gemm.launch_conv(_aligned(x_q), _aligned(w_q), w_scale, bias,
                           x_scale, out, size=size, stride=stride,
-                          pad_lo=(padding[0][0], padding[1][0]),
-                          out_hw=out_hw, leaky=leaky)
+                          pad_lo=pad_lo, out_hw=out_hw, leaky=leaky)
     launches += 1
     return out
 

@@ -181,20 +181,22 @@ def benchmark_layers(graph, params, *, batch: int = 1, compute_dtype=None,
             np.float32)).to(device)
 
     def ms_per_call(f):
+        # the region step weights are made once, as a Network holds them
+        p = f.with_step_weights(params)
         with torch.inference_mode():
-            f(params, x)
+            f(p, x)
             if on_card:
                 start = torch.cuda.Event(enable_timing=True)
                 stop = torch.cuda.Event(enable_timing=True)
                 start.record()
                 for _ in range(iters):
-                    f(params, x)
+                    f(p, x)
                 stop.record()
                 torch.cuda.synchronize(device)
                 return start.elapsed_time(stop) / iters
             t0 = time.perf_counter()
             for _ in range(iters):
-                f(params, x)
+                f(p, x)
             return (time.perf_counter() - t0) / iters * 1000
 
     times = []

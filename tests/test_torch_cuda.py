@@ -42,6 +42,10 @@ narrow YOLOv1's heads and decode within 1e-5 of the CPU's (2e-5 for the
 decode's squared sizes), its steps as the narrow CSP graph's; the rare
 cfgs through the region kernel within 1e-4 of the CPU's; the quantized
 antialiased conv's int8 launch bitwise equal to its plain version.
+The serving artifact (`Network.export_serving`) of a lively yolov4 at
+64 px, bf16 and calibrated int8, exported, saved and loaded on the card:
+one region launch a request (and the int8 launches of the quantized
+convs), the triple bitwise equal to `submit_detect_device`'s.
 """
 
 import warnings
@@ -802,3 +806,40 @@ def test_pinned_bf16_upload_step_is_bitwise(cuda):
         for k in a:
             assert torch.equal(a[k], b[k]), k
     assert sent[1] * 2 == sent[0] == bx.nbytes
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("int8", [False, True])
+def test_export_round_trip_on_card(int8, cuda, tmp_path):
+    """export_serving on the card: the loaded program launches the region
+    kernel once a request, and the int8 GEMM once a quantized conv, and
+    returns submit_detect_device's triple bitwise."""
+    from darknet_tpu_torch.nn import network as tnetwork
+    from darknet_tpu_torch.weights import io as wio
+
+    cfg = model_zoo.yolov4_cfg(64, 64)
+    with warnings.catch_warnings():
+        warnings.simplefilter("ignore")
+        g = build_graph(cfg)
+        path = str(tmp_path / "w.weights")
+        wio.save_weights(g, lively_params(g), path)
+        net = Network.from_cfg(cfg, weights=path, int8=int8,
+                               compute_dtype=torch.bfloat16)
+    x = np.random.default_rng(2).uniform(0, 1, (2, 64, 64, 3)).astype(
+        np.float32)
+    if int8:
+        net.calibrate_int8(x)
+    n_q = sum("w_q" in p for p in net.params) if int8 else 0
+    live = net.submit_detect_device(x, thresh=0.1)
+    art = str(tmp_path / "serve.pt2")
+    net.export_serving(art, batch=2, thresh=0.1)
+    tnetwork._loaded.clear()
+    Network.run_exported_serving(art, x)                # load, build
+    torch.cuda.synchronize()
+    r0, q0 = cfr.launches, tqm.launches
+    got = Network.run_exported_serving(art, x)
+    torch.cuda.synchronize()
+    assert (cfr.launches - r0, tqm.launches - q0) == (1, n_q)
+    assert all(t.is_cuda for t in got)
+    for a, b in zip(live, got):
+        assert torch.equal(a, b)

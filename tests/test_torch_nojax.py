@@ -16,9 +16,13 @@ device path's ValueError, and the rare-kind cfgs) and steps it, without
 and with a generator; a seventh, with the same three blocked, imports
 `utils/debug`, `utils/profiler` and `apps/bench`, serves a yolov4-64
 request with region_int8 (107 quantized convs, no stem, no region kernel)
-under `debug_nans` and profiles it per layer; and no source of the port (`eval/` and `apps/`
-included), nor the chip scripts (chip_smoke.py, chip_int8_shapes.py,
-chip_region_tiles.py), imports any of the three."""
+under `debug_nans` and profiles it per layer; an eighth, with the same
+three blocked, loads and runs a serving artifact (`Network.
+export_serving`) and returns the exporting process's triple bitwise; and
+no source of the port (`eval/` and `apps/` included), nor the chip
+scripts (chip_smoke.py, chip_int8_shapes.py, chip_region_tiles.py),
+imports any of the three, nor does the port's C shim import a module
+outside darknet_tpu_torch (and numpy)."""
 
 import os
 import pathlib
@@ -405,6 +409,33 @@ print("TOOLS", len(rows))
 """
 
 
+BLOCKED_EXPORT = r"""
+import sys
+
+class Block:
+    def find_spec(self, name, path=None, target=None):
+        if name.split(".")[0] in ("jax", "jaxlib", "darknet_tpu"):
+            raise ImportError(f"blocked: {name}")
+        return None
+
+sys.meta_path.insert(0, Block())
+import numpy as np
+import torch
+torch.set_num_threads(2)
+from darknet_tpu_torch import Network
+
+art, frames, want = sys.argv[1:4]
+got = Network.run_exported_serving(art, np.load(frames))
+want = np.load(want)
+for g, k in zip(got, ("tb", "ov", "probs")):
+    assert np.array_equal(g.float().numpy(), want[k]), k
+bad = [m for m in sys.modules
+       if m.split(".")[0] in ("jax", "jaxlib", "darknet_tpu")]
+assert not bad, bad
+print("EXPORTED", int((got[2] > 0).sum()))
+"""
+
+
 def run_blocked(script, *args):
     env = dict(os.environ)
     env["PYTHONPATH"] = os.pathsep.join(
@@ -451,10 +482,47 @@ def test_tools_and_region_int8_with_jax_blocked():
     assert "TOOLS" in run_blocked(BLOCKED_TOOLS)
 
 
+def test_exported_artifact_runs_with_jax_blocked(tmp_path):
+    import warnings
+
+    import numpy as np
+
+    from darknet_tpu_torch import Network, model_zoo
+
+    with warnings.catch_warnings():
+        warnings.simplefilter("ignore")
+        net = Network.from_cfg(model_zoo.yolov4_tiny_cfg(64, 64), seed=0,
+                               device="cpu")
+    x = np.random.default_rng(0).uniform(0, 1, (2, 64, 64, 3)).astype(
+        np.float32)
+    art = str(tmp_path / "serve.pt2")
+    net.export_serving(art, batch=2, thresh=0.1, top_k=32)
+    tb, ov, probs = net.submit_detect_device(x, thresh=0.1, top_k=32)
+    np.save(tmp_path / "x.npy", x)
+    np.savez(tmp_path / "want.npz", tb=tb.numpy(), ov=ov.numpy(),
+             probs=probs.numpy())
+    assert "EXPORTED" in run_blocked(BLOCKED_EXPORT, art,
+                                     str(tmp_path / "x.npy"),
+                                     str(tmp_path / "want.npz"))
+
+
+def test_capi_imports_only_the_port():
+    import re
+
+    text = (REPO / "darknet_tpu_torch" / "capi" /
+            "darknet_tpu_torch_c.c").read_text()
+    mods = re.findall(r'PyImport_ImportModule\("([^"]+)"\)', text)
+    assert "darknet_tpu_torch.nn.network" in mods
+    assert all(m == "numpy" or m.startswith("darknet_tpu_torch.")
+               for m in mods), mods
+    assert "jax" not in text
+
+
 @pytest.mark.parametrize("path", sorted(
     p.relative_to(REPO).as_posix()
     for p in (REPO / "darknet_tpu_torch").rglob("*.py")) + [
-        "chip_smoke.py", "chip_int8_shapes.py", "chip_region_tiles.py"])
+        "chip_smoke.py", "chip_int8_shapes.py", "chip_region_tiles.py",
+        "chip_serve_ab.py"])
 def test_no_jax_import_in_source(path):
     text = (REPO / path).read_text()
     for line in text.splitlines():
