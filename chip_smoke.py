@@ -6,8 +6,8 @@ serve, resize, train and validate Gaussian YOLOv3, serve and train
 YOLOv1 and the rare layer kinds, run the CLI's bench, per-layer
 profile, debug and augmentation-sample flags, serve region_int8, train
 from pinned bf16 uploads, export the serving program and serve it from
-another process, run the C ABI twin and the walkthrough twins, and
-report.
+another process, run the C ABI twin and the walkthrough twins, train,
+serve and validate over data-parallel meshes, and report.
 
     python3 chip_smoke.py
 
@@ -27,8 +27,8 @@ Phases, each of which fails the run (non-zero exit) on any error:
      every request; one request uint8 (divided by 255 on the card) and
      one of its f32 copy divided on the host, whose served triples must
      be bitwise equal; one f32 request against the same
-     network with the plain region; bf16 img/s (median and spread of 5
-     windows of 50 requests after 30 untimed ones); at b=8, the serving
+     network with the plain region; bf16 img/s (median and spread of 3
+     windows of 20 requests after 30 untimed ones); at b=8, the serving
      shape, the bf16 kernel held to its plain version (one ulp, with the
      share of elements that differ), its time by CUDA events and by
      torch.profiler, the plain
@@ -55,7 +55,7 @@ Phases, each of which fails the run (non-zero exit) on any error:
      torch._int_mm's on the same operands and the bound; int8 img/s beside
      the bf16 rate of phase 4; a profile of one request;
   7. a JSON line of the kernels, then {"ok": true, "device": ...} last
-     (printed after phase 12);
+     (printed after phase 15);
   8. training (train/step, train/trainer), which launches neither kernel,
      as in the JAX package:
      (a) parity on the card: the narrow CSP + SPP graph (TRAIN_CSP_CFG,
@@ -65,15 +65,15 @@ Phases, each of which fails the run (non-zero exit) on any error:
          times what a 1e-7 change of the input moves the card's own run:
          the graph is chaotic in training); one bf16 step finite and close
          to the f32 step (loss within 1%, updates' cosine >= 0.99);
-     (b) full width: `data/synth` writes 256 images, `train_detector`
+     (b) full width: `data/synth` writes 128 images, `train_detector`
          trains yolov4-608 at its published batch=64, subdivisions=8,
-         mosaic, bf16 (act16), for 6 iterations: the first on the 608
+         mosaic, bf16 (act16), for 5 iterations: the first on the 608
          batch already in flight, then the 896 bucket that multi-scale
          forces while the loss is unset; the bucket, s/iter and img/s
-         over the 896 iterations after the first (the last, profiled,
-         left out), each loss, the peak memory, the loader's rate beside
-         the step's, a profile of the last iteration (device busy share,
-         top kernels); finite losses, nonzero batches, non-empty truths,
+         over the 896 iterations after the profiled third, each loss, the
+         peak memory, the loader's rate beside the step's, a profile of
+         the third iteration (device busy share, top kernels); finite
+         losses, nonzero batches, non-empty truths,
          moved rolling statistics, nonzero momentum buffers and no kernel
          launch are required;
      (c) train to serve: the saved .weights load through
@@ -84,7 +84,7 @@ Phases, each of which fails the run (non-zero exit) on any error:
          one bf16 request each, and one f32 request through the kernel
          against the plain region on probe params (equal kept sets once
          slots are matched by box); each cfg's region launches;
-     (b) yolov4-608 `-mode valid` through the CLI's main over 64 synth
+     (b) yolov4-608 `-mode valid` through the CLI's main over 32 synth
          images (a cut: synthetic images, and probe weights written as
          .weights whose objectness threshold .005 sits in a gap of the
          whole set's logits, 24 candidates an image and head, since at
@@ -94,8 +94,8 @@ Phases, each of which fails the run (non-zero exit) on any error:
          and the whole call's rate, and a bf16 network's beside them;
      (c) the same with -int8 -int8_calib 4 -calib_file: 91 int8 launches
          a batch;
-     (d) DetectorTrainer.evaluate_map (f32, batch 4) over 16 of the
-         images, before and after one training iteration: 4 region
+     (d) DetectorTrainer.evaluate_map (f32, batch 4) over 8 of the
+         images, before and after one training iteration: 2 region
          launches a call, a finite mAP, the time of each call;
  10. the video pipeline through the CLI's main (apps/cli, apps/tracker,
      apps/geo, apps/visualize, data/video), yolov4-608 f32 (the CLI's
@@ -128,7 +128,7 @@ Phases, each of which fails the run (non-zero exit) on any error:
          f32 request through the FFMA kernel against the plain region on
          probe params (kept sets equal once slots are matched by box), and
          the host path's detections and Detection.uc equal (rtol 1e-4);
-         bf16 img/s (5 windows of 50 requests after 30 untimed);
+         bf16 img/s (3 windows of 20 requests after 30 untimed);
      (b) int8 (63 quantized convs): a dynamic request (62 int8 launches:
          layer 12 stays in floating point inside the region), 4
          calibration frames, a calibrated request (63) with every
@@ -140,10 +140,10 @@ Phases, each of which fails the run (non-zero exit) on any error:
      (d) training: the narrow Gaussian graph (GAUSSIAN_TRAIN_CFG) on the
          card against the port's CPU run in phase 8 (a)'s form (chaotic:
          the yardstick bound), then train_detector at batch=64,
-         subdivisions=8 on synth images for 3 iterations: finite losses
+         subdivisions=8 on synth images for 2 iterations: finite losses
          and uc_loss, moved rolling statistics, nonzero momentum buffers,
          no kernel launch; s/iter, img/s, peak memory;
-     (e) `-mode valid` through the CLI over 32 synth images, f32, batch 8:
+     (e) `-mode valid` through the CLI over 16 synth images, f32, batch 8:
          one region launch a batch, a MapResult equal to the plain path's,
          the prediction rate.
 
@@ -156,14 +156,14 @@ Phases, each of which fails the run (non-zero exit) on any error:
          within V1_TOL_BF16 of f32, the [detection] decode on the card
          against the CPU's, detect_batch's eight empty lists and the
          device path's ValueError (no [yolo] head), no kernel launch (no
-         region is planned); bf16 img/s (5 windows of 50 requests);
+         region is planned); bf16 img/s (3 windows of 20 requests);
      (b) int8: 22 quantized convs, 22 launches a dynamic and a
          calibrated request, every quantized conv bitwise equal to the
          plain version; int8 img/s;
      (c) training: the narrow YOLOv1 (NARROW_V1_CFG) on the card against
          the port's CPU run in phase 8 (a)'s form, then train_detector at
          batch=64, subdivisions=8, bf16 on synth images for one epoch of
-         3 iterations, the dropout masks drawn from the trainer's
+         2 iterations, the dropout masks drawn from the trainer's
          generator on the card: finite losses, moved rolling statistics,
          nonzero momentum (the [local] and [connected] weights among
          them), no kernel launch; s/iter, img/s, peak memory; the saved
@@ -218,20 +218,52 @@ Phases, each of which fails the run (non-zero exit) on any error:
      (b) calibrated int8: the same, with 1 region and 91 int8 launches a
          request, and 1 region node and 91 int8_conv nodes in the
          exported graph;
-     (c) the artifact's img/s against eager's in 3 windows of 20
+     (c) the artifact's img/s against eager's in 1 window of 20
          requests each way, in turns, one request each way in a trace,
          and the host time of one torch.ops int8_conv call against its
          binding's;
      (d) the C ABI twin built with gcc and native/capi/demo.c linked
          against it on the card (DTPU_DEVICE=cuda), the fixture
          yolov3-tiny cfg: test_capi's lines;
-     (e) the walkthrough twins 01-04 on the card at their test sizes.
+     (e) the walkthrough twins 01-05 on the card at their test sizes (05
+         on a mesh naming the card twice: its ranks' weights equal).
      The kernels line gives the children's launches
      (`phase14_export_bf16_child`, `phase14_export_int8_child`).
+ 15. data parallelism (`--only parallel`; its own timing line),
+     yolov4-608:
+     (a) training at global batch 8, subdivisions 2, f32 (TF32 off), from
+         the seed's init: the step without a mesh; an NCCL world of one,
+         bitwise that step (deterministic algorithms); two gloo ranks
+         sharing the card (`parallel.multihost.spawn`), each on its block
+         of the batch: bitwise equal to each other, held to the
+         one-process step in phase 8 (a)'s form for a chaotic graph; the
+         step times of both and the all-reduces' share of a profiled
+         rank step;
+     (b) b=8 served in bf16, calibrated int8 and f32 on a mesh naming the
+         card twice: the region kernel at the blocks' shape (b=4) held to
+         its plain version as phase 1 holds it; 2 region launches a
+         request (and 2 x 91 int8, each bitwise its plain version on its
+         own operands), the triple bitwise each block's served alone, a
+         block of 4 through the f32 kernel keeping the plain regions'
+         set, and the kept set
+         the unsharded request's once slots are matched by box (f32 and
+         int8: equal; bf16, where cuDNN picks its algorithms by batch
+         size: every entry that differs traced to a threshold, overlap
+         or score-order decision of NMS that the two requests' pre-NMS
+         values take the other way, the score noise under bf16's own
+         against f32); the mesh's img/s against
+         the unsharded (bf16, int8), 3 windows each way in turns;
+     (c) `-mode valid -num_chips 2` through the CLI's main over 8 synth
+         images on probe weights, the mesh's devices named cuda:0 twice
+         (the card's one): 2 region launches a batch of 8, the one-device
+         MapResult.
+     The kernels line gives the mesh's launches (`phase15_mesh_bf16`,
+     `phase15_mesh_int8`, `phase15_mesh_valid`).
 
 `python3 chip_smoke.py --only video` (or `--only gaussian`, `--only v1`,
-`--only cli`, `--only export`) builds the kernels and runs phase 10 (11,
-12, 13, 14) alone (its last line is then not the contract's).
+`--only cli`, `--only export`, `--only parallel`) builds the kernels and
+runs phase 10 (11, 12, 13, 14, 15) alone (its last line is then not the
+contract's).
 
 Weights are random (numpy, seed 0); the training images are drawn from a
 seed into a temporary directory; no file outside the checkout is read.
@@ -264,8 +296,8 @@ TOL_BF16 = 2.0 ** -7
 SERVE_BATCH = 8
 SERVE_PX = 608
 RATE_WARMUP = 30         # untimed requests before the first window
-RATE_REQUESTS = 50       # requests per timed window (~3 s at b=8)
-RATE_WINDOWS = 5
+RATE_REQUESTS = 20       # requests per timed window (~1 s at b=8)
+RATE_WINDOWS = 3
 CHECKS = ((608, 2), (416, 1))        # (px, batch) of the yolov4 checks
 DEVICE = "cuda"
 KERNELS = ("fused_region", "int8_gemm")
@@ -296,8 +328,8 @@ GAUSS_CLASSES = 10
 GAUSS_INT8_CONVS = 63
 GAUSS_RESIZE = (416, 512, 608)
 GAUSS_TRAIN_IMAGES = 128
-GAUSS_TRAIN_ITERS = 3
-GAUSS_VALID_IMAGES = 32
+GAUSS_TRAIN_ITERS = 2
+GAUSS_VALID_IMAGES = 16
 # YOLOv1 (phase 12): 448 px, the serving batch; 22 of its 24 convs
 # quantize (min(c, n) >= 128: not the 3 -> 64 and 64 -> 192 openers).
 # bf16 rounds every layer's output (2^-9 relative), over 28 layers about
@@ -310,7 +342,7 @@ V1_PX = 448
 V1_INT8_CONVS = 22
 V1_TOL_BF16 = 5e-2
 V1_CLASSES = 20
-V1_TRAIN_ITERS = 3
+V1_TRAIN_ITERS = 2
 V1_TRAIN_IMAGES = 64 * V1_TRAIN_ITERS
 # batch seeds of the parity steps on the card: no leaky input of the
 # narrow YOLOv1's micro-batches, nor of RARE_COST_CFG's, lies within 1e-6
@@ -329,9 +361,9 @@ TOL_TRAIN = 2e-3
 YARDSTICK = 3.0
 YARDSTICK_V4 = 10.0       # yolov4's bound: this times its yardstick, capped
 CAP = 0.3                 # at CAP of the update (see the CPU step test)
-TRAIN_IMAGES = 256
+TRAIN_IMAGES = 128
 TRAIN_IMAGE_PX = ((416, 640), (416, 640))   # synth image sizes (w, h)
-TRAIN_ITERS = 6
+TRAIN_ITERS = 5
 TRAIN_LOADER_PROCS = 7
 TRAIN_PROFILED_ITER = 3    # the second on the 896 bucket; the end-to-end
                            # window is the iterations after it
@@ -341,23 +373,23 @@ TRAIN_PROFILED_ITER = 3    # the second on the 896 bucket; the end-to-end
 ZOO = {"yolov3": 1.2, "yolov3-spp": 1.2, "yolov3-tiny": 1.5,
        "yolov4-tiny": 1.5}
 ZOO_PX = 416
-VALID_IMAGES = 64
+VALID_IMAGES = 32
 VALID_BATCH = 8
 VALID_THRESH = 0.005      # validate_detector's detection threshold
 VALID_PASS = 24           # objectness candidates an image and head over it
 VALID_CLASSES = 80        # the published head width; synth labels use 0-3
-MAP_VALID_IMAGES = 16
+MAP_VALID_IMAGES = 8
 MAP_BATCH = 4             # DetectorTrainer.evaluate_map's batch
 # video (phase 10): the CLI's streaming modes on 1280x720 4:2:0 clips at
 # 30 fps, probe weights whose threshold passes VIDEO_PASS candidates a
 # frame and head; the card's letterbox held to the CPU's at the CPU
 # test's tolerance (tests/test_torch_apps_io.py)
 VIDEO_W, VIDEO_H, VIDEO_FPS = 1280, 720, 30
-VIDEO_FRAMES = 32
-VIDEO_SETS = 16           # multi-video frame sets (two cameras)
+VIDEO_FRAMES = 16
+VIDEO_SETS = 8            # multi-video frame sets (two cameras)
 VIDEO_THRESH = 0.25
 VIDEO_PASS = 8
-VIDEO_SPLIT_FRAMES = 17   # the first is left out of the medians
+VIDEO_SPLIT_FRAMES = VIDEO_FRAMES   # the clip; its first frame is left out of the medians
 LETTERBOX_TOL = 2e-6
 
 NARROW_CSP_CFG = """[net]
@@ -3736,7 +3768,7 @@ def v1_rare(card):
 
 CLI_BENCH_BATCH = 8        # phase 13 (a): -mode bench at b=8, no training
 REGION_INT8_CONVS = 107    # INT8_CONVS + the 16 region convs without w_q
-CLI_RATE = dict(warmup=5, windows=3, requests=20)
+CLI_RATE = dict(warmup=2, windows=2, requests=10)
 CLI_VALID_IMAGES = 8
 CLI_SHOW_TRAIN = 8         # phase 13 (f): images, two batches of 4
 TOL_TRACE = 0.10           # the trace report against CUDA events
@@ -4199,11 +4231,11 @@ def cli_phase(card, root):
 
 # phase 14: the serving artifact (Network.export_serving) of yolov4-608
 # at b=8, loaded in a child process that imports only darknet_tpu_torch;
-# the rates of the artifact against eager serving (3 windows of 20
+# the rates of the artifact against eager serving (1 window of 20
 # requests each way, interleaved), the op dispatch's host cost, the C ABI
 # twin and the walkthrough twins at their test sizes
 EXPORT_RATE = dict(warmup=2, windows=1, requests=20)
-EXPORT_ROUNDS = 3         # windows each way, eager and artifact in turns
+EXPORT_ROUNDS = 1         # windows each way, eager and artifact in turns
 EXPORT_CHILD_REQUESTS = 2
 DISPATCH_CALLS = 200
 EXPORT_CHILD = r"""
@@ -4437,8 +4469,9 @@ def run_capi(root):
 
 
 def run_walkthroughs(root):
-    """The walkthrough twins 01-04 on the card at their test sizes, in one
-    workdir: 01, then 02-04 together.  Returns their outputs."""
+    """The walkthrough twins 01-05 on the card at their test sizes, in one
+    workdir: 01, then 02-05 together (05 on a mesh naming the card twice:
+    two gloo ranks).  Returns their outputs."""
     here = os.path.dirname(os.path.abspath(__file__))
     ex = os.path.join(here, "darknet_tpu_torch", "examples")
     work = os.path.join(root, "shapes_demo")
@@ -4459,20 +4492,29 @@ def run_walkthroughs(root):
                                    "--images", "48"))}
     procs = {"02": start("02_detect.py", "--thresh", "0.01"),
              "03": start("03_serving_export.py", "--batch", "4"),
-             "04": start("04_video_tracking.py")}
+             "04": start("04_video_tracking.py"),
+             "05": start("05_multichip.py", "--thresh", "0.01")}
     outs.update({k: done(k, p) for k, p in procs.items()})
     marks = {"01": ("final EMA loss:", "mAP@0.5"), "02": ("JSON:",),
              "03": ("img/s", "torch.export artifact"),
-             "04": ("output video:",)}
+             "04": ("output video:",),
+             "05": ("the same boxes as one device", "weights digest")}
     files = {"01": "backup/shapes_final.weights", "02": "detections.png",
-             "03": "shapes_serving.pt2", "04": "tracking.y4m"}
+             "03": "shapes_serving.pt2", "04": "tracking.y4m",
+             "05": "backup/shapes_final.weights"}
     for k, out in outs.items():
         require(all(m in out for m in marks[k])
                 and os.path.exists(os.path.join(work, files[k])),
                 f"walkthrough {k}: {out[-1500:]}")
-    lines = [ln for k in ("01", "03", "04") for ln in outs[k].splitlines()
-             if "mAP@0.5" in ln or "img/s" in ln or "fps" in ln]
-    print(f"walkthrough twins 01-04 on the card in "
+    digests = {ln.split("weights digest ")[1]
+               for ln in outs["05"].splitlines() if "weights digest" in ln}
+    require(len(digests) == 1, f"walkthrough 05: the ranks' weights differ: "
+            f"{outs['05'][-1500:]}")
+    lines = [ln for k in ("01", "03", "04", "05")
+             for ln in outs[k].splitlines()
+             if "mAP@0.5" in ln or "img/s" in ln or "fps" in ln
+             or "mesh serving" in ln]
+    print(f"walkthrough twins 01-05 on the card in "
           f"{time.perf_counter() - t0:.2f} s: " + " | ".join(lines),
           flush=True)
 
@@ -4618,6 +4660,699 @@ def export_phase(card, root):
             for label in ("bf16", "int8")}
 
 
+# data parallelism (phase 15): yolov4-608 trained over two gloo ranks that
+# share the one card (global batch 8, subdivisions 2: micro-batches of 4,
+# 2 a rank) and served on a mesh that names the card twice
+PAR_DEVICES = ("cuda:0", "cuda:0")
+PAR_BATCH = 8
+PAR_ACCUM = 2
+PAR_SEED = 15
+PAR_TIMED_STEPS = 5
+PAR_RATE = dict(warmup=2, windows=1, requests=20)
+PAR_ROUNDS = 3            # windows each way, unsharded and mesh in turns
+PAR_VALID_IMAGES = 8
+
+
+def par_train_cfg() -> str:
+    """yolov4-608 at the global batch and subdivisions of phase 15, burn_in
+    0 (so that the first step moves the weights)."""
+    from darknet_tpu_torch import model_zoo
+
+    text = model_zoo.yolov4_cfg(SERVE_PX, SERVE_PX)
+    lines = []
+    for ln in text.splitlines():
+        key = ln.split("=")[0].strip()
+        if key == "batch":
+            ln = f"batch={PAR_BATCH}"
+        elif key == "subdivisions":
+            ln = f"subdivisions={PAR_ACCUM}"
+        elif key == "burn_in":
+            ln = "burn_in=0"
+        lines.append(ln)
+    return "\n".join(lines) + "\n"
+
+
+class deterministic:
+    """cuDNN's deterministic algorithms and torch's deterministic
+    scatters inside the block, restored after it."""
+
+    def __enter__(self):
+        import torch
+
+        self.prev = (torch.backends.cudnn.deterministic,
+                     torch.are_deterministic_algorithms_enabled())
+        torch.backends.cudnn.deterministic = True
+        torch.use_deterministic_algorithms(True, warn_only=True)
+
+    def __exit__(self, *exc):
+        import torch
+
+        torch.backends.cudnn.deterministic = self.prev[0]
+        torch.use_deterministic_algorithms(self.prev[1])
+
+
+def par_stepper(graph, mesh=None):
+    """One f32 step (TF32 off) on the card from a numpy state (params,
+    momentum, counter), through make_dp_train_step where `mesh` is given,
+    on the rows it is handed: (state after, cost)."""
+    import torch
+
+    from darknet_tpu_torch.nn import params as paramlib
+    from darknet_tpu_torch.parallel import make_dp_train_step
+    from darknet_tpu_torch.train.step import make_train_step
+
+    step = make_train_step(graph, accum=PAR_ACCUM) if mesh is None else \
+        make_dp_train_step(graph, mesh, accum=PAR_ACCUM)
+
+    def run(state, x, y):
+        params, u, t = state
+        p = paramlib.train_params_to_torch(graph, params, DEVICE)
+        o = {"t": t, "u": paramlib.numpy_to_train_layout(graph, u, DEVICE)}
+        p, o, c, _m = step(p, o, torch.from_numpy(x).to(DEVICE),
+                           torch.from_numpy(y).to(DEVICE), graph.net.lr)
+        return ((paramlib.train_params_to_numpy(graph, p),
+                 paramlib.train_params_to_numpy(graph, o["u"]), o["t"]),
+                float(c))
+    return run, step
+
+
+def par_step_ms(graph, step, p, o, xt, yt, profile_it=False):
+    """Host ms of each of PAR_TIMED_STEPS steps (synchronised) on the
+    state (p, o) on the card, after steps of these shapes have run (no
+    warm-up here); with profile_it, also (the step's wall ms, the ms with
+    an all-reduce in flight, the all-reduces' count, their spans by name)
+    from a trace of one more step."""
+    import torch
+
+    ms = []
+    for _ in range(PAR_TIMED_STEPS):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        p, o, c, _m = step(p, o, xt, yt, graph.net.lr)
+        float(c)
+        torch.cuda.synchronize()
+        ms.append((time.perf_counter() - t0) * 1e3)
+    if not profile_it:
+        return ms, None
+    from torch.profiler import ProfilerActivity, profile
+
+    # host activity only: the spans read below are host spans, and the
+    # device's kernel events (tens of thousands a step) would only slow
+    # the trace
+    with profile(activities=[ProfilerActivity.CPU]) as prof:
+        t0 = time.perf_counter()
+        p, o, c, _m = step(p, o, xt, yt, graph.net.lr)
+        float(c)
+        torch.cuda.synchronize()
+        wall = (time.perf_counter() - t0) * 1e3
+    # the all-reduces' host spans (the c10d op on the step's thread, gloo's
+    # on its own threads), read from the trace's raw events (building the
+    # event tree of a step's host ops takes longer than the step): the
+    # step's time with one in flight is the union of their intervals
+    names: dict = {}
+    spans = []
+    for e in prof.profiler.kineto_results.events():
+        name = e.name()
+        if "allreduce" in name.replace("_", "").lower():
+            start, dur = e.start_ns() / 1e3, e.duration_ns() / 1e3
+            n, us = names.get(name, (0, 0.0))
+            names[name] = (n + 1, us + dur)
+            spans.append((start, start + dur))
+    coll, reach = 0.0, None
+    for start, end in sorted(spans):
+        if reach is None or start > reach:
+            coll, reach = coll + end - start, end
+        elif end > reach:
+            coll, reach = coll + end - reach, end
+    n_ops = sum(n for k, (n, _us) in names.items() if k.startswith("c10d::"))
+    return ms, (wall, coll / 1e3, n_ops,
+                {k: [n, round(us / 1e3, 1)] for k, (n, us) in names.items()})
+
+
+def state_digest(state) -> str:
+    import hashlib
+
+    h = hashlib.sha256()
+    for tree in state[:2]:
+        for d in tree:
+            for k in sorted(d):
+                h.update(k.encode())
+                h.update(np.ascontiguousarray(d[k]).tobytes())
+    return h.hexdigest()
+
+
+def parallel_rank(rank, root, cfg_text):
+    """One of phase 15's two gloo ranks on the card: the data-parallel
+    step from the seed's state on this rank's block of the global batch
+    (rank 0 writes the state after it), then the timed and the profiled
+    steps; each rank writes its digest, cost and times, and the seconds
+    of each stage of its run (`stages`)."""
+    t_in = time.perf_counter()
+    import torch
+
+    from darknet_tpu_torch.nn import params as paramlib
+    from darknet_tpu_torch.parallel import make_mesh
+    from darknet_tpu_torch.parallel.multihost import process_batch_slice
+    from darknet_tpu_torch.train.step import init_opt_state
+
+    mesh = make_mesh(devices=list(PAR_DEVICES))
+    g = quiet_graph(cfg_text, train=True)
+    x, y = train_batch(g, PAR_BATCH, PAR_SEED)
+    s, n = process_batch_slice(PAR_BATCH)
+    step = par_stepper(g, mesh)[1]
+    # the seed's state on the card: params, zero momentum, counter 0
+    p = paramlib.train_params_to_torch(g, paramlib.init_params(g, seed=0),
+                                       DEVICE)
+    o = init_opt_state(g, p)
+    xt = torch.from_numpy(x[s:s + n]).to(DEVICE)
+    yt = torch.from_numpy(y[s:s + n]).to(DEVICE)
+    t0 = time.perf_counter()
+    stages = {"set-up": t0 - t_in}
+    p, o, c, _m = step(p, o, xt, yt, g.net.lr)
+    cost = float(c)
+    first_s = stages["first step"] = time.perf_counter() - t0
+    state = (paramlib.train_params_to_numpy(g, p),
+             paramlib.train_params_to_numpy(g, o["u"]), o["t"])
+    if rank == 0:
+        np.savez(os.path.join(root, "dp_state.npz"), **{
+            f"{w}/{i}/{k}": v for w, tree in (("p", state[0]),
+                                              ("u", state[1]))
+            for i, d in enumerate(tree) for k, v in d.items()})
+    t0 = time.perf_counter()
+    stages["state out"] = t0 - t_in - sum(stages.values())
+    # every rank steps under the profiler: the step's collectives need
+    # both ranks
+    ms, prof = par_step_ms(g, step, p, o, xt, yt, profile_it=True)
+    stages["timed steps"] = sum(ms) / 1e3
+    stages["profiled step and its events"] = \
+        time.perf_counter() - t0 - stages["timed steps"]
+    with open(os.path.join(root, f"dp_rank{rank}.json"), "w") as f:
+        json.dump({"digest": state_digest(state), "cost": cost,
+                   "t": state[2], "first_s": first_s, "ms": ms,
+                   "profile": prof,
+                   "stages": {k: round(v, 2) for k, v in stages.items()}},
+                  f)
+
+
+def phase_parallel(card):
+    """Phase 15 (`--only parallel`): data parallelism at full width."""
+    t_phase = time.perf_counter()
+    root = tempfile.mkdtemp(prefix="chip_smoke_parallel_")
+    try:
+        out = {"train": parallel_train(card, root)}
+        out.update(parallel_serve(card, root))
+        out["valid"] = parallel_valid(card, root)
+    finally:
+        shutil.rmtree(root, ignore_errors=True)
+    print(f"phase 15 (data parallelism) in "
+          f"{time.perf_counter() - t_phase:.1f} s ({card})", flush=True)
+    return out
+
+
+def parallel_train(card, root):
+    """Phase 15 (a): yolov4-608, global batch 8, subdivisions 2, f32 with
+    TF32 off, the seed's init: the single-process step; an NCCL world of
+    one, bitwise that step (deterministic algorithms); then two gloo ranks
+    on the card, each on its block, held to the single-process step in
+    phase 8 (a)'s form for a chaotic graph (ten yardsticks of the card's
+    own response to a 1e-7 input change, capped at 30% of the update),
+    the ranks bitwise equal; the times of both, the all-reduces' share of
+    a profiled rank step."""
+    import torch
+    import torch.distributed as dist
+
+    from darknet_tpu_torch.nn import params as paramlib
+    from darknet_tpu_torch.parallel import make_mesh
+    from darknet_tpu_torch.parallel.multihost import free_port, spawn
+    from darknet_tpu_torch.train.step import init_opt_state
+
+    cfg_text = par_train_cfg()
+    g = quiet_graph(cfg_text, train=True)
+    p0 = paramlib.init_params(g, seed=0)
+    x, y = train_batch(g, PAR_BATCH, PAR_SEED)
+    noise = np.random.default_rng(99).standard_normal(x.shape)
+    x_eps = (x * (1 + 1e-7 * noise)).astype(np.float32)
+    state0 = train_state0(g, p0)
+    run, step = par_stepper(g)
+    t0 = time.perf_counter()
+    with deterministic():
+        ref, c_ref = run(state0, x, y)
+        dist.init_process_group("nccl", init_method=f"tcp://localhost:"
+                                f"{free_port()}", world_size=1, rank=0)
+        try:
+            mesh1 = make_mesh(devices=[DEVICE])
+            one, c_one = par_stepper(g, mesh1)[0](state0, x, y)
+        finally:
+            dist.destroy_process_group()
+    same = state_digest(one) == state_digest(ref) and c_one == c_ref
+    print(f"(a) yolov4-{SERVE_PX} batch {PAR_BATCH} subdivisions "
+          f"{PAR_ACCUM} f32: an NCCL world of one bitwise the step without "
+          f"a mesh: {same} (costs {c_one}, {c_ref})", flush=True)
+    require(same, "an NCCL world of one is the step without a mesh")
+    eps, _ = run(state0, x_eps, y)
+    p = paramlib.train_params_to_torch(g, p0, DEVICE)
+    single_ms, _ = par_step_ms(g, step, p, init_opt_state(g, p),
+                               torch.from_numpy(x).to(DEVICE),
+                               torch.from_numpy(y).to(DEVICE))
+    del p
+    print(f"single-process steps: {time.perf_counter() - t0:.1f} s", flush=True)
+    del step, run
+    torch.cuda.empty_cache()
+
+    t0 = time.perf_counter()
+    spawn(parallel_rank, PAR_DEVICES, root, cfg_text, timeout_s=900)
+    spawn_s = time.perf_counter() - t0
+    ranks = []
+    for r in range(len(PAR_DEVICES)):
+        with open(os.path.join(root, f"dp_rank{r}.json")) as f:
+            ranks.append(json.load(f))
+    z = np.load(os.path.join(root, "dp_state.npz"))
+    dp = ([{k: z[f"p/{i}/{k}"] for k in d} for i, d in enumerate(p0)],
+          [{k: z[f"u/{i}/{k}"] for k in d} for i, d in enumerate(state0[1])])
+    require(len({r["digest"] for r in ranks}) == 1 and
+            len({r["cost"] for r in ranks}) == 1,
+            "the two ranks end the step bitwise equal")
+    line = []
+    for what, i, keys in (("updates", 0, ("w", "b", "scales")),
+                          ("stats", 0, ("mean", "var")),
+                          ("momentum", 1, ("w", "b", "scales"))):
+        err, scale = update_gap(dp[i], ref[i], state0[i], keys)
+        yard, _ = update_gap(ref[i], eps[i], state0[i], keys)
+        line.append(f"{what} err {err:.3g} of {scale:.3g} (1e-7 input "
+                    f"change: {yard:.3g})")
+        require(scale > 0 and err <= min(YARDSTICK_V4 * yard + 1e-4 * scale,
+                                         CAP * scale),
+                f"the data-parallel step's {what} agree with one process's")
+    dp_ms = [max(a, b) for a, b in zip(ranks[0]["ms"], ranks[1]["ms"])]
+    wall, coll, n_coll, names = ranks[0]["profile"]
+
+    def spread(ms):
+        return (f"{', '.join(f'{m:.1f}' for m in ms)}: median "
+                f"{np.median(ms):.1f}, spread "
+                f"{(max(ms) - min(ms)) / np.median(ms):.1%}")
+    print(f"(a) two gloo ranks on {PAR_DEVICES} (blocks of "
+          f"{PAR_BATCH // 2}), held to one process: cost {ranks[0]['cost']:.6g}"
+          f" against {c_ref:.6g}; " + "; ".join(line) + "; the ranks bitwise "
+          f"equal: True", flush=True)
+    print(f"(a) step ms at global batch {PAR_BATCH} ({card}), "
+          f"{PAR_TIMED_STEPS} steps each: one process {spread(single_ms)}; "
+          f"two ranks {spread(dp_ms)} "
+          f"({np.median(dp_ms) / np.median(single_ms):.2f}x the medians); "
+          f"a profiled rank step {wall:.1f} ms, of which {n_coll} "
+          f"all-reduces in flight {coll:.1f} ms ({coll / wall:.1%}; the "
+          f"spans' count and ms by name {names}); the spawned world "
+          f"{spawn_s:.1f} s, rank 0's stages in s {ranks[0]['stages']}",
+          flush=True)
+    return {"single_ms": single_ms, "dp_ms": dp_ms, "coll_share": coll / wall}
+
+
+class int8_records:
+    """Inside the block, every int8_conv (its operands and output)
+    recorded, for `bitwise_to_plain` after the block."""
+
+    def __enter__(self):
+        from darknet_tpu_torch.ops import conv as convmod
+
+        self.records, self.orig = [], convmod.int8_conv
+        orig = self.orig
+
+        def recorded(x_q, w_q, ws, bias, xs, **kw):
+            y = orig(x_q, w_q, ws, bias, xs, **kw)
+            self.records.append(((x_q, w_q, ws, bias, xs), kw, y))
+            return y
+
+        convmod.int8_conv = recorded
+        return self
+
+    def __exit__(self, *exc):
+        from darknet_tpu_torch.ops import conv as convmod
+
+        convmod.int8_conv = self.orig
+
+    def bitwise_to_plain(self):
+        """(The recorded launches bitwise equal to the plain version on
+        their operands (no kernel launch), their count); the records go."""
+        import torch
+
+        from darknet_tpu_torch.ops import quant_matmul as qm
+
+        n_eq = sum(bool(torch.equal(y, qm.int8_conv_plain(*ops, **kw)))
+                   for ops, kw, y in self.records)
+        n, self.records = len(self.records), []
+        return n_eq, n
+
+
+def score_noise(a_pre, b_pre):
+    """Two requests' pre-NMS triples (nms=0) with b's slots matched to
+    a's by box: (the slot match, a's candidates that b holds too, the
+    largest score difference over entries both pass, the largest box
+    difference over the candidates both hold)."""
+    ta = a_pre[0].float().cpu().numpy()
+    tb = b_pre[0].float().cpu().numpy()
+    d = np.abs(ta[:, :, None, :] - tb[:, None, :, :]).max(-1)
+    slot = d.argmin(-1)
+    pa = a_pre[2].float().cpu().numpy()
+    pb = np.take_along_axis(b_pre[2].float().cpu().numpy(),
+                            slot[..., None], 1)
+    # a candidate of a that b holds: b's nearest box is live and near
+    live_b = np.take_along_axis(b_pre[1].float().cpu().numpy() > 0, slot, 1)
+    held = live_b & (a_pre[1].float().cpu().numpy() > 0) \
+        & (np.take_along_axis(d, slot[..., None], 2)[..., 0] <= 1.0)
+    both = (pa > 0) & (pb > 0) & held[..., None]
+    tol_p = float(np.abs(pa - pb)[both].max()) if both.any() else 0.0
+    box = np.take_along_axis(tb, slot[..., None], 1)
+    tol_box = float(np.abs(ta - box)[held].max()) if held.any() else 0.0
+    return slot, held, tol_p, tol_box
+
+
+def flips_explained(a, a_pre, b, b_pre, thresh, nms, kind, beta):
+    """The kept entries (image, slot, class) of request a that request b
+    does not keep the same way, slots matched by box, each traced to a
+    decision that the two requests' pre-NMS triples (`a_pre`, `b_pre`,
+    nms=0) took the other way: the threshold (one score passes, and by
+    no more than the score noise), an NMS overlap with a same-class
+    rival (over `nms` in one, not in the other), the score order with an
+    overlapping rival, or a chain (an overlapping rival is itself a
+    traced difference).  Returns (the differing entries, their reasons,
+    the unexplained, the score noise)."""
+    from darknet_tpu_torch.ops import nms as nmslib
+
+    slot, held, tol_p, _tol_box = score_noise(a_pre, b_pre)
+    pa = a_pre[2].float().cpu().numpy()
+    pb = np.take_along_axis(b_pre[2].float().cpu().numpy(),
+                            slot[..., None], 1) * held[..., None]
+    ka = a[2].float().cpu().numpy() > 0
+    kb = (np.take_along_axis(b[2].float().cpu().numpy(), slot[..., None], 1)
+          > 0) & held[..., None]
+    ta = a_pre[0].float().cpu().numpy()
+    tb = np.take_along_axis(b_pre[0].float().cpu().numpy(), slot[..., None],
+                            1)
+
+    def sim(t):
+        if kind == "greedynms":
+            return nmslib._np_iou(t[:, None], t[None])
+        return nmslib._np_diou(t[:, None], t[None], beta)
+
+    diff = set(zip(*np.nonzero(ka != kb)))
+    sims = {i: (sim(ta[i]) > nms, sim(tb[i]) > nms)
+            for i in {e[0] for e in diff}}
+    reasons = {}
+    grew = True
+    while grew:
+        grew = False
+        for e in sorted(diff - reasons.keys()):
+            i, k, c = e
+            passed = [v for v in (pa[e], pb[e]) if v > 0]
+            why = None
+            if len(passed) == 1 and passed[0] <= thresh + tol_p:
+                why = "threshold"
+            over_a, over_b = sims[i]
+            for f in np.nonzero((pa[i, :, c] > 0) | (pb[i, :, c] > 0))[0]:
+                if why is not None:
+                    break
+                if f == k or not (over_a[k, f] or over_b[k, f]):
+                    continue
+                if over_a[k, f] != over_b[k, f]:
+                    why = "overlap"
+                elif (pa[i, k, c] > pa[i, f, c]) != (pb[i, k, c]
+                                                     > pb[i, f, c]):
+                    why = "order"
+                elif (i, f, c) in reasons:
+                    why = "chain"
+            if why is not None:
+                reasons[e] = why
+                grew = True
+    return diff, reasons, sorted(diff - reasons.keys()), tol_p
+
+
+def parallel_serve(card, root):
+    """Phase 15 (b): yolov4-608 b=8, bf16, calibrated int8 and f32, served
+    on a mesh naming the card twice: the region kernel at the blocks'
+    shape against its plain version (phase 1's check), the launches of a
+    request (each kernel once a block), each int8 launch bitwise its
+    plain version, the triple bitwise that of each block served alone,
+    an f32 block of 4 against the plain regions, the kept detections the
+    unsharded
+    request's once slots are matched by box (bf16: each difference
+    traced to a decision within the noise, `flips_explained`), and the
+    mesh's img/s against the unsharded (bf16, int8)."""
+    import torch
+
+    from darknet_tpu_torch import Network, model_zoo
+    from darknet_tpu_torch.nn import params as paramlib
+    from darknet_tpu_torch.ops import quant_matmul as qm
+    from darknet_tpu_torch.ops.cuda import fused_region as kfr
+    from darknet_tpu_torch.parallel import make_mesh
+    from darknet_tpu_torch.weights import io as wio
+
+    cfg_text = model_zoo.yolov4_cfg(SERVE_PX, SERVE_PX)
+    cfg = os.path.join(root, "yolov4.cfg")
+    with open(cfg, "w") as f:
+        f.write(cfg_text)
+    rng = np.random.default_rng(PAR_SEED)
+    shape = (SERVE_BATCH, SERVE_PX, SERVE_PX, 3)
+    frames = rng.uniform(0, 1, shape).astype(np.float32)
+    g = quiet_graph(cfg_text)
+    probe = Network(g, paramlib.params_to_torch(
+        g, probe_params(g), DEVICE, torch.bfloat16),
+        compute_dtype=torch.bfloat16, device=DEVICE)
+    with torch.inference_mode():
+        raw = probe._fwd(probe.params,
+                         torch.from_numpy(frames).to(DEVICE))["raw_heads"]
+    bias = obj_bias_for([h.float() for h in raw], 0.25,
+                        PROBE_PASS * SERVE_BATCH)
+    del probe, raw
+    weights = os.path.join(root, "probe.weights")
+    wio.save_weights(g, unfolded(g, probe_params(g, obj_bias=bias)), weights)
+    nets = {}
+    with warnings.catch_warnings():
+        warnings.simplefilter("ignore")
+        for label in ("bf16", "int8"):
+            nets[label] = Network.from_cfg(cfg, weights=weights,
+                                           int8=label == "int8",
+                                           compute_dtype=torch.bfloat16,
+                                           device=DEVICE)
+        nets["f32"] = Network.from_cfg(cfg, weights=weights, device=DEVICE)
+    # the f32 network's params through the plain regions
+    plain = Network(nets["f32"].graph, nets["f32"].params,
+                    fused=nets["f32"].fused, device=DEVICE,
+                    fuse_regions="plain")
+    nets["int8"].calibrate_int8([rng.uniform(0, 1, shape[1:]).astype(
+        np.float32) for _ in range(INT8_CALIB_FRAMES)])
+    mesh = make_mesh(devices=list(PAR_DEVICES))
+    n = len(PAR_DEVICES)
+    per = SERVE_BATCH // n
+    # the region kernel against its plain version at the mesh's block
+    # shape, as phase 1 holds it at b=2 and b=8
+    with torch.backends.cudnn.flags(enabled=True, allow_tf32=False):
+        checks = [check_region(f"yolov4-{SERVE_PX}-prefix", g, per, dt,
+                               seed=SERVE_PX)
+                  for dt in (torch.float32, torch.bfloat16)]
+    require(all(c["ok"] for c in checks), f"the region kernel at blocks "
+            f"of {per} agrees with its plain version")
+    out = {}
+    with torch.inference_mode():
+        pre = {"f32": nets["f32"].submit_detect_device(frames, nms=0)}
+    for label, net in nets.items():
+        with torch.inference_mode():
+            whole = net.submit_detect_device(frames)
+            blocks = [net.submit_detect_device(frames[i * per:(i + 1) * per])
+                      for i in range(n)]
+            torch.cuda.synchronize()
+            with int8_records() as rec:
+                kfr.launches = qm.launches = 0
+                got = net.submit_detect_device(frames, mesh=mesh)
+                torch.cuda.synchronize()
+                launches = (kfr.launches, qm.launches)
+            if label == "bf16":
+                pre["bf16"] = net.submit_detect_device(frames, nms=0)
+                pre["mesh"] = net.submit_detect_device(frames, nms=0,
+                                                       mesh=mesh)
+        want = (n, n * INT8_CONVS if label == "int8" else 0)
+        require(launches == want, f"mesh {label}: {want} (region, int8) "
+                f"launches a request, got {launches}")
+        if label == "int8":
+            with torch.inference_mode():
+                q_eq, q_n = rec.bitwise_to_plain()
+            print(f"(b) mesh int8: {q_eq} of the request's {q_n} int8 "
+                  f"launches (blocks of {per}) bitwise equal to the plain "
+                  f"version on their operands", flush=True)
+            require(q_eq == q_n == launches[1], "mesh int8: every int8 "
+                    "launch of the request bitwise its plain version")
+        same = all(torch.equal(a, torch.cat(parts))
+                   for a, parts in zip(got, zip(*blocks)))
+        require(same, f"mesh {label}: the triple is each block's served alone")
+        ka, kb, box_err = kept_matched(got, whole)
+        diff = sorted(ka ^ kb)
+        sa = got[2].float().cpu().numpy()
+        print(f"(b) mesh {label}: kept {len(ka)} against the unsharded "
+              f"{len(kb)}, {len(diff)} differ: " + ", ".join(
+                  f"{tuple(map(int, d))} p={float(sa[d]):.5g} "
+                  f"obj={float(got[1][d[:2]]):.5g}"
+                  for d in diff[:12]), flush=True)
+        if label == "bf16":
+            # bf16 rounds a conv's sum once, and cuDNN picks the algorithm
+            # by batch size: a decision near the threshold or NMS's
+            # overlap may go the other way in a block of 4 than in the
+            # batch of 8 (the blocks served alone without a mesh do the
+            # same: the triple above is theirs bitwise); both ways, every
+            # such difference is traced to the decision that flipped, and
+            # the score noise is held under bf16's own against f32
+            args = (0.25, 0.45, net._nms_kind, net._nms_beta)
+            fwd = flips_explained(got, pre["mesh"], whole, pre["bf16"], *args)
+            bwd = flips_explained(whole, pre["bf16"], got, pre["mesh"], *args)
+            yard_p = score_noise(pre["bf16"], pre["f32"])[2]
+            _s, _h, noise_p, noise_box = score_noise(pre["mesh"], pre["bf16"])
+            why = {}
+            for r in (fwd[1], bwd[1]):
+                for v in r.values():
+                    why[v] = why.get(v, 0) + 1
+            print(f"(b) mesh bf16: differences traced (both ways) {why}, "
+                  f"unexplained {fwd[2] + bwd[2]}; pre-NMS score noise "
+                  f"{noise_p:.4g} (bf16 against f32 at the batch of 8: "
+                  f"{yard_p:.4g}), boxes {noise_box:.4g} px", flush=True)
+            require(not fwd[2] and not bwd[2] and noise_p <= yard_p,
+                    "mesh bf16: every kept difference traced to a decision "
+                    "that flipped, the score noise under bf16's own")
+        else:
+            require(len(ka) > 0 and ka == kb, f"mesh {label}: the kept "
+                    f"detections are the unsharded request's "
+                    f"({len(diff)} differ)")
+        dets = Network.device_out_to_dets(*got)
+        out[label] = {"launches": launches}
+        if label == "f32":
+            # the mesh's block of 4 through the kernel against the plain
+            # regions, slots matched by box
+            with torch.inference_mode():
+                pb4 = plain.submit_detect_device(frames[:per])
+            k4, p4, err4 = kept_matched(blocks[0], pb4)
+            print(f"(b) mesh f32 ({card}): {launches[0]} region launches a "
+                  f"request; the triple bitwise each block's alone: {same}; "
+                  f"kept {len(ka)} = the unsharded request's (boxes within "
+                  f"{box_err:.3g}); a block of {per} through the kernel "
+                  f"keeps {len(k4)}, the plain regions {len(p4)} (boxes "
+                  f"within {err4:.3g})", flush=True)
+            require(len(k4) > 0 and k4 == p4, f"f32: a block of {per} keeps "
+                    f"the plain regions' set")
+            continue
+        rates = {"unsharded": [], "mesh": []}
+        for i in range(PAR_ROUNDS):
+            for way in ("unsharded", "mesh")[::1 if i % 2 == 0 else -1]:
+                req = None if way == "unsharded" else (
+                    lambda net=net: net.device_out_to_dets(
+                        *net.submit_detect_device(frames, mesh=mesh)))
+                rates[way] += serve_rate(net, frames, request=req,
+                                         **PAR_RATE)[2]
+        med = {w: float(np.median(r)) for w, r in rates.items()}
+        spread = {w: (max(r) - min(r)) / med[w] for w, r in rates.items()}
+        print(f"(b) mesh {label} ({card}): {launches[0]} region and "
+              f"{launches[1]} int8 launches a request over {PAR_DEVICES}; "
+              f"the triple bitwise each block's alone: {same}; kept "
+              f"{len(ka)} (the unsharded {len(kb)}; boxes within "
+              f"{box_err:.3g}), {sum(map(len, dets))} detections; img/s "
+              f"mesh {med['mesh']:.2f} against unsharded "
+              f"{med['unsharded']:.2f}, the medians of "
+              f"{PAR_ROUNDS * PAR_RATE['windows']} windows of "
+              f"{PAR_RATE['requests']} each way in turns (mesh "
+              f"{[round(r, 2) for r in rates['mesh']]}, spread "
+              f"{spread['mesh']:.1%}; unsharded "
+              f"{[round(r, 2) for r in rates['unsharded']]}, spread "
+              f"{spread['unsharded']:.1%})", flush=True)
+        out[label]["img_s"] = med
+    del nets, plain, pre
+    torch.cuda.empty_cache()
+    return out
+
+
+def parallel_valid(card, root):
+    """Phase 15 (c): `-mode valid -num_chips 2` through the CLI's main over
+    PAR_VALID_IMAGES synth images, yolov4-608 f32 on probe weights (phase
+    9's threshold gap), the mesh's devices named PAR_DEVICES (the CLI's
+    own, cuda:0..N-1, need N cards): two region launches a batch of 8,
+    the MapResult of the one-device run."""
+    import torch
+
+    from darknet_tpu_torch import Network, model_zoo
+    from darknet_tpu_torch.apps import cli
+    from darknet_tpu_torch.data import synth
+    from darknet_tpu_torch.data.image import (load_image_rgb,
+                                              resize_image_darknet)
+    from darknet_tpu_torch.eval import map as maplib
+    from darknet_tpu_torch.ops.cuda import fused_region as kfr
+    from darknet_tpu_torch.weights import io as wio
+
+    files = synth.generate(os.path.join(root, "vdata"), n_train=0,
+                           n_val=PAR_VALID_IMAGES, seed=PAR_SEED)
+    names = os.path.join(root, "all.names")
+    with open(names, "w") as f:
+        f.write("\n".join(synth.NAMES + [f"c{i}" for i in range(
+            len(synth.NAMES), VALID_CLASSES)]) + "\n")
+    data = os.path.join(root, "obj.data")
+    with open(data, "w") as f:
+        f.write(f"classes = {VALID_CLASSES}\ntrain = {files['val_list']}\n"
+                f"valid = {files['val_list']}\nnames = {names}\n"
+                f"save = {os.path.join(root, 'backup')}\n")
+    cfg_text = model_zoo.yolov4_cfg(SERVE_PX, SERVE_PX)
+    cfg = os.path.join(root, "yolov4v.cfg")
+    with open(cfg, "w") as f:
+        f.write(cfg_text)
+    g = quiet_graph(cfg_text)
+    weights = os.path.join(root, "valid.weights")
+    wio.save_weights(g, unfolded(g, probe_params(g)), weights)
+    with warnings.catch_warnings():
+        warnings.simplefilter("ignore")
+        net = Network.from_cfg(cfg, weights=weights, device=DEVICE,
+                               fuse_regions="plain")
+    raw = []
+    with torch.inference_mode():
+        for s in range(0, PAR_VALID_IMAGES, VALID_BATCH):
+            x = np.stack([resize_image_darknet(load_image_rgb(p), SERVE_PX,
+                                               SERVE_PX)
+                          for p in files["val_paths"][s:s + VALID_BATCH]])
+            raw.append(net._fwd(net.params, torch.from_numpy(x).to(
+                DEVICE))["raw_heads"])
+    raw = [torch.cat(h) for h in zip(*raw)]
+    bias = obj_bias_for(raw, VALID_THRESH, VALID_PASS * PAR_VALID_IMAGES)
+    del net, raw
+    wio.save_weights(g, unfolded(g, probe_params(g, obj_bias=bias)), weights)
+
+    runs = []
+    validate_detector = maplib.validate_detector
+
+    def spy_validate(net, *a, **kw):
+        kfr.launches = 0
+        res = validate_detector(net, *a, **kw)
+        runs.append((res, kfr.launches, kw.get("mesh")))
+        return res
+
+    argv = ["-mode", "valid", "-data_file", data, "-model_file", cfg,
+            "-weights_file", weights, "-device", DEVICE]
+    mesh_devices = cli._mesh_devices
+    maplib.validate_detector = spy_validate
+    cli._mesh_devices = lambda args: list(PAR_DEVICES)
+    try:
+        cli.main(argv)
+        cli.main(argv + ["-num_chips", str(len(PAR_DEVICES))])
+    finally:
+        maplib.validate_detector = validate_detector
+        cli._mesh_devices = mesh_devices
+    (one, n_one, m_one), (two, n_two, m_two) = runs
+    batches = PAR_VALID_IMAGES // VALID_BATCH
+    require(m_one is None and m_two is not None, "the second run rode a mesh")
+    require(n_one == batches and n_two == len(PAR_DEVICES) * batches,
+            f"region launches: {n_one} one device, {n_two} on the mesh")
+    same = (one.map == two.map and one.n_pred == two.n_pred and
+            one.n_gt == two.n_gt and
+            np.array_equal(one.per_class_ap, two.per_class_ap))
+    print(f"(c) -mode valid -num_chips {len(PAR_DEVICES)} ({card}): mAP@0.5 "
+          f"{two.map:.6g}, {two.n_pred} predictions, {two.n_gt} GT, the "
+          f"one-device MapResult: {same}; region launches {n_two} ({n_one} "
+          f"on one device); prediction {two.imgs_per_s:.2f} img/s against "
+          f"{one.imgs_per_s:.2f}", flush=True)
+    require(same, "-mode valid on the mesh gives the one-device MapResult")
+    return {"region": n_two}
+
+
 def main(argv=None) -> int:
     import argparse
 
@@ -4625,7 +5360,7 @@ def main(argv=None) -> int:
 
     parser = argparse.ArgumentParser(description="smoke run on one card")
     parser.add_argument("--only", choices=["video", "gaussian", "v1", "cli",
-                                           "export"],
+                                           "export", "parallel"],
                         help="build the kernels and run this phase alone "
                              "(no kernels line, no contract line)")
     only = parser.parse_args(argv).only
@@ -4650,7 +5385,7 @@ def main(argv=None) -> int:
     if only is not None:
         {"video": phase_video, "gaussian": phase_gaussian,
          "v1": phase_v1, "cli": phase_cli,
-         "export": phase_export}[only](card)
+         "export": phase_export, "parallel": phase_parallel}[only](card)
         print(card, flush=True)
         print(json.dumps({"only": only, "ok": True}), flush=True)
         return 0
@@ -4667,6 +5402,7 @@ def main(argv=None) -> int:
     phase_v1(card)
     cli = phase_cli(card)
     export = phase_export(card)
+    par = phase_parallel(card)
 
     print(card, flush=True)
     print(json.dumps({"kernels": [{
@@ -4685,7 +5421,10 @@ def main(argv=None) -> int:
             "phase13_region_int8_request": cli["region_int8"][0],
             "phase14_export_bf16_child": export["bf16"]["child"]["region"],
             "phase14_export_int8_child":
-                export["int8"]["child"]["region"]}}, {
+                export["int8"]["child"]["region"],
+            "phase15_mesh_bf16": par["bf16"]["launches"][0],
+            "phase15_mesh_int8": par["int8"]["launches"][0],
+            "phase15_mesh_valid": par["valid"]["region"]}}, {
         "name": "int8_gemm", "route": "cuda",
         "source": "darknet_tpu_torch/csrc/int8_gemm.cu",
         "replaces": "darknet_tpu/ops/pallas/quant_matmul.py:91",
@@ -4700,7 +5439,9 @@ def main(argv=None) -> int:
             "phase13_region_int8_request": cli["region_int8"][1],
             "phase14_export_bf16_child": export["bf16"]["child"]["int8"],
             "phase14_export_int8_child":
-                export["int8"]["child"]["int8"]}}]}),
+                export["int8"]["child"]["int8"],
+            "phase15_mesh_bf16": par["bf16"]["launches"][1],
+            "phase15_mesh_int8": par["int8"]["launches"][1]}}]}),
         flush=True)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

@@ -18,8 +18,17 @@ valid mode's network per layer first (`utils/profiler`: the trace report,
 and from 2 the prefix-marginal table); -dbg_sync 1 synchronises the card
 after every layer of any mode, 2 also stops at the first layer that
 makes a NaN or an Inf (`utils/debug`); -show_imgs writes three augmented
-samples a training batch.  Not ported yet: -num_chips above 1 (ROADMAP
-A7), which raises NotImplementedError before any work.
+samples a training batch.
+
+-num_chips N (above 1; alias -num_gpus) is data parallelism: -mode train
+starts N processes, one a device, joined by torch.distributed
+(`parallel/multihost.spawn`: NCCL where each has a card of its own, gloo
+where they share one or run on the CPU), each training on its block of
+every batch; -mode valid and the multi-camera serving use a one-process
+mesh of N devices (`parallel/mesh`), with no mesh where the camera batch
+does not divide by N.  The devices are cuda:0..N-1 (N CPU entries with
+-device cpu).  A mesh of more cards than the machine has raises.  Only
+the spatial, tensor and pipeline meshes (ROADMAP A7b) are not ported.
 """
 
 from __future__ import annotations
@@ -143,9 +152,46 @@ def _load_network(args, train=False):
     return net
 
 
-def mode_train(args):
+def _mesh_devices(args) -> list:
+    """The -num_chips mesh's devices: cuda:0..N-1 (N CPU entries with
+    -device cpu); more cards than the machine has raise."""
+    from darknet_tpu_torch.parallel.mesh import make_mesh
+
+    return [str(d) for d in make_mesh(args.num_chips,
+                                      device=args.device).devices]
+
+
+def _serving_mesh(args, batch: int):
+    """The one-process dp mesh of the serving paths when -num_chips > 1
+    and the batch divides by it; None otherwise (one device)."""
+    n = args.num_chips
+    if n <= 1 or batch % n:
+        return None
+    mesh = getattr(args, "_serve_mesh", None)
+    if mesh is None:
+        from darknet_tpu_torch.parallel.mesh import make_mesh
+
+        mesh = args._serve_mesh = make_mesh(devices=_mesh_devices(args))
+    return mesh
+
+
+def _train_rank(rank, args, devices):
+    """One rank of -mode train -num_chips N (`parallel/multihost.spawn`)."""
+    from darknet_tpu_torch.parallel.mesh import make_mesh
+
+    with _debug_modes(args):
+        mode_train(args, mesh=make_mesh(devices=devices))
+
+
+def mode_train(args, mesh=None):
     from darknet_tpu_torch.train.trainer import DetectorTrainer
 
+    if args.num_chips > 1 and mesh is None:
+        from darknet_tpu_torch.parallel.multihost import spawn
+
+        devices = _mesh_devices(args)
+        spawn(_train_rank, devices, args, devices)
+        return
     md = _load_metadata(args)
     train_paths = md.load_paths("train")
     val_paths = md.load_paths("valid") if (args.calc_map and md.valid_list) \
@@ -165,9 +211,10 @@ def mode_train(args):
         act16=True if args.act16 else (False if args.no_act16 else None),
         loader_processes=args.loader_processes, resume=args.resume,
         metric_lag=None if args.metric_lag < 0 else args.metric_lag,
-        device=args.device)
+        device=args.device, mesh=mesh)
     try:
-        print(trainer.graph.layer_table(), file=sys.stderr)
+        if trainer.rank == 0:
+            print(trainer.graph.layer_table(), file=sys.stderr)
         trainer.train()
     finally:
         trainer.close()
@@ -219,10 +266,17 @@ def mode_valid(args):
                 print("int8 calibration: no quantized convs, "
                       f"not writing {args.calib_file}", file=sys.stderr)
     batch = 8 if len(paths) >= 8 else 1
+    mesh = None
+    if args.num_chips > 1:
+        # a batch-sharded forward; host NMS and matching unchanged
+        from darknet_tpu_torch.parallel.mesh import round_batch_to_mesh
+
+        batch = round_batch_to_mesh(batch, args.num_chips)
+        mesh = _serving_mesh(args, batch)
     # the reference's valid mode resizes with its own two-pass bilinear
     # (load_image + resize_image, data.cpp:695-698)
     res = validate_detector(net, paths, md.classes, iou_thresh=0.5,
-                            batch=batch, resize="darknet",
+                            batch=batch, resize="darknet", mesh=mesh,
                             iou_thresholds=(COCO_IOUS if args.coco_map
                                             else None))
     print(f"\n # of pred: {res.n_pred}\n # of GT: {res.n_gt}")
@@ -369,13 +423,15 @@ def _submit_frames_batch(net, frames_bgr, args):
                       for f in frames_bgr])
     else:
         x = np.stack([_host_input(net, f, args) for f in frames_bgr])
+    mesh = _serving_mesh(args, len(frames_bgr))
     if device:
         return ("dev", net.submit_detect_device(
-            x, thresh=args.thresh, nms=args.nms_thresh, top_k=args.top_k))
+            x, thresh=args.thresh, nms=args.nms_thresh, top_k=args.top_k,
+            mesh=mesh))
     if not isinstance(x, np.ndarray):
         x = x.cpu().numpy()
     return ("host", net.detect_batch(x, thresh=args.thresh,
-                                     nms=args.nms_thresh))
+                                     nms=args.nms_thresh, mesh=mesh))
 
 
 def _finalize_frames_batch(net, md, frames_bgr, sub, args,
@@ -710,6 +766,20 @@ def mode_bench(args, bench_argv):
     bench.main(list(bench_argv) + ["--device", args.device])
 
 
+def _debug_modes(args) -> contextlib.ExitStack:
+    """-cuda_dbg_sync (dark_cuda.h:9): the card synchronised after every
+    layer, and from 2 the first NaN or Inf raises; both restored when
+    the stack closes."""
+    stack = contextlib.ExitStack()
+    if args.dbg_sync:
+        from darknet_tpu_torch.utils import debug
+
+        stack.enter_context(debug.debug_sync_mode())
+        if args.dbg_sync >= 2:
+            stack.enter_context(debug.debug_nans())
+    return stack
+
+
 def main(argv=None):
     parser = build_parser()
     args, rest = parser.parse_known_args(argv)
@@ -721,18 +791,8 @@ def main(argv=None):
             args.top_k = 64
         args.pipeline_depth = 1
     if args.num_chips > 1:
-        raise NotImplementedError(
-            "-num_chips above 1 is not ported yet (ROADMAP A7)")
-    with contextlib.ExitStack() as stack:
-        if args.dbg_sync:
-            # -cuda_dbg_sync (dark_cuda.h:9): the card synchronised after
-            # every layer, and from 2 the first NaN or Inf raises; both
-            # restored when the mode returns
-            from darknet_tpu_torch.utils import debug
-
-            stack.enter_context(debug.debug_sync_mode())
-            if args.dbg_sync >= 2:
-                stack.enter_context(debug.debug_nans())
+        _mesh_devices(args)        # a mesh the machine cannot hold raises
+    with _debug_modes(args):
         if args.mode == "train":
             mode_train(args)
         elif args.mode == "valid":

@@ -22,6 +22,10 @@ bf16 CPU tensor (`bf16_from_f32`: round to nearest even, as torch's cast
 rounds), so the upload is half the bytes; the augmentation stays f32.
 `show_imgs=N` writes the first N samples of every batch, boxes drawn, to
 `show_imgs_dir/aug_%05d.png` (`data/augment.save_augmented_sample`).
+`rows=(start, size)` builds only those rows of every batch, a rank's
+block under data parallelism (`parallel/multihost.process_batch_slice`):
+the batch seed still draws every image's seed, mosaic cut and mixup pick
+for the whole batch, so the rows are the global batch's, bit for bit.
 
 The port's copy of `darknet_tpu/data/loader.py`, with two repairs: a
 sample is replaced by zeros (and logged to bad.list) only when its image
@@ -101,7 +105,8 @@ class DetectionLoader:
                  jitter=0.3, hue=0.1, saturation=1.5, exposure=1.5,
                  flip=True, blur=0, gaussian_noise=0, mixup=0,
                  threads=6, processes=0, seed=0, bad_dir=".",
-                 show_imgs=0, show_imgs_dir=".", out_dtype=None):
+                 show_imgs=0, show_imgs_dir=".", out_dtype=None,
+                 rows=None):
         # cutmix: the reference refuses it for detection training
         # (data.cpp:428-432 prints and exits); mosaic+cutmix degrades to
         # plain mosaic with a warning
@@ -128,6 +133,9 @@ class DetectionLoader:
         self.out_dtype = out_dtype
         self.w, self.h = w, h
         self.batch = batch
+        self.rows = rows or (0, batch)
+        if self.rows[0] < 0 or self.rows[1] < 1 or sum(self.rows) > batch:
+            raise ValueError(f"rows {self.rows} outside a batch of {batch}")
         self.boxes = boxes
         self.classes = classes
         self.aug = dict(jitter=jitter, hue=hue, saturation=saturation,
@@ -176,8 +184,9 @@ class DetectionLoader:
         n_draws = {0: 1, 1: 2, 3: 4}.get(use_mixup, 1)
 
         seeds = rng.integers(0, 2 ** 31, size=(n_draws, self.batch))
-        x = np.zeros((self.batch, h, w, 3), np.float32)
-        y = np.zeros((self.batch, self.boxes, 5), np.float32)
+        lo, n = self.rows
+        x = np.zeros((n, h, w, 3), np.float32)
+        y = np.zeros((n, self.boxes, 5), np.float32)
 
         if use_mixup == 3:
             min_off = 0.2
@@ -187,8 +196,8 @@ class DetectionLoader:
                                  self.batch)
 
         for quad in range(n_draws):
-            futures = [self._submit(int(seeds[quad, i]), w, h)
-                       for i in range(self.batch)]
+            futures = [self._submit(int(seeds[quad, lo + i]), w, h)
+                       for i in range(n)]
             for i, fut in enumerate(futures):
                 img, truth, meta = fut.result()
                 if use_mixup == 0:
@@ -200,7 +209,7 @@ class DetectionLoader:
                         x[i] = 0.5 * x[i] + 0.5 * img
                         blend_truth(y[i], truth)
                 elif use_mixup == 3:
-                    cx, cy = int(cut_x[i]), int(cut_y[i])
+                    cx, cy = int(cut_x[lo + i]), int(cut_y[lo + i])
                     pleft = meta.get("pleft", 0)
                     pright = meta.get("pright", 0)
                     ptop = meta.get("ptop", 0)
@@ -232,7 +241,7 @@ class DetectionLoader:
                                              ls:ls + (w - cx)]
                     blend_truth_mosaic(y[i], truth, w, h, cx, cy, quad,
                                        ls, rs, ts, bs)
-        for i in range(min(self.show_imgs, self.batch)):
+        for i in range(min(self.show_imgs - lo, n)):
             self._show_counter += 1
             save_augmented_sample(x[i], y[i], os.path.join(
                 self.show_imgs_dir, f"aug_{self._show_counter:05d}.png"))

@@ -125,11 +125,13 @@ def validate_detector(net, img_paths, classes: int, iou_thresh: float = 0.5,
     from the SAME prediction pass; the headline fields stay at
     `iou_thresh`, `map_by_iou` / `map_mean_iou` carry the sweep.
 
-    mesh (a batch-sharded forward over several cards) is not ported yet
-    (ROADMAP A7) and raises."""
-    if mesh is not None:
-        raise NotImplementedError(
-            "validate_detector(mesh=) is not ported yet (ROADMAP A7)")
+    mesh: shard each forward batch over the mesh's "dp" axis
+    (`Network.detect_batch(mesh=)`; batch must divide by the dp size);
+    the host NMS and the matching are the single-device path's, so the
+    MapResult is too.  Over a mesh that spans processes every rank
+    predicts its block and matches the whole batch.  Only the spatial,
+    tensor and pipeline meshes (ROADMAP A7b) are not ported."""
+    det_kw = {} if mesh is None else {"mesh": mesh}
     # thresholds to MATCH at: the headline iou_thresh plus the (deduped)
     # sweep; map_by_iou/map_mean_iou report over exactly iou_thresholds
     extra_ts: list = []
@@ -164,7 +166,8 @@ def validate_detector(net, img_paths, classes: int, iou_thresh: float = 0.5,
                                                 x.dtype)])
 
             t0 = time.perf_counter()
-            dets_batch = net.detect_batch(x, thresh=thresh, nms=nms)
+            dets_batch = net.detect_batch(x, thresh=thresh, nms=nms,
+                                          **det_kw)
             pred_time += time.perf_counter() - t0
             dets_batch = dets_batch[: len(chunk)]
 

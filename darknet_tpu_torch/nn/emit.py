@@ -253,7 +253,8 @@ def region_int8_convs(graph) -> set:
 def make_forward(graph, *, compute_dtype=None, fuse_regions="hybrid",
                  fused_bn: bool = True, probe_conv_absmax: bool = False,
                  region_int8: bool = False, train: bool = False,
-                 train_act_dtype=None, remat: bool | str = False):
+                 train_act_dtype=None, remat: bool | str = False,
+                 stats_group=None):
     """Build `forward(params, x) -> {"heads", "raw_heads", "output"}`:
     the activated heads, the head inputs before activation, and the last
     layer's output.  A conv whose params carry "w_q" runs the int8 conv
@@ -273,11 +274,13 @@ def make_forward(graph, *, compute_dtype=None, fuse_regions="hybrid",
     params (`nn/params.params_to_torch`).
 
     train=True builds the training forward instead (`_make_train_forward`;
-    unfolded params from `nn/params.train_params_to_torch`)."""
+    unfolded params from `nn/params.train_params_to_torch`), its batch
+    statistics taken over the process group `stats_group` where one is
+    given (sync-BN, `parallel/dp.py`)."""
     if train:
         return _make_train_forward(graph, compute_dtype=compute_dtype,
                                    train_act_dtype=train_act_dtype,
-                                   remat=remat)
+                                   remat=remat, stats_group=stats_group)
     from darknet_tpu_torch.ops.fused_region import plan_graph_regions
     from darknet_tpu_torch.ops.stem import stem_pattern
 
@@ -386,7 +389,7 @@ def make_forward(graph, *, compute_dtype=None, fuse_regions="hybrid",
 
 
 def _make_train_forward(graph, *, compute_dtype=None, train_act_dtype=None,
-                        remat: bool | str = False):
+                        remat: bool | str = False, stats_group=None):
     """The training forward (`darknet_tpu/nn/emit.py:100-464`, train=True):
     `forward(params, x, generator=None) -> {"heads", "raw_heads",
     "bn_stats", "output"}`, with "bn_stats" {layer index: (batch mean,
@@ -419,7 +422,7 @@ def _make_train_forward(graph, *, compute_dtype=None, train_act_dtype=None,
 
     def conv(cur, p, l, res_dt):
         return conv_block(cur, p, l, train=True, compute_dtype=compute_dtype,
-                          res_dtype=res_dt)
+                          res_dtype=res_dt, stats_group=stats_group)
 
     def forward(params, x, generator=None):
         outs: dict = {}
@@ -466,10 +469,12 @@ def _make_train_forward(graph, *, compute_dtype=None, train_act_dtype=None,
                 cur = maxpool_block(cur, l, train=True)
         elif k == "connected":
             cur, st = connected_block(cur, params[i], l, train=True,
-                                      compute_dtype=compute_dtype)
+                                      compute_dtype=compute_dtype,
+                                      stats_group=stats_group)
             cur = cur.reshape(cur.shape[0], 1, 1, -1)
         elif k == "batchnorm":
-            cur, st = batchnorm_block(cur, params[i], l, train=True)
+            cur, st = batchnorm_block(cur, params[i], l, train=True,
+                                      stats_group=stats_group)
         elif k == "dropout":
             if generator is not None:
                 if l.dropblock:

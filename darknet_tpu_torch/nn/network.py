@@ -25,6 +25,18 @@ refuses a network without a [yolo] or [Gaussian_yolo] head.
 params.  `export_serving(path)` writes the serving program as one
 `torch.export` artifact, which `Network.run_exported_serving(path, x)`
 runs without the cfg, the weights or the graph builder.
+
+Serving over a mesh (`mesh=` of `detect_batch`, `detect_batch_device` and
+`submit_detect_device`; `parallel/mesh.Mesh`, the dp axis): the batch
+splits into equal blocks, one a device of the mesh, each device holding a
+replica of the serving state (`forward_params`: the region step weights,
+the int8 weights and scales); the blocks run back to back through the
+same program (the region kernel and the int8 GEMM through the
+`ops/library.py` ops, once a block) and the outputs are gathered in
+batch order on the mesh's first device.  Over a mesh that spans
+processes each rank runs its own block and every rank gathers the
+whole (`parallel/multihost.make_global_batch`).  The spatial `sp` axis
+is ROADMAP A7b and raises.
 """
 
 from __future__ import annotations
@@ -132,6 +144,8 @@ class Network:
                                  fuse_regions=fuse_regions, fused_bn=fused,
                                  region_int8=region_int8, train=train)
         self._held: tuple | None = None      # `forward_params`
+        # device -> (forward_params copied from, the copy, its u8 table)
+        self._replicas: dict = {}
         self._heads = graph.heads()
         decoded = [l for l in self._heads if l.kind in DECODE]
         self._nms_kind = decoded[0].nms_kind if decoded else "greedynms"
@@ -333,13 +347,22 @@ class Network:
                                  use_device_nms=use_device_nms)[0]
 
     def detect_batch(self, images, thresh: float = 0.25, nms: float = 0.45,
-                     use_device_nms: bool = False) -> list:
+                     use_device_nms: bool = False, mesh=None) -> list:
         """GetNetworkBoxes + NmsSort on the host, per image; with
-        use_device_nms the device serving program instead."""
+        use_device_nms the device serving program instead.  With `mesh`
+        the forward and the decode run over the mesh (the module
+        docstring), the rest on the host as without one."""
         if use_device_nms:
-            return self.detect_batch_device(images, thresh=thresh, nms=nms)
+            return self.detect_batch_device(images, thresh=thresh, nms=nms,
+                                            mesh=mesh)
         x = self._prep_input(images)
-        _heads, dec = self.forward_heads(x)
+        if mesh is None:
+            _heads, dec = self.forward_heads(x)
+        else:
+            with torch.inference_mode():
+                dec = self._over_mesh(mesh, torch.from_numpy(x),
+                                      self._decode_shard)
+            dec = None if dec[0] is None else dec
         if dec is None:
             return [[] for _ in range(x.shape[0])]
         boxes, obj, cls = (t.float().cpu().numpy() for t in dec[:3])
@@ -400,18 +423,90 @@ class Network:
                                  if hold is None else hold(self.params))
         return held[2]
 
+    # -------------------------------------------------------------- mesh
+    def _replica(self, device):
+        """(forward_params, the uint8 table) on `device`: the network's own
+        on its device, else a copy made once per forward_params."""
+        if device == self.device:
+            return self.forward_params, self._u8_unit
+        from darknet_tpu_torch.parallel.mesh import to_device
+
+        held = self.forward_params
+        rep = self._replicas.get(device)
+        if rep is None or rep[0] is not held:
+            rep = self._replicas[device] = (
+                held, to_device(held, device), self._u8_unit.to(device))
+        return rep[1], rep[2]
+
+    @staticmethod
+    def _mesh_blocks(mesh, batch: int) -> int:
+        """The dp size of a serving mesh, with the JAX package's checks
+        (`Network._serve_shardings`)."""
+        axes = mesh.axis_names
+        if "dp" not in axes:
+            raise ValueError(f"serving mesh needs a 'dp' axis, got {axes}")
+        if "sp" in axes:
+            raise NotImplementedError(
+                "a serving mesh with an 'sp' axis (feature maps split over "
+                "devices) is ROADMAP A7b; only the 'dp' axis is ported")
+        n_dp = mesh.shape["dp"]
+        if batch % n_dp:
+            raise ValueError(f"batch {batch} not divisible by the mesh's "
+                             f"dp size {n_dp}")
+        return n_dp
+
+    def _over_mesh(self, mesh, x, run, finish=None) -> tuple:
+        """run(params, u8 table, block) -> a tuple of tensors (or Nones)
+        for each block of x over the mesh, on the block's device, then
+        finish(*that tuple) -> the block's outputs where given; the
+        outputs gathered in batch order on the mesh's first device (over
+        processes: this rank's block run, every rank's gathered).  In one
+        process every block is uploaded, then every block's `run` queued,
+        before any `finish` (which may wait on its device) starts, so
+        that the devices work at once."""
+        n = self._mesh_blocks(mesh, x.shape[0])
+        per = x.shape[0] // n
+        finish = finish or (lambda *outs: outs)
+        if mesh.group is not None:
+            from darknet_tpu_torch.parallel.multihost import \
+                make_global_batch
+
+            r, dev = mesh.rank, mesh.devices[0]
+            outs = finish(*run(*self._replica(dev),
+                               x[r * per:(r + 1) * per].to(dev)))
+            return tuple(None if o is None else make_global_batch(mesh, o)
+                         for o in outs)
+        blocks = [x[i * per:(i + 1) * per].to(d)
+                  for i, d in enumerate(mesh.devices)]
+        outs = [run(*self._replica(d), xs)
+                for d, xs in zip(mesh.devices, blocks)]
+        outs = [finish(*o) for o in outs]
+        home = mesh.devices[0]
+        return tuple(None if parts[0] is None else
+                     torch.cat([t.to(home) for t in parts])
+                     for parts in zip(*outs))
+
+    def _decode_shard(self, params, _unit, x) -> tuple:
+        """The host path's forward and reference-order decode of a block:
+        (boxes, obj, cls, uc), Nones without a decoded head."""
+        r = self._fwd(params, x)
+        dec = self._decode([h.float() for h in r["heads"]])
+        return (None,) * 4 if dec is None else dec
+
     # ----------------------------------------------------------- serving
-    def _serve(self, x, thresh, nms, top_k, score_dtype, params=None):
+    def _serve(self, x, thresh, nms, top_k, score_dtype, params=None,
+               unit=None):
         """The device serving program: (boxes (B,K,4), obj (B,K),
         probs (B,K,classes)) on the device; `params` defaults to the
-        network's own (`forward_params`)."""
+        network's own (`forward_params`), `unit` (the uint8 table) to its
+        device's."""
         if x.dtype == torch.uint8:
             # frames upload as raw uint8 (1/4 of the f32 bytes) and
             # normalize on the device through the host's own quotients:
             # x / 255 by multiplication with a rounded reciprocal (as
             # torch's CUDA division by a scalar computes it) differs from
             # the host's division by one ulp for half of the 256 values
-            x = self._u8_unit[x.int()]
+            x = (self._u8_unit if unit is None else unit)[x.int()]
         r = self._fwd(self.forward_params if params is None else params, x)
         # a Gaussian head's sigmas stay behind: the triple is the same
         # for every head kind
@@ -428,6 +523,11 @@ class Network:
                           idx[..., None].expand(-1, -1, cls.shape[-1]))
         probs = ov[..., None] * tc
         probs = torch.where(probs > thresh, probs, torch.zeros_like(probs))
+        return self._serve_nms(tb, ov, probs, nms)
+
+    def _serve_nms(self, tb, ov, probs, nms):
+        """The serving program's last stage, the device NMS (its loop
+        reads a flag on the host every round)."""
         if nms > 0:
             probs = nmslib.nms_device(tb, probs, nms, kind=self._nms_kind,
                                       beta=self._nms_beta)
@@ -435,26 +535,34 @@ class Network:
 
     def submit_detect_device(self, images, thresh: float = 0.25,
                              nms: float = 0.45, top_k: int = 256,
-                             score_dtype=None):
+                             score_dtype=None, mesh=None):
         """Run the serving program and return its device triple
         (boxes, objectness, probs) without copying it to the host.  A
         torch tensor already on the device passes through with a shape
         check; a uint8 array uploads as uint8.  A network without a
         [yolo] or [Gaussian_yolo] head has nothing to decode here and
-        raises ValueError before any work."""
+        raises ValueError before any work.  With `mesh` the batch splits
+        over the mesh's devices (the module docstring); each block
+        uploads to its own device and the triple is gathered on the
+        mesh's first."""
         self._require_decoded_head()
         if isinstance(images, torch.Tensor):
             x = images if images.dim() == 4 else images[None]
-            x = x.to(self.device)
         elif getattr(images, "dtype", None) == np.uint8:
             x = np.asarray(images)
-            x = torch.from_numpy(x if x.ndim == 4 else x[None]).to(
-                self.device)
+            x = torch.from_numpy(x if x.ndim == 4 else x[None])
         else:
-            x = torch.from_numpy(self._prep_input(images)).to(self.device)
+            x = torch.from_numpy(self._prep_input(images))
         self._check_shape(x)
         with torch.inference_mode():
-            return self._serve(x, thresh, nms, top_k, score_dtype)
+            if mesh is None:
+                return self._serve(x.to(self.device), thresh, nms, top_k,
+                                   score_dtype)
+            # every block's forward is queued before any block's NMS
+            return self._over_mesh(
+                mesh, x, lambda p, unit, xs: self._serve(
+                    xs, thresh, 0, top_k, score_dtype, params=p, unit=unit),
+                lambda tb, ov, probs: self._serve_nms(tb, ov, probs, nms))
 
     def _require_decoded_head(self) -> None:
         if not any(l.kind in DECODE for l in self._heads):
@@ -529,10 +637,13 @@ class Network:
         return results
 
     def detect_batch_device(self, images, thresh: float = 0.25,
-                            nms: float = 0.45, top_k: int = 256) -> list:
+                            nms: float = 0.45, top_k: int = 256,
+                            mesh=None) -> list:
+        """The device serving program's detections on the host, per
+        image; `mesh` as in submit_detect_device."""
         return self.device_out_to_dets(
             *self.submit_detect_device(images, thresh=thresh, nms=nms,
-                                       top_k=top_k))
+                                       top_k=top_k, mesh=mesh))
 
 
 # the artifact's own record: the device it runs on, its compute dtype (its

@@ -44,6 +44,7 @@ import torch
 import torch.nn.functional as F
 
 from darknet_tpu_torch.ops.activations import apply_activation
+from darknet_tpu_torch.ops.collective import group_size, group_sum_grad
 from darknet_tpu_torch.ops.quant_matmul import (input_scale, int8_conv,
                                                 quantize_int8)
 
@@ -171,16 +172,18 @@ def conv_block_int8(x, p, l, *, compute_dtype=None):
 
 
 def conv_block(x, p, l, *, compute_dtype=None, train: bool = False,
-               res_dtype=None):
+               res_dtype=None, stats_group=None):
     """Inference darknet conv layer: conv + bias with folded BN, or, when
     `p` carries the unfolded "scales"/"mean"/"var" of a batch-normalised
     conv, conv then the rolling-statistics BN in f32
     (`darknet_tpu/ops/conv.py:200-202`); cast to the compute dtype,
     activation, then an antialiased conv's blur.  train=True is the
-    training layer (`_conv_block_train`), which returns (y, bn_stats)."""
+    training layer (`_conv_block_train`), which returns (y, bn_stats),
+    its statistics taken over `stats_group` (sync-BN) where one is given."""
     if train:
         return _conv_block_train(x, p, l, compute_dtype=compute_dtype,
-                                 res_dtype=res_dtype)
+                                 res_dtype=res_dtype,
+                                 stats_group=stats_group)
     padding = darknet_conv_padding(
         l.size, l.pad, l.dilation, (l.h, l.w), (l.stride_y, l.stride_x),
         (l.out_h, l.out_w))
@@ -199,18 +202,29 @@ def conv_block(x, p, l, *, compute_dtype=None, train: bool = False,
     return y
 
 
-def batch_mean_var(y, dims):
+def batch_mean_var(y, dims, group=None):
     """Batch statistics of mean_cpu/variance_cpu (blas.c:164-201): the
-    mean over `dims`, the variance with Bessel's 1/(N-1)."""
+    mean over `dims`, the variance with Bessel's 1/(N-1).  `dims` are the
+    leading dims; with a process `group` (sync-BN, `ops/collective`) the
+    two passes sum over its ranks as well, differentiably, and N counts
+    every rank's share."""
     n = 1
     for d in dims:
         n *= y.shape[d]
-    mean = y.mean(dims, keepdim=True)
-    var = (y - mean).square().sum(dims) / max(n - 1, 1)
-    return mean.squeeze(dims), var
+    ranks = group_size(group)
+    if ranks == 1:
+        mean = y.mean(dims, keepdim=True)
+        var = (y - mean).square().sum(dims) / max(n - 1, 1)
+        return mean.squeeze(dims), var
+    n *= ranks
+    mean = group_sum_grad(y.sum(dims), group) / n
+    var = group_sum_grad((y - mean).square().sum(dims), group) / max(n - 1,
+                                                                     1)
+    return mean, var
 
 
-def _conv_block_train(x, p, l, *, compute_dtype=None, res_dtype=None):
+def _conv_block_train(x, p, l, *, compute_dtype=None, res_dtype=None,
+                      stats_group=None):
     """Training darknet conv layer (`darknet_tpu/ops/conv.py:153-213`,
     train=True): conv, then live batch norm + activation through
     `ops/train_epilogue.bn_act_train`, or bias + activation.  Returns
@@ -244,7 +258,8 @@ def _conv_block_train(x, p, l, *, compute_dtype=None, res_dtype=None):
         from darknet_tpu_torch.ops.train_epilogue import bn_act_train
 
         y, stats = bn_act_train(l.activation, res_dtype if keep_lp else None,
-                                res_dtype, y, p["scales"], p["b"])
+                                res_dtype, y, p["scales"], p["b"],
+                                stats_group)
     else:
         y, stats = apply_activation(y + p["b"], l.activation), None
     if getattr(l, "antialiasing", 0):
@@ -296,7 +311,8 @@ def antialias_backref_view(y_act, blur, l):
     return flat.reshape(b, c, h, w).permute(0, 2, 3, 1)
 
 
-def connected_block(x, p, l, *, train: bool = False, compute_dtype=None):
+def connected_block(x, p, l, *, train: bool = False, compute_dtype=None,
+                    stats_group=None):
     """[connected] (`darknet_tpu/ops/conv.py:268-298`): y = x @ w + b, or
     BN from the batch (train) or rolling statistics, then the activation;
     returns (y (B, outputs) f32, (batch mean, batch var) or None).
@@ -317,7 +333,7 @@ def connected_block(x, p, l, *, train: bool = False, compute_dtype=None):
     bn_stats = None
     if l.batch_normalize and "scales" in p:
         if train:
-            mean, var = bn_stats = batch_mean_var(y, (0,))
+            mean, var = bn_stats = batch_mean_var(y, (0,), stats_group)
         else:
             mean, var = p["mean"], p["var"]
         y = (y - mean) * torch.rsqrt(var + BN_EPS) * p["scales"] + p["b"]
@@ -326,13 +342,13 @@ def connected_block(x, p, l, *, train: bool = False, compute_dtype=None):
     return apply_activation(y, l.activation), bn_stats
 
 
-def batchnorm_block(x, p, l, *, train: bool = False):
+def batchnorm_block(x, p, l, *, train: bool = False, stats_group=None):
     """Standalone [batchnorm] (`darknet_tpu/ops/conv.py:301-311`): BN over
     the channels from the batch (train) or rolling statistics; returns
     (y, (batch mean, batch var) or None)."""
     bn_stats = None
     if train:
-        mean, var = bn_stats = batch_mean_var(x, (0, 1, 2))
+        mean, var = bn_stats = batch_mean_var(x, (0, 1, 2), stats_group)
     else:
         mean, var = p["mean"], p["var"]
     return ((x - mean) * torch.rsqrt(var + BN_EPS) * p["scales"] + p["b"],

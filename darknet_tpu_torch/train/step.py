@@ -24,13 +24,26 @@ scopes (`head_delta_{n}`, `optimizer_update`); under
 `utils/debug.debug_nans` the backward runs with anomaly detection, and
 under `debug_sync_mode` the card is synchronised after the backward and
 the update as well as after every layer of the forward.
+
+Data parallelism (`group`, from `parallel/dp.make_dp_train_step`): each
+rank of the process group calls the step with its own equal block of the
+global batch, and the step equals the single-process step on the global
+batch: the batch statistics are the global micro-batch's (sync-BN,
+`ops/train_epilogue`); the gradients are summed over the group once, after
+the micro-batches, in one flat buffer a dtype (the JAX step's single
+`psum`), and the optimizer divides by the global batch as before; the
+cost and the head metrics of each micro-batch combine the ranks' as one
+global micro-batch would have them (`combine_ranks`).  Every rank then
+holds the same params, bit for bit.
 """
 
 from __future__ import annotations
 
 import torch
+import torch.distributed as dist
 
 from darknet_tpu_torch.nn.emit import HEAD_KINDS, make_forward, scope
+from darknet_tpu_torch.ops.collective import group_size
 from darknet_tpu_torch.ops.conv import precise
 from darknet_tpu_torch.ops.detection_v1 import (cost_layer,
                                                 detection_head_delta,
@@ -93,8 +106,64 @@ def aggregate_micro_metrics(m_stk):
     return m
 
 
+def cost_parts(l, d, cost):
+    """(the part of a head's cost that sums over images, the part that is
+    a mean over the head's truths), from its delta `d` and cost.  Only a
+    [yolo] head whose iou_loss is not mse has the second: its cost is
+    iou_normalizer x the mean IoU loss of its truths + the class loss
+    (`train/yolo_loss.yolo_head_delta`), whose part is recomputed here
+    from the delta as that function computes it."""
+    if l.kind == "yolo" and l.iou_loss != "mse":
+        e = 5 + l.classes
+        cls = l.cls_normalizer * d.reshape(d.shape[0], -1, e)[..., 4:] \
+            .square().sum()
+        return cls, cost - cls
+    return cost, torch.zeros_like(cost)
+
+
+def combine_ranks(stk):
+    """One head's cost and metrics for a micro-batch spread over the ranks
+    of a group, from each rank's ({name: (ranks,) tensor}: its metrics,
+    "sum" and "mean" from `cost_parts`): the counts add, the per-truth
+    means weigh by the ranks' counts, the per-image means (each rank holds
+    as many images) average, and so does the mean part of the cost, by
+    the counts.  Returns (cost, metrics)."""
+    cnt = stk["count"]
+    m = aggregate_micro_metrics({k: v for k, v in stk.items()
+                                 if k not in ("sum", "mean")})
+    cost = stk["sum"].sum() + (stk["mean"] * cnt).sum() / \
+        cnt.sum().clamp_min(1.0)
+    return cost, m
+
+
+def _gather_rows(vec, group):
+    """(ranks, K): every rank's (K,) vector, through one sum over the
+    group (each rank adds its own row to zeros, which is exact)."""
+    rows = vec.new_zeros((group_size(group),) + vec.shape)
+    rows[dist.get_rank(group)] = vec
+    dist.all_reduce(rows, group=group)
+    return rows
+
+
+def all_reduce_grads(params, group) -> None:
+    """Sum every param's .grad over the group in place: one flat buffer a
+    dtype, one all-reduce each."""
+    by_dtype: dict = {}
+    for p in params:
+        for v in p.values():
+            if v.grad is not None:
+                by_dtype.setdefault(v.grad.dtype, []).append(v.grad)
+    for grads in by_dtype.values():
+        flat = torch.cat([g.reshape(-1) for g in grads])
+        dist.all_reduce(flat, group=group)
+        off = 0
+        for g in grads:
+            g.copy_(flat[off:off + g.numel()].view(g.shape))
+            off += g.numel()
+
+
 def make_train_step(graph, *, compute_dtype=None, remat: bool | str = False,
-                    accum: int = 1, train_act_dtype=None):
+                    accum: int = 1, train_act_dtype=None, group=None):
     """Build `train_step(params, opt_state, x, truths, lr, generator=None)`,
     which updates `params` (from `nn/params.train_params_to_torch`) and
     `opt_state` in place and returns (params, opt_state, cost, metrics).
@@ -106,16 +175,22 @@ def make_train_step(graph, *, compute_dtype=None, remat: bool | str = False,
     compute_dtype bf16 runs the convs in bf16 (f32 epilogues);
     train_act_dtype bf16 (act16) stores the interlayer tensors and the BN
     residuals in bf16, the head-feeding convs' outputs excepted.
-    remat=True recomputes each conv block in the backward pass."""
+    remat=True recomputes each conv block in the backward pass.
+    group: the process group of data parallelism (the module docstring);
+    x and truths are then this rank's block of the global batch."""
     net = graph.net
     heads = [l for l in graph.layers if l.kind in HEAD_KINDS]
     fwd = make_forward(graph, train=True, compute_dtype=compute_dtype,
-                       remat=remat, train_act_dtype=train_act_dtype)
+                       remat=remat, train_act_dtype=train_act_dtype,
+                       stats_group=group)
     loss_scale = net.loss_scale
+    ranks = group_size(group)
 
     def one_micro_batch(params, x, truths, generator):
         """Forward, deltas and backward of one micro-batch: .grad gains
-        its ascent direction.  Returns (cost, metrics per head, stats)."""
+        its ascent direction.  Returns (cost, metrics per head, stats);
+        over a group, the metrics also carry the cost's parts ("sum",
+        "mean")."""
         r = fwd(params, x, generator)
         costs, metrics, roots, cts = [], [], [], []
         for hi, (raw, l) in enumerate(zip(r["raw_heads"], heads)):
@@ -123,6 +198,9 @@ def make_train_step(graph, *, compute_dtype=None, remat: bool | str = False,
                 d, c, m = HEAD_DELTA[l.kind](raw.detach().float(), truths, l,
                                             net.w, net.h)
             costs.append(c)
+            if ranks > 1:
+                m = dict(m)
+                m["sum"], m["mean"] = cost_parts(l, d, c)
             metrics.append(m)
             if raw.requires_grad:
                 roots.append(raw)
@@ -151,6 +229,10 @@ def make_train_step(graph, *, compute_dtype=None, remat: bool | str = False,
             costs.append(c)
             mets.append(m)
             stats.append(s)
+        if group is not None:
+            all_reduce_grads(params, group)
+        if ranks > 1:
+            costs, mets = _over_ranks(mets)
         cost = torch.stack(costs).sum()
         metrics_list = [aggregate_micro_metrics(
             {k: torch.stack([mets[j][hi][k] for j in range(accum)])
@@ -203,6 +285,28 @@ def make_train_step(graph, *, compute_dtype=None, remat: bool | str = False,
             "iou_loss_mag": sum(m["iou_loss"] for m in metrics_list),
         }
         return params, opt_state, cost, metrics
+
+    def _over_ranks(mets):
+        """Each micro-batch's cost and per-head metrics over the group's
+        ranks (`combine_ranks`), from every rank's, gathered at once."""
+        names = [list(m) for m in mets[0]]
+        vec = torch.stack([mets[j][hi][k].float().reshape(())
+                           for j in range(accum)
+                           for hi in range(len(heads))
+                           for k in names[hi]])
+        rows = _gather_rows(vec, group)
+        costs, out, col = [], [], 0
+        for _j in range(accum):
+            cj, mj = [], []
+            for hi in range(len(heads)):
+                stk = {k: rows[:, col + i] for i, k in enumerate(names[hi])}
+                col += len(names[hi])
+                c, m = combine_ranks(stk)
+                cj.append(c)
+                mj.append(m)
+            costs.append(torch.stack(cj).sum())
+            out.append(mj)
+        return costs, out
 
     return step
 

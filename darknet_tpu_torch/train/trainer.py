@@ -41,12 +41,26 @@ first, so the host's cast is the same bits and the copy half the bytes.
 
 The loss/mAP chart is drawn to `<save_dir>/chart.png` every 10th
 iteration, at each mAP and at the end (`apps/visualize.draw_loss_chart`).
-Not ported, each refused or left out: a mesh, and the sharded
-checkpoints.
+
+Data parallelism (`mesh=`, `darknet_tpu/train/trainer.py:248-256,
+358-374,412-418,497-508`): one trainer a process, each on its rank's
+device of a mesh made under `torch.distributed` (`parallel/mesh.
+make_mesh`, started by `parallel/multihost.spawn`).  Each rank's loader
+builds only its block of every global batch (`DetectionLoader(rows=)`),
+the step is `parallel/dp.make_dp_train_step` (sync-BN, one gradient sum a
+step), so every rank holds the same params; every iteration the ranks
+agree on a stop (a signal to one stops all at the same boundary); rank 0
+alone logs, draws the chart and writes `.weights`; the resumable state is
+the sharded directory (`train/checkpoint.save_checkpoint_sharded`), which
+every rank writes its part of; the in-training mAP rides the mesh.  The
+random layers of rank r draw from the step's seed + r, so their masks
+are not the single-process run's.  Only the spatial, tensor and pipeline
+meshes (ROADMAP A7b) are not ported.
 """
 
 from __future__ import annotations
 
+import functools
 import os
 import time
 
@@ -109,9 +123,21 @@ class DetectorTrainer:
                  log=print, metrics_path=None, show_imgs=0, remat=False,
                  act16=None, resume=False,
                  metric_lag=None, device="cuda"):
-        if mesh is not None:
-            raise NotImplementedError("training on a mesh is not ported yet")
         self.device = paramlib.resolve_device(device)
+        self.mesh = mesh
+        self.rank, self.world = 0, 1
+        if mesh is not None:
+            if mesh.group is None and mesh.shape["dp"] > 1:
+                raise ValueError(
+                    f"training on {mesh} needs one process a device (a "
+                    f"mesh made under torch.distributed)")
+            if mesh.devices[0].type != self.device.type:
+                raise ValueError(f"device={device!r} but the mesh's device "
+                                 f"is {mesh.devices[0]}")
+            self.device = mesh.devices[0]
+            self.rank, self.world = mesh.rank, mesh.shape["dp"]
+            if self.rank:
+                log, metrics_path = (lambda *_a, **_k: None), None
         on_card = self.device.type == "cuda"
         self.graph = build_graph(cfg, train=True)
         self.net = self.graph.net
@@ -161,6 +187,9 @@ class DetectorTrainer:
         self._map_net = None
         self.state_path = os.path.join(save_dir,
                                        f"{save_name}_last.ckpt.npz")
+        if self.world > 1:
+            # the sharded state is a directory
+            self.state_path = self.state_path[:-len(".npz")]
 
         heads = self.graph.heads()
         self.head = heads[-1] if heads else None
@@ -173,8 +202,14 @@ class DetectorTrainer:
                                   1)
         self.net.max_iter = self.iter_per_epoch * max(self.net.max_epoch, 1)
 
+        rows = None
+        if self.world > 1:
+            from darknet_tpu_torch.parallel.multihost import \
+                process_batch_slice
+
+            rows = process_batch_slice(self.net.optimizer_batch)
         self.loader = DetectionLoader(
-            train_paths, w=self.net.w, h=self.net.h,
+            train_paths, w=self.net.w, h=self.net.h, rows=rows,
             batch=self.net.optimizer_batch, boxes=self.max_boxes,
             classes=classes, jitter=self.jitter, hue=self.net.hue,
             saturation=self.net.saturation, exposure=self.net.exposure,
@@ -196,7 +231,7 @@ class DetectorTrainer:
 
         if resume:
             path = resume if isinstance(resume, str) else self.state_path
-            if os.path.exists(path):
+            if os.path.isfile(path) or ck.resolve_sharded_dir(path):
                 self.load_state(path)
             elif isinstance(resume, str):
                 raise FileNotFoundError(f"resume checkpoint not found: {path}")
@@ -232,7 +267,8 @@ class DetectorTrainer:
         the host), seeded from the trainer's CPU generator, so a resumed
         run draws the masks the uninterrupted run would."""
         seed = int(torch.randint(2 ** 62, (), generator=self._gen))
-        return torch.Generator(device=self.device).manual_seed(seed)
+        return torch.Generator(device=self.device).manual_seed(
+            seed + self.rank)
 
     # ------------------------------------------------------------------
     def _step_for(self, w: int, h: int):
@@ -250,10 +286,16 @@ class DetectorTrainer:
                                     train=True)
                     g.net.max_iter = self.net.max_iter
                     self._graph_cache[key] = g
-            self._step_cache[key] = make_train_step(
-                g, compute_dtype=self.compute_dtype,
-                accum=max(g.net.subdiv, 1), remat=self.remat,
-                train_act_dtype=torch.bfloat16 if self.act16 else None)
+            kw = dict(compute_dtype=self.compute_dtype,
+                      accum=max(g.net.subdiv, 1), remat=self.remat,
+                      train_act_dtype=torch.bfloat16 if self.act16 else None)
+            if self.mesh is not None:
+                from darknet_tpu_torch.parallel import make_dp_train_step
+
+                self._step_cache[key] = make_dp_train_step(g, self.mesh,
+                                                           **kw)
+            else:
+                self._step_cache[key] = make_train_step(g, **kw)
         return self._step_cache[key]
 
     def _pick_dims(self, avg_loss) -> tuple:
@@ -337,8 +379,27 @@ class DetectorTrainer:
         except ValueError:
             prev_handlers = {}
 
+        def _stop_agreed() -> bool:
+            # a signal may reach one rank only, or the ranks at different
+            # iterations: stopping alone would strand the others in the
+            # step's collectives.  Every iteration the ranks agree: any
+            # rank signalled stops every rank at this same boundary.
+            if self.world <= 1:
+                return bool(stop_requested)
+            import torch.distributed as dist
+
+            # NCCL sums on the card, gloo on the host
+            flag = torch.tensor([float(bool(stop_requested))],
+                                device=self.device if dist.get_backend(
+                                    self.mesh.group) == "nccl" else "cpu")
+            dist.all_reduce(flag, op=dist.ReduceOp.MAX,
+                            group=self.mesh.group)
+            if flag.item() and not stop_requested:
+                stop_requested.append(True)   # so that the save runs
+            return bool(stop_requested)
+
         try:
-            while not stop_requested and self.curr_iter < end_iter:
+            while not _stop_agreed() and self.curr_iter < end_iter:
                 # multi-scale cadence keyed to the global iteration
                 if self.random_coef and self.curr_iter % 10 == 0:
                     dim_w, dim_h = self._pick_dims(avg_loss)
@@ -428,9 +489,17 @@ class DetectorTrainer:
         else:
             net.params = params
         batch = 4 if len(self.val_paths) >= 4 else 1
+        mesh = None
+        if self.world > 1 and len(self.val_paths) >= self.world:
+            # ride the training mesh: each rank predicts its block of a
+            # batch, every rank matches the gathered detections
+            from darknet_tpu_torch.parallel.mesh import round_batch_to_mesh
+
+            mesh = self.mesh
+            batch = round_batch_to_mesh(batch, self.world)
         res = validate_detector(net, self.val_paths, self.classes,
                                 iou_thresh=iou_thresh, progress=False,
-                                batch=batch, resize="darknet")
+                                batch=batch, resize="darknet", mesh=mesh)
         return res.map
 
     def _numpy_state(self):
@@ -447,6 +516,8 @@ class DetectorTrainer:
         where cv2 imports: the port's primitives always can)."""
         from darknet_tpu_torch.apps import visualize as viz
 
+        if self.rank:
+            return
         os.makedirs(self.save_dir, exist_ok=True)
         img = viz.draw_loss_chart(
             self._chart["iters"], self._chart["losses"],
@@ -456,7 +527,9 @@ class DetectorTrainer:
         viz.safe_imshow("average loss", img[..., ::-1])
 
     def save_state(self, path: str | None = None) -> str:
-        """Write the full resumable state (one `.ckpt.npz`)."""
+        """Write the full resumable state: one `.ckpt.npz`, or in a world
+        of several ranks the sharded directory, which every rank calls
+        for (each writes its part)."""
         os.makedirs(self.save_dir, exist_ok=True)
         path = path or self.state_path
         extra = {"avg_loss": self._avg_loss, "best_map": self._best_map}
@@ -471,9 +544,12 @@ class DetectorTrainer:
                                                   np.int64)
             extra["chart_maps"] = np.asarray(self._chart["maps"], np.float32)
         params, opt = self._numpy_state()
-        ck.save_checkpoint(path, params, opt, seen=self.seen,
-                           rng_key=self._gen.get_state().numpy(),
-                           extra=extra)
+        save = ck.save_checkpoint
+        if self.world > 1:
+            save = functools.partial(ck.save_checkpoint_sharded,
+                                     group=self.mesh.group)
+        save(path, params, opt, seen=self.seen,
+             rng_key=self._gen.get_state().numpy(), extra=extra)
         self.log(f"Saving full train state to {path}")
         return path
 
@@ -482,8 +558,14 @@ class DetectorTrainer:
         state written by save_state (exact resume)."""
         path = path or self.state_path
         params_t, opt_t = self._numpy_state()
-        params, opt, seen, rng, extra = ck.load_checkpoint(path, params_t,
-                                                           opt_t)
+        load = ck.load_checkpoint
+        if os.path.isdir(path) or ck.resolve_sharded_dir(path):
+            # a base name whose state sits at a .tmp/.old swap sibling
+            # resolves (and is promoted) inside the loader
+            load = functools.partial(
+                ck.load_checkpoint_sharded,
+                group=self.mesh.group if self.mesh is not None else None)
+        params, opt, seen, rng, extra = load(path, params_t, opt_t)
         self.params = paramlib.train_params_to_torch(self.graph, params,
                                                      self.device)
         self.opt_state = {
@@ -519,6 +601,9 @@ class DetectorTrainer:
         name = f"{self.save_name}_{suffix}.weights" if suffix \
             else f"{self.save_name}.weights"
         path = os.path.join(self.save_dir, name)
+        if self.rank:
+            # one writer: every rank holds the same params
+            return path
         os.makedirs(self.save_dir, exist_ok=True)
         wio.save_weights(self.graph, paramlib.train_params_to_numpy(
             self.graph, self.params), path, seen=self.seen)

@@ -9,10 +9,11 @@ tests/test_torch_eval.py); int8 validation with a calibration cache;
 `-mode valid` (the per-layer table, then the same report as without);
 `-dbg_sync` 1 and 2 (the same report as without, and at 2 a NaN planted
 in a conv's weights stops the run at that layer); `-show_imgs` in
-`-mode train` (three samples a batch); and the refusals: -num_chips
-above 1 raises NotImplementedError and writes nothing (in the streaming
-modes too, which tests/test_torch_apps_cli.py holds to the JAX CLI), and
-without a card `-device cpu` is required.
+`-mode train` (three samples a batch); and the refusals: a -num_chips
+mesh of cards the machine does not have raises before any work and
+writes nothing, in the streaming modes too (-num_chips itself runs:
+tests/test_torch_parallel.py), and without a card `-device cpu` is
+required.
 """
 
 import json
@@ -122,14 +123,18 @@ def test_valid_int8_calibration_cache(run_dir, capsys):
 
 @pytest.mark.parametrize("extra", [
     ["-mode", "video", "-num_chips", "2"], ["-num_chips", "2"]])
-def test_unported_refused(run_dir, tmp_path, extra):
+def test_unported_refused(run_dir, tmp_path, extra, monkeypatch):
+    """A mesh of more cards than the machine has (two on a machine of
+    one) is refused before any work, nothing written, never wrapped
+    around."""
     _root, cfg, data = run_dir
-    argv = args("valid", cfg, data, "none", "-device", "cpu")
+    monkeypatch.setattr(torch.cuda, "device_count", lambda: 1)
+    argv = args("valid", cfg, data, "none", "-device", "cuda")
     argv = [a for a in argv if a not in ("-mode", "valid")] + extra
     if "-mode" not in extra:
         argv += ["-mode", "valid"]
     before = sorted(os.listdir(_root))
-    with pytest.raises(NotImplementedError, match="ROADMAP A7"):
+    with pytest.raises(ValueError, match="this machine has"):
         cli.main(argv)
     assert sorted(os.listdir(_root)) == before
 

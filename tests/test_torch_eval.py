@@ -201,9 +201,18 @@ def test_validate_detector_stub(png_set, batch, sweep):
 
 
 def test_mesh_refused(png_set):
+    """The mesh reaches the network's detect_batch, which refuses the
+    meshes that are not ported: an 'sp' axis (ROADMAP A7b).  Mesh
+    validation itself is tests/test_torch_parallel.py."""
+    from darknet_tpu_torch.parallel.mesh import Mesh
+
+    net = Network.from_cfg(model_zoo.MODELS["yolov3-tiny"](64, 64,
+                                                          classes=3),
+                           device="cpu")
+    sp = Mesh({"dp": 1, "sp": 2}, (torch.device("cpu"),) * 2)
     with pytest.raises(NotImplementedError, match="A7"):
-        tmap.validate_detector(stub_net(Detection), png_set, classes=3,
-                               mesh=object(), progress=False)
+        tmap.validate_detector(net, png_set, classes=3, mesh=sp,
+                               progress=False)
 
 
 @pytest.fixture(scope="module")

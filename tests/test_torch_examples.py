@@ -1,7 +1,8 @@
 """The port's walkthroughs (`darknet_tpu_torch/examples`, twins of
-examples/01-04) end to end on the CPU (--device cpu), in a subprocess
+examples/01-05) end to end on the CPU (--device cpu), in a subprocess
 each, sharing one workdir like a user following them in order, at the
-originals' test sizes (`tests/test_examples.py`)."""
+originals' test sizes (`tests/test_examples.py`); 05 on a ["cpu", "cpu"]
+mesh."""
 
 import os
 import subprocess
@@ -60,3 +61,17 @@ def test_04_video_tracking(trained):
     out = _run("04_video_tracking.py", "--workdir", workdir)
     assert "output video:" in out
     assert os.path.exists(os.path.join(workdir, "tracking.y4m"))
+
+
+def test_05_multichip(trained):
+    """Mesh serving gives one device's boxes; the two data-parallel ranks
+    end the step with equal weights."""
+    workdir, _ = trained
+    out = _run("05_multichip.py", "--workdir", workdir, "--thresh", "0.01")
+    assert "mesh: Mesh({'dp': 2}" in out
+    assert "the same boxes as one device" in out
+    ranks = [line for line in out.splitlines() if line.startswith("rank ")]
+    assert len(ranks) == 2
+    digests = {line.split("weights digest ")[1] for line in ranks}
+    losses = {line.split("loss = ")[1].split(",")[0] for line in ranks}
+    assert len(digests) == 1 and len(losses) == 1

@@ -18,8 +18,11 @@ and with a generator; a seventh, with the same three blocked, imports
 request with region_int8 (107 quantized convs, no stem, no region kernel)
 under `debug_nans` and profiles it per layer; an eighth, with the same
 three blocked, loads and runs a serving artifact (`Network.
-export_serving`) and returns the exporting process's triple bitwise; and
-no source of the port (`eval/` and `apps/` included), nor the chip
+export_serving`) and returns the exporting process's triple bitwise; a
+ninth runs a data-parallel step over two spawned gloo ranks with the
+same three blocked in every process (a `sitecustomize` that the ranks
+load too); and no source of the port (`eval/`, `apps/` and `parallel/`
+included), nor the chip
 scripts (chip_smoke.py, chip_int8_shapes.py, chip_region_tiles.py),
 imports any of the three, nor does the port's C shim import a module
 outside darknet_tpu_torch (and numpy)."""
@@ -436,11 +439,78 @@ print("EXPORTED", int((got[2] > 0).sum()))
 """
 
 
-def run_blocked(script, *args):
+BLOCKER = """
+import sys
+
+class Block:
+    def find_spec(self, name, path=None, target=None):
+        if name.split(".")[0] in ("jax", "jaxlib", "darknet_tpu"):
+            raise ImportError(f"blocked: {name}")
+        return None
+
+sys.meta_path.insert(0, Block())
+"""
+
+BLOCKED_DP = r"""
+import sys
+import tempfile
+
+import numpy as np
+from darknet_tpu_torch.graph.builder import build_graph
+from darknet_tpu_torch.nn.params import init_params
+from darknet_tpu_torch.parallel.multihost import spawn
+import torch_parallel_workers as workers
+
+cfg = '''[net]
+batch=4
+subdivisions=2
+width=32
+height=32
+channels=3
+burn_in=0
+[convolutional]
+batch_normalize=1
+filters=8
+size=3
+stride=2
+pad=1
+activation=mish
+[convolutional]
+filters=12
+size=1
+activation=linear
+[yolo]
+mask=0,1
+num=2
+classes=1
+anchors=10,14, 23,27
+'''
+rng = np.random.default_rng(0)
+x = rng.uniform(0, 1, (4, 32, 32, 3)).astype(np.float32)
+y = np.zeros((4, 90, 5), np.float32)
+y[:, 0] = [0.5, 0.5, 0.3, 0.3, 0]
+case = {"name": "dp", "cfg": cfg, "accum": 2, "bf16": False, "steps": 1,
+        "p0": init_params(build_graph(cfg, train=True), seed=0), "x": x,
+        "y": y}
+out = tempfile.mkdtemp()
+spawn(workers.dp_steps, ["cpu", "cpu"], out, [case], timeout_s=240)
+z = [np.load(f"{out}/dp_{r}.npz") for r in (0, 1)]
+assert all(np.array_equal(z[0][k], z[1][k]) for k in z[0].files)
+assert np.isfinite(z[0]["costs"]).all() and int(z[0]["t"]) == 1
+bad = [m for m in sys.modules
+       if m.split(".")[0] in ("jax", "jaxlib", "darknet_tpu")]
+assert not bad, bad
+print("DATA-PARALLEL", float(z[0]["costs"][0]))
+"""
+
+
+def run_blocked(script, *args, site=None):
+    """Run `script` with the repo on the path; `site`: a directory whose
+    sitecustomize.py every process of the run loads first."""
     env = dict(os.environ)
     env["PYTHONPATH"] = os.pathsep.join(
-        [str(REPO)] + [p for p in env.get("PYTHONPATH", "").split(os.pathsep)
-                       if p])
+        ([str(site)] if site else []) + [str(REPO), str(REPO / "tests")] +
+        [p for p in env.get("PYTHONPATH", "").split(os.pathsep) if p])
     proc = subprocess.run([sys.executable, "-c", script, *args], cwd=REPO,
                           env=env, capture_output=True, text=True,
                           timeout=300)
@@ -504,6 +574,11 @@ def test_exported_artifact_runs_with_jax_blocked(tmp_path):
     assert "EXPORTED" in run_blocked(BLOCKED_EXPORT, art,
                                      str(tmp_path / "x.npy"),
                                      str(tmp_path / "want.npz"))
+
+
+def test_data_parallel_step_with_jax_blocked(tmp_path):
+    (tmp_path / "sitecustomize.py").write_text(BLOCKER)
+    assert "DATA-PARALLEL" in run_blocked(BLOCKED_DP, site=tmp_path)
 
 
 def test_capi_imports_only_the_port():

@@ -9,8 +9,9 @@ two-image micro-batches, to 1.2e-4 and 1.6e-3 after three), the
 multi-scale bucket picks, an exact resume (4 straight
 iterations against 2, save, load, 2: equal to the bit), a start from a
 `.weights` file with and without clear, and the entry points' refusals:
-no card without device="cpu", and a mesh (in-training mAP is
-tests/test_torch_train_map.py).
+no card without device="cpu", and a mesh of one process's devices
+(data parallelism runs one process a device: tests/test_torch_parallel.
+py; in-training mAP is tests/test_torch_train_map.py).
 
 The cfg has no maxpool: on synth images (flat colour regions) a
 maxpool's windows hold exact ties, and which positions tie exactly
@@ -244,9 +245,11 @@ def test_entry_points_refuse(data):
             DetectorTrainer(cfg, files["train_paths"], classes=4)
         with pytest.raises(RuntimeError, match="no CUDA card"):
             train_detector(data_file, cfg, max_iters=1)
-    with pytest.raises(NotImplementedError, match="mesh"):
+    from darknet_tpu_torch.parallel.mesh import make_mesh
+
+    with pytest.raises(ValueError, match="one process a device"):
         DetectorTrainer(cfg, files["train_paths"], classes=4, device="cpu",
-                        mesh=object())
+                        mesh=make_mesh(2, device="cpu"))
     assert not os.path.exists(os.path.join(_out, "m_final.weights"))
 
 
