@@ -7,7 +7,8 @@ YOLOv1 and the rare layer kinds, run the CLI's bench, per-layer
 profile, debug and augmentation-sample flags, serve region_int8, train
 from pinned bf16 uploads, export the serving program and serve it from
 another process, run the C ABI twin and the walkthrough twins, train,
-serve and validate over data-parallel meshes, and report.
+serve and validate over data-parallel meshes, serve over model-parallel
+meshes (spatial, tensor, pipeline), and report.
 
     python3 chip_smoke.py
 
@@ -55,7 +56,7 @@ Phases, each of which fails the run (non-zero exit) on any error:
      torch._int_mm's on the same operands and the bound; int8 img/s beside
      the bf16 rate of phase 4; a profile of one request;
   7. a JSON line of the kernels, then {"ok": true, "device": ...} last
-     (printed after phase 15);
+     (printed after phase 16);
   8. training (train/step, train/trainer), which launches neither kernel,
      as in the JAX package:
      (a) parity on the card: the narrow CSP + SPP graph (TRAIN_CSP_CFG,
@@ -259,11 +260,40 @@ Phases, each of which fails the run (non-zero exit) on any error:
          MapResult.
      The kernels line gives the mesh's launches (`phase15_mesh_bf16`,
      `phase15_mesh_int8`, `phase15_mesh_valid`).
+ 16. model-parallel serving (`--only model_parallel`; its own timing
+     line), yolov4-608 b=8 on probe weights, the card named 2 or 4 times,
+     every region launch held to `region_plain` on its own input (the
+     extended slab) and every int8 launch bitwise to its plain version:
+     (a) `parallel.spatial.make_spatial_forward` over sp=2 and (dp=2,
+         sp=2) in bf16, f32, calibrated and dynamic int8: dp x sp region
+         launches a request, 91 (90 dynamic) int8 a slab; the heads
+         against the unsharded forward's (f32 within 1e-4 of each
+         spread, bf16 within ROADMAP C3's 2e-2 of the largest, int8
+         within the unsharded int8's own gap to f32);
+     (b) `parallel.tensor.make_tp_forward` over tp=2 and (dp=2, tp=2) in
+         f32, bf16 and calibrated int8: no region launch, 2 x the
+         sharded plus the replicated int8 convs a block; the heads
+         against the unsharded forward without regions;
+     (c) `parallel.pipeline.PipelineForward` over 2 and 4 stages with 2
+         and 4 micro-batches in bf16 and calibrated int8: a region
+         launch and 91 int8 a micro-batch;
+     (d) the Network on {"dp": 2, "sp": 2} in f32, bf16 and calibrated
+         int8: kept sets against the unsharded request's, every
+         difference traced to the decision that flipped;
+     (e) dynamic int8 on a dp=2 mesh: every conv quantized with the
+         whole batch's max|x|, kept differences traced;
+     (f) bf16 img/s of the sp mesh (whole requests), tp (dp=2, tp=2) and
+         the pipeline (4 stages, 4 micro-batches) against unsharded, 3
+         windows of 20 each way in turns; one profiled request each way
+         (device busy share, device events a request).
+     The kernels line gives their launches (`phase16_spatial_bf16`,
+     `phase16_spatial_int8`, `phase16_tp_int8`, `phase16_pipeline_bf16`,
+     `phase16_pipeline_int8`, `phase16_mesh_sp`).
 
 `python3 chip_smoke.py --only video` (or `--only gaussian`, `--only v1`,
-`--only cli`, `--only export`, `--only parallel`) builds the kernels and
-runs phase 10 (11, 12, 13, 14, 15) alone (its last line is then not the
-contract's).
+`--only cli`, `--only export`, `--only parallel`, `--only
+model_parallel`) builds the kernels and runs phase 10 (11, 12, 13, 14,
+15, 16) alone (its last line is then not the contract's).
 
 Weights are random (numpy, seed 0); the training images are drawn from a
 seed into a temporary directory; no file outside the checkout is read.
@@ -5353,6 +5383,519 @@ def parallel_valid(card, root):
     return {"region": n_two}
 
 
+# phase 16: model parallelism (serving)
+MP_SEED = 16
+MP_DEVICE = "cuda:0"
+MP_SPATIAL = ((1, 2), (2, 2))            # (dp, sp) meshes naming the card
+MP_TENSOR = ((1, 2), (2, 2))             # (dp, tp)
+MP_PIPELINE = ((2, 2), (2, 4), (4, 2), (4, 4))   # (stages, micro-batches)
+MP_RATE = dict(warmup=2, windows=1, requests=20)
+MP_ROUNDS = 3            # windows each way, unsharded and sharded in turns
+
+
+class region_records:
+    """Inside the block, every region kernel launch recorded: its plan,
+    weights, input (the extended slab as the kernel read it) and output,
+    for `held_to_plain` after the block."""
+
+    def __enter__(self):
+        from darknet_tpu_torch.ops.cuda import fused_region as kfr
+
+        self.kfr, self.records = kfr, []
+        self.orig = (kfr._prepared, kfr.launch)
+        prep, launch = self.orig
+        pending = {}
+
+        def prepared(plan, weights, biases, dtype, device):
+            pending["op"] = (plan, list(weights), list(biases), dtype)
+            return prep(plan, weights, biases, dtype, device)
+
+        def launched(kp, tab, wbuf, bbuf, x, out_c):
+            y = launch(kp, tab, wbuf, bbuf, x, out_c)
+            self.records.append((pending.pop("op"), x, y))
+            return y
+
+        kfr._prepared, kfr.launch = prepared, launched
+        return self
+
+    def __exit__(self, *exc):
+        self.kfr._prepared, self.kfr.launch = self.orig
+
+    def held_to_plain(self, init):
+        """(the largest error of a launch relative to its plain version's
+        scale, every launch within tolerance, the input heights); the
+        records go.  f32: TOL_F32 of the scale, on the launch's own
+        operands.  bf16 on the launch's own probe weights, where one
+        rounding carried through the nine steps reaches 0.0093-0.0095 of
+        the scale (PERF.md §6): within twice the plain bf16
+        version's own distance from the plain f32 one on those operands
+        (two rounding chains, each that far from f32); and the kernel on
+        the launch's own input (the extended slab) with phase 1's weights
+        (`init`: {dtype: the graph's seeded params}) within TOL_BF16 of
+        its plain version, as phases 1 and 4 hold it."""
+        import torch
+
+        from darknet_tpu_torch.ops import fused_region as fr
+        from darknet_tpu_torch.ops.library import parse_plan
+
+        worst, ok, heights = 0.0, True, []
+        for (plan, ws, bs, dtype), x, y in self.records:
+            sub = parse_plan(plan) if isinstance(plan, str) else plan
+            want = fr.region_plain(sub, x, ws, bs, compute_dtype=dtype)
+            tol = TOL_F32
+            if dtype == torch.bfloat16:
+                f32 = fr.region_plain(sub, x.float(), [w.float() for w in ws],
+                                      bs, compute_dtype=torch.float32)
+                own = float((want.float() - f32).abs().max())
+                tol = max(TOL_BF16, 2 * own / float(want.float().abs().max()))
+                w0, b0 = fr.step_weights(sub.steps, init[dtype], dtype)
+                y0 = self.kfr.region_call(plan, x, w0, b0, compute_dtype=dtype)
+                p0 = fr.region_plain(sub, x, w0, b0, compute_dtype=dtype)
+                err0, scale0, _s, good0 = held_to_plain(y0, p0, TOL_BF16)
+                worst = max(worst, err0 / max(scale0, 1e-30))
+                ok = ok and good0
+            err, scale, _share, good = held_to_plain(y, want, tol)
+            worst = max(worst, err / max(scale, 1e-30))
+            ok = ok and good
+            heights.append(int(x.shape[1]))
+        self.records = []
+        return worst, ok, heights
+
+
+def head_gap(got, want):
+    """Per head: the largest difference over the head's spread (max -
+    min) and over its largest value."""
+    out = []
+    for a, b in zip(got, want):
+        a, b = a.float(), b.float().to(a.device)
+        d = float((a - b).abs().max())
+        out.append((d / float(b.max() - b.min()), d / float(b.abs().max())))
+    return out
+
+
+def heads_ok(label, heads, ref, ref_f32):
+    """(ok, what): f32 heads within TOL_F32 of each head's spread of the
+    reference's; bf16 and int8 within the reference's own distance from
+    f32 (over each spread): two correct runs of a reduced precision,
+    whose sums or conv algorithms differ, part by as much as either
+    parts from f32 (a rounding, or an int8 step, carried through ~160
+    layers on probe weights)."""
+    gap = head_gap(heads, ref)
+    if label == "f32":
+        return (all(s <= TOL_F32 for s, _m in gap),
+                f"within {TOL_F32} of each head's spread")
+    yard = head_gap(ref, ref_f32)
+    return (all(s <= y for (s, _m), (y, _n) in zip(gap, yard)),
+            f"within the unsharded {label}'s own distance from f32 "
+            f"{[round(y, 4) for y, _n in yard]} of each spread")
+
+
+def mp_nets(root):
+    """yolov4-608 b=8 on probe weights (phase 15's): the frames and the
+    bf16, f32, calibrated int8 and dynamic int8 networks."""
+    import torch
+
+    from darknet_tpu_torch import Network, model_zoo
+    from darknet_tpu_torch.nn import params as paramlib
+    from darknet_tpu_torch.weights import io as wio
+
+    cfg_text = model_zoo.yolov4_cfg(SERVE_PX, SERVE_PX)
+    cfg = os.path.join(root, "yolov4.cfg")
+    with open(cfg, "w") as f:
+        f.write(cfg_text)
+    rng = np.random.default_rng(MP_SEED)
+    shape = (SERVE_BATCH, SERVE_PX, SERVE_PX, 3)
+    frames = rng.uniform(0, 1, shape).astype(np.float32)
+    g = quiet_graph(cfg_text)
+    probe = Network(g, paramlib.params_to_torch(
+        g, probe_params(g), DEVICE, torch.bfloat16),
+        compute_dtype=torch.bfloat16, device=DEVICE)
+    with torch.inference_mode():
+        raw = probe._fwd(probe.params,
+                         torch.from_numpy(frames).to(DEVICE))["raw_heads"]
+    bias = obj_bias_for([h.float() for h in raw], 0.25,
+                        PROBE_PASS * SERVE_BATCH)
+    del probe, raw
+    weights = os.path.join(root, "probe.weights")
+    wio.save_weights(g, unfolded(g, probe_params(g, obj_bias=bias)), weights)
+    nets = {}
+    with warnings.catch_warnings():
+        warnings.simplefilter("ignore")
+        for label in ("bf16", "int8", "int8dyn"):
+            nets[label] = Network.from_cfg(cfg, weights=weights,
+                                           int8=label != "bf16",
+                                           compute_dtype=torch.bfloat16,
+                                           device=DEVICE)
+        nets["f32"] = Network.from_cfg(cfg, weights=weights, device=DEVICE)
+    nets["int8"].calibrate_int8([rng.uniform(0, 1, shape[1:]).astype(
+        np.float32) for _ in range(INT8_CALIB_FRAMES)])
+    return g, frames, nets
+
+
+def mp_launches(fn, label, n_int8, init):
+    """fn() once with every region and int8 launch recorded and counted:
+    (result, (region, int8) launches, the region launches' worst error
+    against their plain version, the input heights); every launch is held
+    to its plain version (region: TOL_F32 / TOL_BF16; int8: bitwise)."""
+    import torch
+
+    from darknet_tpu_torch.ops import quant_matmul as qm
+    from darknet_tpu_torch.ops.cuda import fused_region as kfr
+
+    torch.cuda.synchronize()
+    with region_records() as rr, int8_records() as ir:
+        kfr.launches = qm.launches = 0
+        with torch.inference_mode():
+            out = fn()
+        torch.cuda.synchronize()
+        launches = (kfr.launches, qm.launches)
+    with torch.inference_mode():
+        worst, ok, heights = rr.held_to_plain(init)
+        q_eq, q_n = ir.bitwise_to_plain()
+    require(ok, f"{label}: every region launch within its plain version's "
+            f"tolerance (worst {worst:.3g} of the scale)")
+    require(q_eq == q_n == launches[1] == n_int8, f"{label}: {n_int8} int8 "
+            f"launches, each bitwise its plain version ({q_eq} of {q_n}, "
+            f"{launches[1]} counted)")
+    return out, launches, worst, heights
+
+
+def mp_spatial(card, g, frames, nets, ref, init):
+    """Phase 16 (a): make_spatial_forward over sp=2 and (dp=2, sp=2)."""
+    import torch
+
+    from darknet_tpu_torch.parallel.spatial import (make_spatial_forward,
+                                                    make_spatial_mesh)
+
+    out = {}
+    for n_dp, n_sp in MP_SPATIAL:
+        mesh = make_spatial_mesh(n_dp, n_sp,
+                                 devices=[MP_DEVICE] * (n_dp * n_sp))
+        cells = n_dp * n_sp
+        for label, net in nets.items():
+            n_q = {"int8": INT8_CONVS, "int8dyn": INT8_CONVS - 1}.get(label, 0)
+            f = make_spatial_forward(g, mesh, compute_dtype=net.compute_dtype,
+                                     decode=False)
+            heads, launches, worst, heights = mp_launches(
+                lambda: f(net.params, frames), f"spatial {label} "
+                f"dp={n_dp} sp={n_sp}", n_q * cells, init)
+            require(launches[0] == cells, f"spatial {label}: {cells} region "
+                    f"launches a request, got {launches[0]}")
+            gap = head_gap(heads, ref[label])
+            finite = all(bool(torch.isfinite(h).all()) for h in heads)
+            ok, what = heads_ok(label, heads, ref[label], ref["f32"])
+            print(f"(a) spatial {label} dp={n_dp} sp={n_sp} ({card}): "
+                  f"{launches[0]} region launches on slabs of "
+                  f"{heights} input rows, worst {worst:.3g} of the scale "
+                  f"against region_plain on the same slab; {launches[1]} "
+                  f"int8 launches, each bitwise; heads against unsharded "
+                  f"{[(round(s, 7), round(m, 7)) for s, m in gap]} (of the "
+                  f"spread, of the largest), {what}: {ok}", flush=True)
+            require(finite and ok, f"spatial {label} dp={n_dp} sp={n_sp}: "
+                    f"heads {what}")
+            out[(label, n_dp, n_sp)] = launches
+    return out
+
+
+def mp_tensor(card, g, frames, nets, init):
+    """Phase 16 (b): make_tp_forward over tp=2 and (dp=2, tp=2)."""
+    import torch
+
+    from darknet_tpu_torch.nn.emit import make_forward
+    from darknet_tpu_torch.parallel.tensor import (_tp_layers,
+                                                   make_tp_forward,
+                                                   make_tp_mesh)
+
+    from darknet_tpu_torch.ops import quant_matmul as qm
+
+    # filter shards narrower than any yolov4 conv's: yolov4-tiny's
+    # 32-filter convs at tp=4 give N=8
+    narrow = []
+    for n in (8, 16, 32):
+        for size, stride in ((1, 1), (3, 1), (3, 2)):
+            ops, kw = int8_conv_operands(2, 19, 128, n, size, stride,
+                                         seed=n + size + stride)
+            for dt in (torch.float32, torch.bfloat16):
+                got = qm.int8_conv(*ops, out_dtype=dt, **kw)
+                want = qm.int8_conv_plain(*ops, out_dtype=dt, **kw)
+                narrow.append(bool(torch.equal(got, want)))
+    print(f"(b) int8_conv at filter shards N = 8, 16, 32 (1x1, 3x3/1, "
+          f"3x3/2; f32 and bf16 out): {sum(narrow)} of {len(narrow)} "
+          f"bitwise their plain version", flush=True)
+    require(all(narrow), "int8_conv at narrow filter shards")
+    x = torch.from_numpy(frames).to(DEVICE)
+    ref = {}
+    for label in ("f32", "bf16", "int8"):
+        net = nets[label]
+        with torch.inference_mode():
+            ref[label] = make_forward(g, compute_dtype=net.compute_dtype,
+                                      fuse_regions=None)(net.params,
+                                                         x)["heads"]
+    out = {}
+    for n_dp, n_tp in MP_TENSOR:
+        mesh = make_tp_mesh(n_dp, n_tp, devices=[MP_DEVICE] * (n_dp * n_tp))
+        elig = _tp_layers(g, n_tp)
+        q = [i for i, p in enumerate(nets["int8"].params) if "w_q" in p]
+        n_sh = sum(1 for i in q if i in elig)
+        for label in ("f32", "bf16", "int8"):
+            net = nets[label]
+            n_q = n_dp * (n_tp * n_sh + len(q) - n_sh) \
+                if label == "int8" else 0
+            f = make_tp_forward(g, mesh, compute_dtype=net.compute_dtype,
+                                decode=False)
+            heads, launches, _w, _h = mp_launches(
+                lambda: f(net.params, frames),
+                f"tp {label} dp={n_dp} tp={n_tp}", n_q, init)
+            require(launches[0] == 0, f"tp {label}: no region launch")
+            gap = head_gap(heads, ref[label])
+            ok, what = heads_ok(label, heads, ref[label], ref["f32"])
+            print(f"(b) tp {label} dp={n_dp} tp={n_tp} ({card}): "
+                  f"{launches[0]} region, {launches[1]} int8 launches "
+                  f"({n_tp} x {n_sh} sharded + {len(q) - n_sh} replicated "
+                  f"a block), each bitwise; heads against the unsharded "
+                  f"forward without regions "
+                  f"{[(round(s, 7), round(m, 7)) for s, m in gap]}, "
+                  f"{what}: {ok}", flush=True)
+            require(ok, f"tp {label} dp={n_dp} tp={n_tp}: heads")
+            out[(label, n_dp, n_tp)] = launches
+    return out
+
+
+def mp_pipeline(card, g, frames, nets, ref, init):
+    """Phase 16 (c): PipelineForward over 2 and 4 stages."""
+    from darknet_tpu_torch.parallel.pipeline import PipelineForward
+
+    out = {}
+    for stages, mb in MP_PIPELINE:
+        for label in ("bf16", "int8"):
+            net = nets[label]
+            pf = PipelineForward(g, net.params, [MP_DEVICE] * stages,
+                                 compute_dtype=net.compute_dtype,
+                                 microbatches=mb)
+            n_q = INT8_CONVS * mb if label == "int8" else 0
+            heads, launches, worst, heights = mp_launches(
+                lambda: pf(frames), f"pipeline {label} {stages} stages "
+                f"{mb} micro-batches", n_q, init)
+            require(launches[0] == mb, f"pipeline {label}: a region launch "
+                    f"a micro-batch, got {launches[0]}")
+            gap = head_gap(heads, ref[label])
+            ok, what = heads_ok(label, heads, ref[label], ref["f32"])
+            print(f"(c) pipeline {label} {stages} stages (cuts "
+                  f"{pf.cuts}), {mb} micro-batches ({card}): {launches[0]} "
+                  f"region launches (batch {heights and SERVE_BATCH // mb}, "
+                  f"worst {worst:.3g} of the scale), {launches[1]} int8, "
+                  f"each bitwise; heads against unsharded "
+                  f"{[(round(s, 7), round(m, 7)) for s, m in gap]}, "
+                  f"{what}: {ok}", flush=True)
+            require(ok, f"pipeline {label} {stages}x{mb}: heads")
+            out[(label, stages, mb)] = launches
+    return out
+
+
+def mp_network(card, frames, nets, init):
+    """Phase 16 (d): the Network on a {"dp": 2, "sp": 2} mesh, kept sets
+    against unsharded; (e) R1: dynamic int8 on a dp=2 mesh."""
+    import torch
+
+    from darknet_tpu_torch.ops import conv as convmod
+    from darknet_tpu_torch.parallel import make_mesh
+    from darknet_tpu_torch.parallel.spatial import make_spatial_mesh
+
+    mesh = make_spatial_mesh(2, 2, devices=[MP_DEVICE] * 4)
+    out = {}
+    for label in ("f32", "bf16", "int8"):
+        net = nets[label]
+        n_q = INT8_CONVS * 4 if label == "int8" else 0
+        got, launches, _w, _h = mp_launches(
+            lambda: net.submit_detect_device(frames, mesh=mesh),
+            f"mesh sp {label}", n_q, init)
+        with torch.inference_mode():
+            whole = net.submit_detect_device(frames)
+            pre_m = net.submit_detect_device(frames, nms=0, mesh=mesh)
+            pre_w = net.submit_detect_device(frames, nms=0)
+        ka, kb, box_err = kept_matched(got, whole)
+        args = (0.25, 0.45, net._nms_kind, net._nms_beta)
+        fwd = flips_explained(got, pre_m, whole, pre_w, *args)
+        bwd = flips_explained(whole, pre_w, got, pre_m, *args)
+        why = {}
+        for r in (fwd[1], bwd[1]):
+            for v in r.values():
+                why[v] = why.get(v, 0) + 1
+        print(f"(d) Network {label} on {mesh.shape} ({card}): {launches[0]} "
+              f"region, {launches[1]} int8 launches a request; kept "
+              f"{len(ka)} against the unsharded {len(kb)} (boxes within "
+              f"{box_err:.3g}), {len(ka ^ kb)} differ, traced {why}, "
+              f"unexplained {fwd[2] + bwd[2]} (score noise {fwd[3]:.4g})",
+              flush=True)
+        require(launches[0] == 4 and len(ka) > 0, f"mesh sp {label}: 4 "
+                f"region launches, detections kept")
+        require(not fwd[2] and not bwd[2], f"mesh sp {label}: every kept "
+                f"difference traced to a decision that flipped")
+        out[label] = launches
+    # (e) R1: every conv's dynamic scale is the whole batch's
+    net = nets["int8dyn"]
+    dp2 = make_mesh(devices=[MP_DEVICE] * 2)
+    orig, calls = convmod.conv2d_int8, {}
+
+    def spy(x, p, **kw):
+        scale = p["x_scale"] if "x_scale" in p else \
+            convmod.input_scale(x.float())
+        calls.setdefault(p["w_q"].data_ptr(), []).append(
+            (x.float().abs().amax(), torch.as_tensor(scale).reshape(())))
+        return orig(x, p, **kw)
+
+    convmod.conv2d_int8 = spy
+    try:
+        got, launches, _w, _h = mp_launches(
+            lambda: net.submit_detect_device(frames, mesh=dp2),
+            "R1 dynamic int8 dp=2", (INT8_CONVS - 1) * 2, init)
+    finally:
+        convmod.conv2d_int8 = orig
+    same = []
+    for c in calls.values():
+        m = torch.clamp_min(torch.stack([v[0] for v in c]).amax(), 1e-8)
+        want = convmod.input_scale(m, absmax=m)
+        same.append(len(c) == 2 and all(torch.equal(v[1], want) for v in c))
+    with torch.inference_mode():
+        whole = net.submit_detect_device(frames)
+        pre_m = net.submit_detect_device(frames, nms=0, mesh=dp2)
+        pre_w = net.submit_detect_device(frames, nms=0)
+    ka, kb, box_err = kept_matched(got, whole)
+    fwd = flips_explained(got, pre_m, whole, pre_w, 0.25, 0.45,
+                          net._nms_kind, net._nms_beta)
+    print(f"(e) R1 dynamic int8 on dp=2 ({card}): {sum(same)} of "
+          f"{len(same)} convs quantized with the whole batch's max|x|; "
+          f"{launches[1]} int8 launches; kept {len(ka)} against the "
+          f"unsharded {len(kb)}, {len(ka ^ kb)} differ (unexplained "
+          f"{fwd[2]}, score noise {fwd[3]:.4g})", flush=True)
+    require(len(same) == INT8_CONVS - 1 and all(same), "R1: every dynamic "
+            "int8 conv's scale is the whole batch's")
+    require(not fwd[2], "R1: every kept difference traced to a decision")
+    out["r1"] = launches
+    return out
+
+
+def mp_profile(fn):
+    """(device busy ms, the device window's ms, device events) of one
+    fn() in a profiler trace."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+
+    from darknet_tpu_torch.utils.profiler import device_events
+
+    fn()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        fn()
+        torch.cuda.synchronize()
+    dev = device_events(prof.events())
+    if not dev:
+        return None, None, 0
+    busy = sum(e.time_range.elapsed_us() for e in dev) / 1e3
+    span = (max(e.time_range.end for e in dev)
+            - min(e.time_range.start for e in dev)) / 1e3
+    return busy, span, len(dev)
+
+
+def mp_rates(card, g, frames, nets):
+    """Phase 16 (f): img/s of each path against unsharded in bf16, in
+    turns; a profiled request of each (busy share, device events)."""
+    import torch
+
+    from darknet_tpu_torch.parallel import make_mesh
+    from darknet_tpu_torch.parallel.pipeline import PipelineForward
+    from darknet_tpu_torch.parallel.spatial import make_spatial_mesh
+    from darknet_tpu_torch.parallel.tensor import make_tp_forward, make_tp_mesh
+
+    net = nets["bf16"]
+    x = torch.from_numpy(frames).to(DEVICE)
+    sp = make_spatial_mesh(2, 2, devices=[MP_DEVICE] * 4)
+    tp = make_tp_forward(g, make_tp_mesh(2, 2, devices=[MP_DEVICE] * 4),
+                         compute_dtype=torch.bfloat16, decode=False)
+    pf = PipelineForward(g, net.params, [MP_DEVICE] * 4,
+                         compute_dtype=torch.bfloat16, microbatches=4)
+
+    def whole_forward():
+        with torch.inference_mode():
+            return net._fwd(net.forward_params, x)["heads"]
+
+    paths = {
+        "mesh_sp": (lambda: net.device_out_to_dets(*net.submit_detect_device(
+            frames)), lambda: net.device_out_to_dets(
+                *net.submit_detect_device(frames, mesh=sp))),
+        "tp": (whole_forward, lambda: tp(net.params, x)),
+        "pipeline": (whole_forward, lambda: pf(x)),
+    }
+    out = {}
+    for name, (base, sharded) in paths.items():
+        rates = {"unsharded": [], name: []}
+        for i in range(MP_ROUNDS):
+            for way in ("unsharded", name)[::1 if i % 2 == 0 else -1]:
+                req = base if way == "unsharded" else sharded
+                with torch.inference_mode():
+                    rates[way] += serve_rate(net, frames, request=req,
+                                             **MP_RATE)[2]
+        med = {w: float(np.median(r)) for w, r in rates.items()}
+        with torch.inference_mode():
+            prof = {w: mp_profile(f) for w, f in (("unsharded", base),
+                                                  (name, sharded))}
+        desc = "; ".join(
+            f"{w} busy {b:.2f} of {s:.2f} ms (idle {1 - b / s:.1%}), {n} "
+            f"device events" for w, (b, s, n) in prof.items() if b)
+        print(f"(f) {name} bf16 ({card}): img/s {med[name]:.2f} against "
+              f"unsharded {med['unsharded']:.2f} ({med[name] / med['unsharded']:.3f}"
+              f"x), medians of {MP_ROUNDS} windows of {MP_RATE['requests']} "
+              f"each way in turns ({name} {[round(r, 2) for r in rates[name]]}"
+              f", unsharded {[round(r, 2) for r in rates['unsharded']]}); "
+              f"one profiled request: {desc}", flush=True)
+        out[name] = {"img_s": med, "profile": prof}
+    # phase 15's path beside: the dp=2 mesh request (blocks one at a time)
+    dp2 = make_mesh(devices=[MP_DEVICE] * 2)
+    with torch.inference_mode():
+        b, s, n = mp_profile(lambda: net.device_out_to_dets(
+            *net.submit_detect_device(frames, mesh=dp2)))
+    if b:
+        print(f"(f) phase 15's dp=2 mesh request, bf16 ({card}): busy "
+              f"{b:.2f} of {s:.2f} ms (idle {1 - b / s:.1%}), {n} device "
+              f"events", flush=True)
+    return out
+
+
+def phase_model_parallel(card):
+    """Phase 16 (`--only model_parallel`): model-parallel serving at full
+    width, the card named 2 or 4 times."""
+    import torch
+
+    from darknet_tpu_torch.nn import params as paramlib
+
+    t_phase = time.perf_counter()
+    root = tempfile.mkdtemp(prefix="chip_smoke_mp_")
+    try:
+        g, frames, nets = mp_nets(root)
+        # phase 1's weights for the kernel checks on each launch's input
+        init = {torch.bfloat16: paramlib.params_to_torch(
+            g, paramlib.fuse_conv_batchnorm(
+                g, paramlib.init_params(g, seed=SERVE_PX)), DEVICE,
+            torch.bfloat16)}
+        x = torch.from_numpy(frames).to(DEVICE)
+        with torch.inference_mode():
+            ref = {k: n._fwd(n.forward_params, x)["heads"]
+                   for k, n in nets.items()}
+        out = {"spatial": mp_spatial(card, g, frames, nets, ref, init),
+               "tensor": mp_tensor(card, g, frames, nets, init),
+               "pipeline": mp_pipeline(card, g, frames, nets, ref, init)}
+        out["network"] = mp_network(card, frames, nets, init)
+        out["rates"] = mp_rates(card, g, frames, nets)
+        del nets, ref
+        torch.cuda.empty_cache()
+    finally:
+        shutil.rmtree(root, ignore_errors=True)
+    print(f"phase 16 (model parallelism) in "
+          f"{time.perf_counter() - t_phase:.1f} s ({card})", flush=True)
+    return out
+
+
 def main(argv=None) -> int:
     import argparse
 
@@ -5360,7 +5903,8 @@ def main(argv=None) -> int:
 
     parser = argparse.ArgumentParser(description="smoke run on one card")
     parser.add_argument("--only", choices=["video", "gaussian", "v1", "cli",
-                                           "export", "parallel"],
+                                           "export", "parallel",
+                                           "model_parallel"],
                         help="build the kernels and run this phase alone "
                              "(no kernels line, no contract line)")
     only = parser.parse_args(argv).only
@@ -5385,7 +5929,8 @@ def main(argv=None) -> int:
     if only is not None:
         {"video": phase_video, "gaussian": phase_gaussian,
          "v1": phase_v1, "cli": phase_cli,
-         "export": phase_export, "parallel": phase_parallel}[only](card)
+         "export": phase_export, "parallel": phase_parallel,
+         "model_parallel": phase_model_parallel}[only](card)
         print(card, flush=True)
         print(json.dumps({"only": only, "ok": True}), flush=True)
         return 0
@@ -5403,6 +5948,7 @@ def main(argv=None) -> int:
     cli = phase_cli(card)
     export = phase_export(card)
     par = phase_parallel(card)
+    mp = phase_model_parallel(card)
 
     print(card, flush=True)
     print(json.dumps({"kernels": [{
@@ -5424,7 +5970,13 @@ def main(argv=None) -> int:
                 export["int8"]["child"]["region"],
             "phase15_mesh_bf16": par["bf16"]["launches"][0],
             "phase15_mesh_int8": par["int8"]["launches"][0],
-            "phase15_mesh_valid": par["valid"]["region"]}}, {
+            "phase15_mesh_valid": par["valid"]["region"],
+            "phase16_spatial_bf16": mp["spatial"][("bf16", 2, 2)][0],
+            "phase16_spatial_int8": mp["spatial"][("int8", 2, 2)][0],
+            "phase16_tp_int8": mp["tensor"][("int8", 2, 2)][0],
+            "phase16_pipeline_bf16": mp["pipeline"][("bf16", 4, 4)][0],
+            "phase16_pipeline_int8": mp["pipeline"][("int8", 4, 4)][0],
+            "phase16_mesh_sp": mp["network"]["bf16"][0]}}, {
         "name": "int8_gemm", "route": "cuda",
         "source": "darknet_tpu_torch/csrc/int8_gemm.cu",
         "replaces": "darknet_tpu/ops/pallas/quant_matmul.py:91",
@@ -5441,7 +5993,13 @@ def main(argv=None) -> int:
             "phase14_export_int8_child":
                 export["int8"]["child"]["int8"],
             "phase15_mesh_bf16": par["bf16"]["launches"][1],
-            "phase15_mesh_int8": par["int8"]["launches"][1]}}]}),
+            "phase15_mesh_int8": par["int8"]["launches"][1],
+            "phase16_spatial_bf16": mp["spatial"][("bf16", 2, 2)][1],
+            "phase16_spatial_int8": mp["spatial"][("int8", 2, 2)][1],
+            "phase16_tp_int8": mp["tensor"][("int8", 2, 2)][1],
+            "phase16_pipeline_bf16": mp["pipeline"][("bf16", 4, 4)][1],
+            "phase16_pipeline_int8": mp["pipeline"][("int8", 4, 4)][1],
+            "phase16_mesh_sp": mp["network"]["bf16"][1]}}]}),
         flush=True)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

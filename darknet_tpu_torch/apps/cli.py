@@ -27,8 +27,9 @@ where they share one or run on the CPU), each training on its block of
 every batch; -mode valid and the multi-camera serving use a one-process
 mesh of N devices (`parallel/mesh`), with no mesh where the camera batch
 does not divide by N.  The devices are cuda:0..N-1 (N CPU entries with
--device cpu).  A mesh of more cards than the machine has raises.  Only
-the spatial, tensor and pipeline meshes (ROADMAP A7b) are not ported.
+-device cpu).  A mesh of more cards than the machine has raises.  The
+model-parallel meshes (`parallel/{spatial,tensor,pipeline}.py`) are not
+CLI flags.
 """
 
 from __future__ import annotations

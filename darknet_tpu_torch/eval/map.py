@@ -129,8 +129,9 @@ def validate_detector(net, img_paths, classes: int, iou_thresh: float = 0.5,
     (`Network.detect_batch(mesh=)`; batch must divide by the dp size);
     the host NMS and the matching are the single-device path's, so the
     MapResult is too.  Over a mesh that spans processes every rank
-    predicts its block and matches the whole batch.  Only the spatial,
-    tensor and pipeline meshes (ROADMAP A7b) are not ported."""
+    predicts its block and matches the whole batch.  A mesh with an "sp"
+    axis also splits each block's feature maps over its devices
+    (`parallel/spatial.py`), in one process."""
     det_kw = {} if mesh is None else {"mesh": mesh}
     # thresholds to MATCH at: the headline iou_thresh plus the (deduped)
     # sweep; map_by_iou/map_mean_iou report over exactly iou_thresholds

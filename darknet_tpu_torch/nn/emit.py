@@ -81,23 +81,30 @@ ACTIVATE = {"yolo": yoloops.yolo_activate,
             "detection": _detection_head}
 
 
-def local_block(x, p, l):
+def local_block(x, p, l, rows=None):
     """[local] (local_layer.c, `darknet_tpu/nn/emit.py:58-80`): a conv with
     its own weights at every output location.  The patches are channel-
     major (c, kh, kw), as `F.unfold` gives them; p["w"] is (locations, n,
     size*size*c) and p["b"] one bias per output element in CHW order.
     The product runs in f32 with TF32 off whatever the compute dtype (the
     reference's einsum of the input with f32 weights), and so does the
-    activation."""
+    activation.  rows=(j0, o0, n): x is a slab of the input, and the
+    output is rows o0..o0+n-1 of the layer's, which are rows j0..j0+n-1
+    of what the slab's windows give (`parallel/spatial.py`)."""
     b = x.shape[0]
     patches = F.unfold(x.float().permute(0, 3, 1, 2), l.size, padding=l.pad,
                        stride=l.stride)              # (B, c*k*k, locations)
+    j0, o0, n = (0, 0, l.out_h) if rows is None else rows
+    if rows is not None:
+        k = patches.shape[1]
+        patches = patches.reshape(b, k, -1, l.out_w)[:, :, j0:j0 + n]
+        patches = patches.reshape(b, k, n * l.out_w)
+    sl = slice(o0 * l.out_w, (o0 + n) * l.out_w)
     with precise_matmul(torch.float32):
-        y = torch.bmm(patches.permute(2, 0, 1), p["w"].transpose(1, 2))
+        y = torch.bmm(patches.permute(2, 0, 1), p["w"][sl].transpose(1, 2))
     loc = l.out_h * l.out_w
-    y = y.permute(1, 0, 2) + p["b"].reshape(l.n, loc).t()[None]
-    return apply_activation(y, l.activation).reshape(b, l.out_h, l.out_w,
-                                                     l.n)
+    y = y.permute(1, 0, 2) + p["b"].reshape(l.n, loc).t()[sl][None]
+    return apply_activation(y, l.activation).reshape(b, n, l.out_w, l.n)
 
 
 def _aa_backref_needed(l, i, live) -> bool:
@@ -207,6 +214,7 @@ def region_runner(plan, *, compute_dtype=torch.float32,
                     [held[k] for k in keys[n_conv:]])
         return step_weights(params)
 
+    run_prefix = None
     if pre is None:
         def run(params, x):
             ws, bs = weights(params)
@@ -216,6 +224,7 @@ def region_runner(plan, *, compute_dtype=torch.float32,
         sub, k = pre
         rest = plan.steps[k:]
         sub_json = sub.to_json()
+        slab_json: dict = {}
 
         def run(params, x):
             ws, bs = weights(params)
@@ -226,7 +235,23 @@ def region_runner(plan, *, compute_dtype=torch.float32,
                                params)
             return slots[plan.out_slot]
 
+        def run_prefix(params, x, h):
+            """The kernel prefix alone on x, a slab of `h` rows of the
+            prefix's own coordinates (s2d rows for a stem plan) cut from
+            the region input: the kernel pads the slab's edges with
+            zeros, so only rows at least (rt, rb) inside them are the
+            unsharded prefix's (`parallel/spatial.py`)."""
+            if h not in slab_json:
+                slab_json[h] = dataclasses.replace(sub, h=h,
+                                                   out_h=h).to_json()
+            ws, bs = weights(params)
+            return region_call(slab_json[h], x, ws[:n_pre], bs[:n_pre],
+                               compute_dtype=cd)
+
     run.step_weights, run.keys = step_weights, keys
+    # the kernel prefix's plan (None without one) and its slab runner
+    run.prefix = None if pre is None else pre[0]
+    run.run_prefix = run_prefix
     return run
 
 
@@ -266,7 +291,8 @@ def make_forward(graph, *, compute_dtype=None, fuse_regions="hybrid",
 
     region_int8 plans the regions without the stem fold and runs them as
     plain steps (no region kernel), for params whose region convs all
-    carry "w_q" and "x_scale".
+    carry "w_q" and "x_scale".  fuse_regions=None plans no region and no
+    stem fold: every layer runs as its own op (`parallel/tensor.py`).
 
     compute_dtype None (or float32) is the f32 parity path; bfloat16 is
     the serving path (convs on the tensor cores, activations stored in
@@ -288,12 +314,13 @@ def make_forward(graph, *, compute_dtype=None, fuse_regions="hybrid",
     cd = compute_dtype or torch.float32
     live = _liveness(graph)
     layers = graph.layers
-    if fuse_regions not in ("hybrid", "plain"):
-        raise ValueError(f"fuse_regions must be 'hybrid' or 'plain', "
+    if fuse_regions not in ("hybrid", "plain", None):
+        raise ValueError(f"fuse_regions must be 'hybrid', 'plain' or None, "
                          f"got {fuse_regions!r}")
-    plans = {} if probe_conv_absmax or not fused_bn else plan_graph_regions(
-        graph, stem=(stem_pattern(graph) and 0 not in live
-                     and not region_int8))
+    off = probe_conv_absmax or not fused_bn or fuse_regions is None
+    stem = bool(stem_pattern(graph) and 0 not in live and not region_int8
+                and not off)
+    plans = {} if off else plan_graph_regions(graph, stem=stem)
     runners = {a: region_runner(p, compute_dtype=cd,
                                 mode="plain" if region_int8 else fuse_regions)
                for a, p in plans.items()}
@@ -335,24 +362,36 @@ def make_forward(graph, *, compute_dtype=None, fuse_regions="hybrid",
             outs[i] = cur
         return cur
 
-    def forward(params, x):
-        outs: dict = {}
+    def forward(params, x, *, _lo=0, _hi=None, _extern=None):
+        """_lo/_hi/_extern: stage-slice mode (`parallel/pipeline.py`,
+        `darknet_tpu/nn/emit.py:203-260`): only layers [_lo, _hi) run,
+        `x` is layer _lo's input and `_extern` seeds the outputs of
+        earlier layers that later ones read; the result then also holds
+        "outs", every live output so far.  A region runs whole in the
+        slice that holds its start layer: a slice may not begin or end
+        inside one."""
+        outs: dict = dict(_extern or {})
         absmax: dict = {}
         heads: list = []
         raw_heads: list = []
         check = debug.layer_check()
         cur = x
-        skip_until = 0
-        for i, l in enumerate(layers):
-            if i < skip_until:
-                continue
+        hi = len(layers) if _hi is None else _hi
+        for a, p in plans.items():
+            if a < _lo <= p.stop or a < hi <= p.stop:
+                raise ValueError(
+                    f"layers [{_lo}, {hi}) cut the region "
+                    f"{a}-{p.stop}: a region runs whole in one slice")
+        i = _lo
+        while i < hi:
+            l = layers[i]
             if i in runners:
                 name = f"L{i:03d}-{plans[i].stop:03d}_region"
                 with scope(name):
                     cur = runners[i](params, cur)
-                skip_until = plans[i].stop + 1
-                if plans[i].stop in live:
-                    outs[plans[i].stop] = cur
+                i = plans[i].stop
+                if i in live:
+                    outs[i] = cur
             else:
                 name = f"L{i:03d}_{l.kind}"
                 with scope(name):
@@ -360,9 +399,12 @@ def make_forward(graph, *, compute_dtype=None, fuse_regions="hybrid",
                                 params)
             if check is not None:
                 check(name, cur)
+            i += 1
         r = {"heads": heads, "raw_heads": raw_heads, "output": cur}
         if probe_conv_absmax:
             r["conv_in_absmax"] = absmax
+        if _lo or _hi is not None:
+            r["outs"] = outs
         return r
 
     def with_step_weights(params) -> list:
@@ -385,6 +427,14 @@ def make_forward(graph, *, compute_dtype=None, fuse_regions="hybrid",
 
     forward.region_plans = plans
     forward.with_step_weights = with_step_weights
+    # for the executors that run the layers themselves (`parallel/`):
+    # the stem fold, the liveness set, the region runners and the
+    # per-layer step, `layer(i, l, cur, outs, absmax, heads, raw_heads,
+    # params)` -> the layer's output (outs, heads updated in place)
+    forward.stem = any(p.stem for p in plans.values())
+    forward.live = live
+    forward.runners = runners
+    forward.layer = layer
     return forward
 
 

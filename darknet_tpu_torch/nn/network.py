@@ -35,8 +35,16 @@ same program (the region kernel and the int8 GEMM through the
 `ops/library.py` ops, once a block) and the outputs are gathered in
 batch order on the mesh's first device.  Over a mesh that spans
 processes each rank runs its own block and every rank gathers the
-whole (`parallel/multihost.make_global_batch`).  The spatial `sp` axis
-is ROADMAP A7b and raises.
+whole (`parallel/multihost.make_global_batch`).  A mesh with an `sp` axis
+(`parallel/spatial.make_spatial_mesh`) also splits each block's feature
+maps over the block's sp devices, in one process that drives them all
+(`parallel/spatial.SpatialForward`); other axes are ignored, as the JAX
+package's serving shardings ignore them.  Where a served conv has int8
+weights and no calibrated input scale, its scale is the whole batch's
+(the JAX package's over its mesh, where GSPMD takes max|x| over the
+global batch): the blocks then run in that lockstep executor, and over
+processes the ranks take the maximum together (`ops/collective.
+group_max`).
 """
 
 from __future__ import annotations
@@ -146,6 +154,7 @@ class Network:
         self._held: tuple | None = None      # `forward_params`
         # device -> (forward_params copied from, the copy, its u8 table)
         self._replicas: dict = {}
+        self._sf = None                      # `_spatial`
         self._heads = graph.heads()
         decoded = [l for l in self._heads if l.kind in DECODE]
         self._nms_kind = decoded[0].nms_kind if decoded else "greedynms"
@@ -439,67 +448,125 @@ class Network:
         return rep[1], rep[2]
 
     @staticmethod
-    def _mesh_blocks(mesh, batch: int) -> int:
-        """The dp size of a serving mesh, with the JAX package's checks
-        (`Network._serve_shardings`)."""
+    def _mesh_blocks(mesh, batch: int) -> tuple:
+        """(dp size, sp size) of a serving mesh, with the JAX package's
+        checks (`Network._serve_shardings`); other axes are ignored."""
         axes = mesh.axis_names
         if "dp" not in axes:
             raise ValueError(f"serving mesh needs a 'dp' axis, got {axes}")
-        if "sp" in axes:
+        n_sp = mesh.shape.get("sp", 1)
+        if n_sp > 1 and mesh.group is not None:
             raise NotImplementedError(
-                "a serving mesh with an 'sp' axis (feature maps split over "
-                "devices) is ROADMAP A7b; only the 'dp' axis is ported")
+                "a serving mesh with an 'sp' axis over processes is ROADMAP "
+                "A7c; the 'sp' axis runs in one process that drives every "
+                "device of the mesh")
         n_dp = mesh.shape["dp"]
         if batch % n_dp:
             raise ValueError(f"batch {batch} not divisible by the mesh's "
                              f"dp size {n_dp}")
-        return n_dp
+        return n_dp, n_sp
+
+    def _spatial(self):
+        """The lockstep executor over this network's forward
+        (`parallel/spatial.SpatialForward`), made once per forward."""
+        from darknet_tpu_torch.parallel.spatial import SpatialForward
+
+        if self._sf is None or self._sf.fwd is not self._fwd:
+            if not hasattr(self._fwd, "layer"):
+                raise ValueError("mesh serving runs the inference forward")
+            self._sf = SpatialForward(self.graph, fwd=self._fwd)
+        return self._sf
+
+    def _dynamic_int8(self) -> bool:
+        """Whether a served conv quantizes its input with a dynamic scale
+        (int8 weights without a calibrated "x_scale"; never in the
+        training forward)."""
+        if not hasattr(self._fwd, "layer"):
+            return False
+        sf = self._spatial()
+        return any(sf._dynamic_int8(self.params, i, l)
+                   for i, l in enumerate(self.graph.layers))
+
+    def _mesh_heads(self, blocks, group=None) -> list:
+        """The activated heads of each block, on its first device, through
+        the lockstep executor: blocks are (devices, the block's batch on
+        the first) and each block's maps split over its devices."""
+        from darknet_tpu_torch.parallel.spatial import slab_rows
+
+        split = []
+        for devs, xs in blocks:
+            unit = self._replica(devs[0])[1]
+            slabs = []
+            for d, (lo, hi) in zip(devs, slab_rows(xs.shape[1],
+                                                   len(devs))):
+                slab = xs[:, lo:hi].to(d)
+                if slab.dtype == torch.uint8:
+                    slab = unit.to(d)[slab.int()]
+                slabs.append(slab)
+            split.append((devs, slabs))
+        return self._spatial().heads(lambda d: self._replica(d)[0], split,
+                                     group=group)
 
     def _over_mesh(self, mesh, x, run, finish=None) -> tuple:
-        """run(params, u8 table, block) -> a tuple of tensors (or Nones)
-        for each block of x over the mesh, on the block's device, then
-        finish(*that tuple) -> the block's outputs where given; the
-        outputs gathered in batch order on the mesh's first device (over
-        processes: this rank's block run, every rank's gathered).  In one
-        process every block is uploaded, then every block's `run` queued,
-        before any `finish` (which may wait on its device) starts, so
-        that the devices work at once."""
-        n = self._mesh_blocks(mesh, x.shape[0])
+        """run(params, u8 table, block, heads) -> a tuple of tensors (or
+        Nones) for each block of x over the mesh, on the block's first
+        device, then finish(*that tuple) -> the block's outputs where
+        given; the outputs gathered in batch order on the mesh's first
+        device (over processes: this rank's block run, every rank's
+        gathered).  `heads` is None where `run` runs the forward on the
+        block itself, as without a mesh; with an "sp" axis, or with
+        dynamic int8 scales (which the whole batch sets), the blocks run
+        layer by layer in lockstep (`parallel/spatial.SpatialForward`)
+        first and `heads` are the block's.  In one process every block is
+        uploaded, then every block's `run` queued, before any `finish`
+        (which may wait on its device) starts, so that the devices work
+        at once."""
+        n, n_sp = self._mesh_blocks(mesh, x.shape[0])
         per = x.shape[0] // n
         finish = finish or (lambda *outs: outs)
+        lockstep = n_sp > 1 or self._dynamic_int8()
         if mesh.group is not None:
             from darknet_tpu_torch.parallel.multihost import \
                 make_global_batch
 
             r, dev = mesh.rank, mesh.devices[0]
-            outs = finish(*run(*self._replica(dev),
-                               x[r * per:(r + 1) * per].to(dev)))
+            xs = x[r * per:(r + 1) * per].to(dev)
+            heads = self._mesh_heads([((dev,), xs)], group=mesh.group)[0] \
+                if lockstep else None
+            outs = finish(*run(*self._replica(dev), xs, heads))
             return tuple(None if o is None else make_global_batch(mesh, o)
                          for o in outs)
-        blocks = [x[i * per:(i + 1) * per].to(d)
-                  for i, d in enumerate(mesh.devices)]
-        outs = [run(*self._replica(d), xs)
-                for d, xs in zip(mesh.devices, blocks)]
+        devs = [mesh.block(b, "sp") for b in range(n)]
+        blocks = [x[b * per:(b + 1) * per].to(d[0])
+                  for b, d in enumerate(devs)]
+        heads = self._mesh_heads(list(zip(devs, blocks))) if lockstep \
+            else [None] * n
+        outs = [run(*self._replica(d[0]), xs, h)
+                for d, xs, h in zip(devs, blocks, heads)]
         outs = [finish(*o) for o in outs]
         home = mesh.devices[0]
         return tuple(None if parts[0] is None else
                      torch.cat([t.to(home) for t in parts])
                      for parts in zip(*outs))
 
-    def _decode_shard(self, params, _unit, x) -> tuple:
+    def _decode_shard(self, params, _unit, x, heads=None) -> tuple:
         """The host path's forward and reference-order decode of a block:
-        (boxes, obj, cls, uc), Nones without a decoded head."""
-        r = self._fwd(params, x)
-        dec = self._decode([h.float() for h in r["heads"]])
+        (boxes, obj, cls, uc), Nones without a decoded head; `heads` the
+        block's heads where the mesh ran the forward."""
+        if heads is None:
+            heads = self._fwd(params, x)["heads"]
+        dec = self._decode([h.float() for h in heads])
         return (None,) * 4 if dec is None else dec
 
     # ----------------------------------------------------------- serving
     def _serve(self, x, thresh, nms, top_k, score_dtype, params=None,
-               unit=None):
+               unit=None, heads=None):
         """The device serving program: (boxes (B,K,4), obj (B,K),
         probs (B,K,classes)) on the device; `params` defaults to the
         network's own (`forward_params`), `unit` (the uint8 table) to its
-        device's."""
+        device's; `heads`, where given, are the forward's (x unused)."""
+        if heads is not None:
+            return self._serve_heads(heads, thresh, nms, top_k, score_dtype)
         if x.dtype == torch.uint8:
             # frames upload as raw uint8 (1/4 of the f32 bytes) and
             # normalize on the device through the host's own quotients:
@@ -508,9 +575,13 @@ class Network:
             # the host's division by one ulp for half of the 256 values
             x = (self._u8_unit if unit is None else unit)[x.int()]
         r = self._fwd(self.forward_params if params is None else params, x)
+        return self._serve_heads(r["heads"], thresh, nms, top_k, score_dtype)
+
+    def _serve_heads(self, heads, thresh, nms, top_k, score_dtype):
+        """The serving program after the forward."""
         # a Gaussian head's sigmas stay behind: the triple is the same
         # for every head kind
-        boxes, obj, cls, _uc = self._decode([h.float() for h in r["heads"]],
+        boxes, obj, cls, _uc = self._decode([h.float() for h in heads],
                                             order="native",
                                             score_dtype=score_dtype)
         obj = torch.where(obj > thresh, obj, torch.zeros_like(obj))
@@ -560,8 +631,9 @@ class Network:
                                    score_dtype)
             # every block's forward is queued before any block's NMS
             return self._over_mesh(
-                mesh, x, lambda p, unit, xs: self._serve(
-                    xs, thresh, 0, top_k, score_dtype, params=p, unit=unit),
+                mesh, x, lambda p, unit, xs, heads: self._serve(
+                    xs, thresh, 0, top_k, score_dtype, params=p, unit=unit,
+                    heads=heads),
                 lambda tb, ov, probs: self._serve_nms(tb, ov, probs, nms))
 
     def _require_decoded_head(self) -> None:

@@ -1,6 +1,8 @@
 """Sums over a `torch.distributed` process group, for the statistics that
 data parallelism makes global: the training batch norm's mean and
-variance (sync-BN) and what its backward sums per channel.
+variance (sync-BN) and what its backward sums per channel; and the
+maximum that a dynamic int8 conv's input scale takes over the group
+(`parallel/spatial.SpatialForward`).
 
 `group` is a process group whose ranks each hold an equal share of the
 batch; None, or a group of one rank, means no collective at all.  Every
@@ -24,6 +26,14 @@ def group_sum(t, group):
     """`t` summed over the ranks of `group`, as a new tensor."""
     out = t.detach().clone()
     dist.all_reduce(out, group=group)
+    return out
+
+
+def group_max(t, group):
+    """`t` maxed over the ranks of `group`, as a new tensor (every rank
+    gets the same bits)."""
+    out = t.detach().clone()
+    dist.all_reduce(out, op=dist.ReduceOp.MAX, group=group)
     return out
 
 

@@ -10,15 +10,19 @@ stays in one process, as the JAX package's does: a mesh there is a list
 of devices, each holding a replica of the serving state, and a batch
 splits over them (`Network.submit_detect_device(mesh=)`).
 
-`Mesh` covers both: `devices` are the devices THIS process drives on the
-axis, and `group` is the process group when the axis spans processes
-(then `devices` is this rank's one device), else None.  The model-parallel
-axes (`sp`, `tp`, pipeline stages) are ROADMAP A7b.
+`Mesh` covers both: `devices` are the devices THIS process drives, and
+`group` is the process group when the (one) axis spans processes (then
+`devices` is this rank's one device), else None.  A mesh of one process
+may have several axes: its devices lie on a grid in row-major order over
+`shape`, as `np.array(devices).reshape(n_dp, n_sp)` lays them out in the
+JAX package (`parallel/spatial.make_spatial_mesh`,
+`parallel/tensor.make_tp_mesh`); `block` and `along` read the grid.
 """
 
 from __future__ import annotations
 
 import dataclasses
+import math
 import os
 
 import torch
@@ -38,6 +42,39 @@ class Mesh:
     @property
     def axis_names(self) -> tuple:
         return tuple(self.shape)
+
+    @property
+    def size(self) -> int:
+        """The number of devices on the grid, prod(shape)."""
+        return math.prod(self.shape.values())
+
+    def _at(self, index: dict):
+        """The device at grid coordinates {axis: i}, 0 on other axes."""
+        flat = 0
+        for axis, n in self.shape.items():
+            flat = flat * n + index.get(axis, 0)
+        return self.devices[flat]
+
+    def along(self, axis: str, **fixed) -> tuple:
+        """The devices along `axis` in order, the other axes at the
+        coordinates `fixed` names (0 where it names none); a mesh without
+        `axis` gives the one device at those coordinates."""
+        self._check_grid()
+        n = self.shape.get(axis, 1)
+        return tuple(self._at(dict(fixed, **{axis: i})) for i in range(n))
+
+    def block(self, b: int, axis: str | None = None) -> tuple:
+        """The devices of dp block b (index b on "dp"): along `axis` where
+        given, else the block's first device alone."""
+        if axis is None:
+            self._check_grid()
+            return (self._at({"dp": b}),)
+        return self.along(axis, dp=b)
+
+    def _check_grid(self) -> None:
+        if self.group is not None or len(self.devices) != self.size:
+            raise ValueError(f"{self} is not a grid of this process's "
+                             f"devices")
 
     @property
     def rank(self) -> int:
@@ -81,22 +118,44 @@ def make_mesh(n: int | None = None, axis: str = "dp", *, devices=None,
                                                            rank)))
         _check_cards([mine])
         return Mesh({axis: world}, (mine,), dist.group.WORLD)
+    if devices is not None:
+        if n is not None and n != len(devices):
+            raise ValueError(f"a mesh of {n} with {len(devices)} devices "
+                             f"named")
+        n = len(devices)
+    elif device == "cpu":
+        n = n or 1
+    elif n is None:
+        n = torch.cuda.device_count()
+    return grid_mesh({axis: n}, devices=devices, device=device)
+
+
+def grid_mesh(shape: dict, *, devices=None, device: str = "cuda") -> Mesh:
+    """A mesh of this process over the axes `shape` ({axis: size}, in
+    order), its devices on a row-major grid: `devices` as named (a card
+    may be named more than once), prod(shape) CPU entries for
+    device="cpu", else cuda:0..n-1 (more cards than the machine has
+    raise, naming both counts).  The model-parallel meshes
+    (`parallel/spatial`, `parallel/tensor`) are grids of one process:
+    their serving runs in one process that drives every device."""
+    n = math.prod(shape.values())
     if devices is None:
         if device == "cpu":
-            devices = [torch.device("cpu")] * (n or 1)
+            devices = [torch.device("cpu")] * n
         else:
             count = torch.cuda.device_count()
-            n = count if n is None else n
             if n > count:
                 raise ValueError(f"a mesh of {n} cards needs {n} cards; "
                                  f"this machine has {count}")
             devices = [torch.device("cuda", i) for i in range(n)]
-    elif n is not None and n != len(devices):
-        raise ValueError(f"a mesh of {n} with {len(devices)} devices named")
-    if not devices:
+    devices = [_indexed(d) for d in devices]
+    if n == 0:
         raise ValueError("a mesh needs at least one device")
+    if len(devices) != n:
+        raise ValueError(f"a mesh of shape {shape} takes {n} devices, "
+                         f"got {len(devices)}")
     _check_cards(devices)
-    return Mesh({axis: len(devices)}, tuple(devices))
+    return Mesh(dict(shape), tuple(devices))
 
 
 def _indexed(d) -> torch.device:
@@ -117,9 +176,9 @@ def _check_cards(devices) -> None:
 
 def shard_batch(mesh: Mesh, x, axis: str = "dp") -> list:
     """The leading (batch) dim of `x` (a tensor or an array) split over
-    the mesh: one block a device this process drives, each on its device
-    (in a process group, this rank's block alone).  The batch must divide
-    by the axis' size."""
+    the mesh's `axis`: one block a device along it (the other axes at
+    index 0), each on its device (in a process group, this rank's block
+    alone).  The batch must divide by the axis' size."""
     n = mesh.shape[axis]
     x = torch.as_tensor(x)
     if x.shape[0] % n:
@@ -130,7 +189,7 @@ def shard_batch(mesh: Mesh, x, axis: str = "dp") -> list:
         r = mesh.rank
         return [x[r * per:(r + 1) * per].to(mesh.devices[0])]
     return [x[i * per:(i + 1) * per].to(d)
-            for i, d in enumerate(mesh.devices)]
+            for i, d in enumerate(mesh.along(axis))]
 
 
 def to_device(tree, device):
@@ -149,8 +208,8 @@ def to_device(tree, device):
 
 
 def replicate(mesh: Mesh, tree) -> list:
-    """`tree` on every device this process drives, one entry a device;
-    devices named twice share one copy."""
+    """`tree` on every device this process drives, one entry a device in
+    the mesh's row-major order; devices named twice share one copy."""
     copies: dict = {}
     for d in mesh.devices:
         if d not in copies:

@@ -54,8 +54,8 @@ alone logs, draws the chart and writes `.weights`; the resumable state is
 the sharded directory (`train/checkpoint.save_checkpoint_sharded`), which
 every rank writes its part of; the in-training mAP rides the mesh.  The
 random layers of rank r draw from the step's seed + r, so their masks
-are not the single-process run's.  Only the spatial, tensor and pipeline
-meshes (ROADMAP A7b) are not ported.
+are not the single-process run's.  Training over the spatial, tensor and
+pipeline meshes is ROADMAP A7c.
 """
 
 from __future__ import annotations

@@ -202,17 +202,24 @@ def test_validate_detector_stub(png_set, batch, sweep):
 
 def test_mesh_refused(png_set):
     """The mesh reaches the network's detect_batch, which refuses the
-    meshes that are not ported: an 'sp' axis (ROADMAP A7b).  Mesh
-    validation itself is tests/test_torch_parallel.py."""
+    meshes that are not ported: an 'sp' axis over processes (ROADMAP
+    A7c); an 'sp' mesh of one process validates as one device does.
+    Mesh validation itself is tests/test_torch_parallel.py."""
     from darknet_tpu_torch.parallel.mesh import Mesh
 
     net = Network.from_cfg(model_zoo.MODELS["yolov3-tiny"](64, 64,
                                                           classes=3),
                            device="cpu")
-    sp = Mesh({"dp": 1, "sp": 2}, (torch.device("cpu"),) * 2)
-    with pytest.raises(NotImplementedError, match="A7"):
+    cpu = torch.device("cpu")
+    sp = Mesh({"dp": 1, "sp": 2}, (cpu,), group=object())
+    with pytest.raises(NotImplementedError, match="A7c"):
         tmap.validate_detector(net, png_set, classes=3, mesh=sp,
                                progress=False)
+    got = tmap.validate_detector(net, png_set, classes=3, progress=False,
+                                 mesh=Mesh({"dp": 1, "sp": 2}, (cpu,) * 2))
+    want = tmap.validate_detector(net, png_set, classes=3, progress=False)
+    for f in ("map", "recall", "precision", "n_pred", "n_gt"):
+        assert getattr(got, f) == getattr(want, f), f
 
 
 @pytest.fixture(scope="module")

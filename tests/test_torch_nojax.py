@@ -21,7 +21,9 @@ three blocked, loads and runs a serving artifact (`Network.
 export_serving`) and returns the exporting process's triple bitwise; a
 ninth runs a data-parallel step over two spawned gloo ranks with the
 same three blocked in every process (a `sitecustomize` that the ranks
-load too); and no source of the port (`eval/`, `apps/` and `parallel/`
+load too); a tenth, with jax, jaxlib and `darknet_tpu` blocked, serves
+yolov4-64 through `make_spatial_forward`, `make_tp_forward`,
+`PipelineForward` and the Network's ("dp", "sp") mesh; and no source of the port (`eval/`, `apps/` and `parallel/`
 included), nor the chip
 scripts (chip_smoke.py, chip_int8_shapes.py, chip_region_tiles.py),
 imports any of the three, nor does the port's C shim import a module
@@ -504,6 +506,50 @@ print("DATA-PARALLEL", float(z[0]["costs"][0]))
 """
 
 
+BLOCKED_MODEL_PARALLEL = r"""
+import sys
+
+class Block:
+    def find_spec(self, name, path=None, target=None):
+        if name.split(".")[0] in ("jax", "jaxlib", "darknet_tpu"):
+            raise ImportError(f"blocked: {name}")
+        return None
+
+sys.meta_path.insert(0, Block())
+import warnings
+import numpy as np
+import torch
+torch.set_num_threads(2)
+from darknet_tpu_torch import Network, model_zoo
+from darknet_tpu_torch.parallel.pipeline import PipelineForward
+from darknet_tpu_torch.parallel.spatial import (make_spatial_forward,
+                                                make_spatial_mesh)
+from darknet_tpu_torch.parallel.tensor import make_tp_forward, make_tp_mesh
+
+with warnings.catch_warnings():
+    warnings.simplefilter("ignore")
+    net = Network.from_cfg(model_zoo.yolov4_cfg(64, 64), seed=0,
+                           device="cpu")
+x = np.random.default_rng(0).uniform(0, 1, (4, 64, 64, 3)).astype(np.float32)
+whole = net._fwd(net.params, torch.from_numpy(x))["heads"]
+sp = make_spatial_forward(net.graph, make_spatial_mesh(2, 2, device="cpu"),
+                          decode=False)(net.params, x)
+tp = make_tp_forward(net.graph, make_tp_mesh(2, 2, device="cpu"),
+                     decode=False)(net.params, x)
+pp = PipelineForward(net.graph, net.params, ["cpu"] * 2)(x)
+for heads in (sp, tp, pp):
+    for a, b in zip(heads, whole):
+        torch.testing.assert_close(a, b, rtol=1e-5, atol=1e-6)
+dets = net.detect_batch_device(x, thresh=0.1,
+                               mesh=make_spatial_mesh(2, 2, device="cpu"))
+assert len(dets) == 4
+bad = [m for m in sys.modules
+       if m.split(".")[0] in ("jax", "jaxlib", "darknet_tpu")]
+assert not bad, bad
+print("MODEL-PARALLEL", sum(map(len, dets)))
+"""
+
+
 def run_blocked(script, *args, site=None):
     """Run `script` with the repo on the path; `site`: a directory whose
     sitecustomize.py every process of the run loads first."""
@@ -546,6 +592,10 @@ def test_port_serves_and_trains_gaussian_with_jax_blocked():
 
 def test_port_serves_and_trains_yolov1_with_jax_blocked():
     assert "YOLOV1" in run_blocked(BLOCKED_V1)
+
+
+def test_model_parallel_serving_with_jax_blocked():
+    assert "MODEL-PARALLEL" in run_blocked(BLOCKED_MODEL_PARALLEL)
 
 
 def test_tools_and_region_int8_with_jax_blocked():

@@ -450,8 +450,12 @@ def test_mesh_refusals(nets):
                                                     device="cpu"))
     with pytest.raises(ValueError, match="not divisible"):
         tnet.detect_batch(x[:3], mesh=make_mesh(2, device="cpu"))
-    with pytest.raises(NotImplementedError, match="A7b"):
-        tnet.detect_batch_device(x, mesh=Mesh({"dp": 1, "sp": 2}, cpu))
+    # an sp axis over processes is ROADMAP A7c (the sp mesh of one
+    # process: tests/test_torch_spatial.py); the refusal comes before the
+    # group is used
+    with pytest.raises(NotImplementedError, match="A7c"):
+        tnet.detect_batch_device(x, mesh=Mesh({"dp": 1, "sp": 2}, cpu[:1],
+                                              group=object()))
 
 
 def test_mesh_validation_equals_unsharded_and_jax(nets, synth_set):

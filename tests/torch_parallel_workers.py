@@ -116,3 +116,41 @@ def checkpoint_ranks(rank, out_dir, state):
              rng=got[3], files=np.asarray(sorted(os.listdir(path))),
              **_flat("params", got[0]), **_flat("u", got[1]["u"]),
              **{f"extra/{k}": v for k, v in got[4].items()})
+
+
+def int8_mesh_ranks(rank, out_dir, cfg, weights, x):
+    """Dynamic int8 serving of the whole batch `x` over the world's dp
+    mesh (one block a rank): writes `int8_<rank>.npz` with each int8
+    conv's scale, whether it is the scale of the group's max|x| (taken
+    here with an all_reduce of this rank's own), and the gathered heads."""
+    import torch.distributed as dist
+
+    from darknet_tpu_torch import Network
+    from darknet_tpu_torch.ops import conv as convmod
+    from darknet_tpu_torch.parallel import make_mesh
+
+    net = Network.from_cfg(cfg, weights=weights, device="cpu", int8=True)
+    mesh = make_mesh(device="cpu")
+    orig, scales, ok = convmod.conv2d_int8, [], []
+
+    def spy(xb, p, **kw):
+        m = xb.float().abs().amax().clone()
+        dist.all_reduce(m, op=dist.ReduceOp.MAX)
+        m = torch.clamp_min(m, 1e-8)
+        scale = torch.as_tensor(
+            p["x_scale"] if "x_scale" in p
+            else convmod.input_scale(xb.float())).reshape(())
+        scales.append(float(scale))
+        ok.append(bool(torch.equal(scale, convmod.input_scale(m, absmax=m))))
+        return orig(xb, p, **kw)
+
+    convmod.conv2d_int8 = spy
+    try:
+        with torch.inference_mode():
+            heads = net._over_mesh(mesh, torch.from_numpy(x),
+                                   lambda p, u, xs, h: tuple(h))
+    finally:
+        convmod.conv2d_int8 = orig
+    np.savez(os.path.join(out_dir, f"int8_{rank}.npz"),
+             scales=np.asarray(scales, np.float32), ok=np.asarray(ok),
+             **{f"head{k}": h.float().numpy() for k, h in enumerate(heads)})
