@@ -7,8 +7,8 @@ YOLOv1 and the rare layer kinds, run the CLI's bench, per-layer
 profile, debug and augmentation-sample flags, serve region_int8, train
 from pinned bf16 uploads, export the serving program and serve it from
 another process, run the C ABI twin and the walkthrough twins, train,
-serve and validate over data-parallel meshes, serve over model-parallel
-meshes (spatial, tensor, pipeline), and report.
+serve and validate over data-parallel meshes, serve and train over
+model-parallel meshes (spatial, tensor, pipeline), and report.
 
     python3 chip_smoke.py
 
@@ -56,7 +56,7 @@ Phases, each of which fails the run (non-zero exit) on any error:
      torch._int_mm's on the same operands and the bound; int8 img/s beside
      the bf16 rate of phase 4; a profile of one request;
   7. a JSON line of the kernels, then {"ok": true, "device": ...} last
-     (printed after phase 16);
+     (printed after phase 17);
   8. training (train/step, train/trainer), which launches neither kernel,
      as in the JAX package:
      (a) parity on the card: the narrow CSP + SPP graph (TRAIN_CSP_CFG,
@@ -289,11 +289,43 @@ Phases, each of which fails the run (non-zero exit) on any error:
      The kernels line gives their launches (`phase16_spatial_bf16`,
      `phase16_spatial_int8`, `phase16_tp_int8`, `phase16_pipeline_bf16`,
      `phase16_pipeline_int8`, `phase16_mesh_sp`).
+ 17. model-parallel training (`--only model_parallel_train`; its own
+     timing line), yolov4-608 at global batch 8, subdivisions 2, f32
+     with TF32 off, from the seed's init (phase 15 (a)'s), the card named
+     2, 4 or 8 times; every sharded step taken from that state and held
+     to the step without a mesh in phase 8 (a)'s form for a chaotic
+     graph (updates, rolling statistics and momentum within ten times
+     that step's own response to a 1e-7 input change, capped at 30% of
+     the update; the costs within 1e-4), its peak memory beside:
+     (a) `parallel.pipeline.PipelineTrain` over 2 and 4 stages with 2 and
+         4 micro-batches, against the step of the same accum;
+     (b) `parallel.tensor.make_tp_train_step` over tp=2 and (dp=2, tp=2);
+     (c) `parallel.spatial.make_spatial_train_step` over sp=2 and (dp=2,
+         sp=2); one bf16/act16 step on (dp=2, sp=2) against the
+         unsharded bf16/act16 step, within twice that step's own
+         distance from f32 (two bf16 rounding chains);
+     (d) the (dp=2, sp=2, tp=2) step, and `darknet_tpu_torch.dryrun.
+         dryrun_multichip(8)` (yolov4-tiny-128);
+     (e) the 4x4 pipeline, (dp=2, tp=2), (dp=2, sp=2) and the 3D mesh:
+         step ms against the step without a mesh, 3 steps each way in
+         turns; one profiled step each way (device busy and idle share,
+         device events, host kernel launches; the step without a mesh
+         profiled once an accum); the peak memory of (a)-(d);
+     (f) the params that the 4-stage pipeline (2 micro-batches) and
+         (dp=2, tp=2) trained, folded and served b=8 through the
+         Network: bf16 (1 region launch, held to `region_plain` as phase
+         16 holds it) and calibrated int8 (91 launches, each bitwise its
+         plain version); the heads within twice the own distance from
+         f32 of the network served from the step without a mesh's
+         params.
+     The kernels line gives the (dp=2, tp=2) params' launches
+     (`phase17_trained_bf16`, `phase17_trained_int8`).
 
 `python3 chip_smoke.py --only video` (or `--only gaussian`, `--only v1`,
 `--only cli`, `--only export`, `--only parallel`, `--only
-model_parallel`) builds the kernels and runs phase 10 (11, 12, 13, 14,
-15, 16) alone (its last line is then not the contract's).
+model_parallel`, `--only model_parallel_train`) builds the kernels and
+runs phase 10 (11, 12, 13, 14, 15, 16, 17) alone (its last line is then
+not the contract's).
 
 Weights are random (numpy, seed 0); the training images are drawn from a
 seed into a temporary directory; no file outside the checkout is read.
@@ -5896,6 +5928,428 @@ def phase_model_parallel(card):
     return out
 
 
+MPT_PIPELINE = ((2, 2), (2, 4), (4, 2), (4, 4))  # (stages, micro-batches)
+MPT_TENSOR = ((1, 2), (2, 2))                     # (dp, tp)
+MPT_SPATIAL = ((1, 2), (2, 2))                    # (dp, sp)
+MPT_3D = (2, 2, 2)                                # (dp, sp, tp)
+MPT_TIMED = 3             # steps each way, unsharded and sharded in turns
+MPT_SERVED = (4, 2)       # the pipeline (stages, micro-batches) served in (f)
+
+
+def mpt_unsharded(g, p0, accum, x, y, dtype=None):
+    """The step without a mesh on the card from the seed's init: (params,
+    momentum, cost), numpy."""
+    import torch
+
+    from darknet_tpu_torch.nn import params as paramlib
+    from darknet_tpu_torch.train.step import init_opt_state, make_train_step
+
+    step = make_train_step(g, accum=accum, compute_dtype=dtype,
+                           train_act_dtype=dtype)
+    p = paramlib.train_params_to_torch(g, p0, DEVICE)
+    o = init_opt_state(g, p)
+    p, o, c, _m = step(p, o, torch.from_numpy(x).to(DEVICE),
+                       torch.from_numpy(y).to(DEVICE), g.net.lr)
+    return (paramlib.train_params_to_numpy(g, p),
+            paramlib.train_params_to_numpy(g, o["u"]), float(c))
+
+
+def mpt_pipeline_state(g, pt):
+    """(params, momentum) of a PipelineTrain, numpy, merged over stages."""
+    from darknet_tpu_torch.nn import params as paramlib
+
+    u = [next((st["opt"]["u"][i] for st in pt.stages if st["opt"]["u"][i]),
+              {}) for i in range(len(g.layers))]
+    return (paramlib.train_params_to_numpy(g, pt.gather_params()),
+            paramlib.train_params_to_numpy(g, u))
+
+
+def mpt_steps(g, p0):
+    """{label: (accum, make() -> run() -> (params, momentum, cost))}: the
+    meshes of phase 17 (a)-(d), the card named once a mesh device; run()
+    takes one step from the seed's init on the batch make() was given."""
+    import torch
+
+    from darknet_tpu_torch.nn import params as paramlib
+    from darknet_tpu_torch.parallel.mesh import grid_mesh
+    from darknet_tpu_torch.parallel.pipeline import PipelineTrain
+    from darknet_tpu_torch.parallel.spatial import (make_spatial_mesh,
+                                                    make_spatial_train_step)
+    from darknet_tpu_torch.parallel.tensor import (gather, gather_opt,
+                                                   make_tp_train_step)
+    from darknet_tpu_torch.train.step import init_opt_state
+
+    lr = g.net.lr
+
+    def pipeline(stages, mb):
+        def make(x, y):
+            pt = PipelineTrain(g, p0, [MP_DEVICE] * stages, microbatches=mb)
+            xt, yt = torch.from_numpy(x).to(DEVICE), \
+                torch.from_numpy(y).to(DEVICE)
+
+            def run():
+                c, _m = pt.step(xt, yt, lr)
+                return mpt_pipeline_state(g, pt) + (float(c),)
+            run.step = lambda: pt.step(xt, yt, lr)[0]
+            run.obj = pt
+            return run
+        return make
+
+    def tensor(shape, sp_axis=None):
+        def make(x, y):
+            mesh = grid_mesh(shape, devices=[MP_DEVICE] * int(np.prod(
+                list(shape.values()))))
+            step, place = make_tp_train_step(g, mesh, sp_axis=sp_axis,
+                                             accum=PAR_ACCUM)
+            p = paramlib.train_params_to_torch(g, p0, DEVICE)
+            placed, opts, xt, yt = place(p, init_opt_state(g, p), x, y)
+
+            def run():
+                _p, _o, c, _m = step(placed, opts, xt, yt, lr)
+                return (paramlib.train_params_to_numpy(g, gather(placed)),
+                        paramlib.train_params_to_numpy(
+                            g, gather_opt(opts)["u"]), float(c))
+            run.step = lambda: step(placed, opts, xt, yt, lr)[2]
+            return run
+        return make
+
+    def spatial(n_dp, n_sp):
+        def make(x, y, dtype=None):
+            mesh = make_spatial_mesh(n_dp, n_sp,
+                                     devices=[MP_DEVICE] * (n_dp * n_sp))
+            step = make_spatial_train_step(g, mesh, accum=PAR_ACCUM,
+                                           compute_dtype=dtype,
+                                           train_act_dtype=dtype)
+            p = paramlib.train_params_to_torch(g, p0, DEVICE)
+            o = init_opt_state(g, p)
+            xt, yt = torch.from_numpy(x).to(DEVICE), \
+                torch.from_numpy(y).to(DEVICE)
+
+            def run():
+                _p, _o, c, _m = step(p, o, xt, yt, lr)
+                return (paramlib.train_params_to_numpy(g, p),
+                        paramlib.train_params_to_numpy(g, o["u"]), float(c))
+            run.step = lambda: step(p, o, xt, yt, lr)[2]
+            return run
+        return make
+
+    out = {}
+    for stages, mb in MPT_PIPELINE:
+        out[f"pipeline {stages} stages x {mb}"] = (mb, pipeline(stages, mb))
+    for n_dp, n_tp in MPT_TENSOR:
+        out[f"tp dp={n_dp} tp={n_tp}"] = (PAR_ACCUM, tensor(
+            {"dp": n_dp, "tp": n_tp}))
+    for n_dp, n_sp in MPT_SPATIAL:
+        out[f"sp dp={n_dp} sp={n_sp}"] = (PAR_ACCUM, spatial(n_dp, n_sp))
+    n_dp, n_sp, n_tp = MPT_3D
+    out[f"3D dp={n_dp} sp={n_sp} tp={n_tp}"] = (PAR_ACCUM, tensor(
+        {"dp": n_dp, "sp": n_sp, "tp": n_tp}, sp_axis="sp"))
+    return out
+
+
+def mpt_hold(label, got, ref, eps, state0, card, extra=""):
+    """Phase 8 (a)'s form for a chaotic graph: the sharded step's updates,
+    rolling statistics and momentum within ten times the unsharded
+    step's own response to a 1e-7 input change plus 1e-4, capped at 30%
+    of the update; the costs within 1e-4."""
+    line = []
+    for what, i, keys in (("updates", 0, ("w", "b", "scales")),
+                          ("stats", 0, ("mean", "var")),
+                          ("momentum", 1, ("w", "b", "scales"))):
+        err, scale = update_gap(got[i], ref[i], state0[i], keys)
+        yard, _ = update_gap(ref[i], eps[i], state0[i], keys)
+        line.append(f"{what} err {err:.3g} of {scale:.3g} (1e-7 input "
+                    f"change: {yard:.3g})")
+        require(scale > 0 and err <= min(YARDSTICK_V4 * yard + 1e-4 * scale,
+                                         CAP * scale),
+                f"{label}: the {what} agree with the step without a mesh")
+    rel = abs(got[2] - ref[2]) / abs(ref[2])
+    require(np.isfinite(got[2]) and rel <= 1e-4,
+            f"{label}: the cost is the step without a mesh's")
+    print(f"({label}) ({card}): cost {got[2]:.8g} against {ref[2]:.8g} "
+          f"(rel {rel:.3g}); " + "; ".join(line) + extra, flush=True)
+
+
+def mpt_profile(fn):
+    """(device busy ms, the device window's ms, device events, host kernel
+    launches) of one fn() in a trace, read from the trace's raw events
+    (a training step's event tree takes longer to build than the step)."""
+    import torch
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        fn()
+        torch.cuda.synchronize()
+    busy, lo, hi, n_dev, n_launch = 0, None, None, 0, 0
+    for e in prof.profiler.kineto_results.events():
+        if e.device_type() == DeviceType.CUDA:
+            if e.is_user_annotation():
+                continue
+            n_dev += 1
+            busy += e.duration_ns()
+            s, t = e.start_ns(), e.start_ns() + e.duration_ns()
+            lo = s if lo is None else min(lo, s)
+            hi = t if hi is None else max(hi, t)
+        elif "LaunchKernel" in e.name():
+            n_launch += 1
+    if not n_dev:
+        return None, None, 0, n_launch
+    return busy / 1e6, (hi - lo) / 1e6, n_dev, n_launch
+
+
+def mpt_times(card, g, p0, x, y, steps, peaks):
+    """Phase 17 (e): each mesh's step ms against the step without a mesh
+    (same accum), MPT_TIMED steps each way in turns (steps of these
+    shapes have run: no warm-up here, the medians); one profiled step of
+    each mesh and of each step without a mesh; `peaks`, the peak memory
+    of each mesh's step in (a)-(d), beside."""
+    import torch
+
+    from darknet_tpu_torch.nn import params as paramlib
+    from darknet_tpu_torch.train.step import init_opt_state, make_train_step
+
+    out = {}
+    plain: dict = {}
+    xt, yt = torch.from_numpy(x).to(DEVICE), torch.from_numpy(y).to(DEVICE)
+    for label, (accum, make) in steps.items():
+        if accum not in plain:
+            step = make_train_step(g, accum=accum)
+            p = paramlib.train_params_to_torch(g, p0, DEVICE)
+            o = init_opt_state(g, p)
+
+            def base(step=step, p=p, o=o):
+                return step(p, o, xt, yt, g.net.lr)[2]
+            plain[accum] = (base, None)
+        base, base_prof = plain[accum]
+        sharded = make(x, y).step
+        ms = {"unsharded": [], "mesh": []}
+        for i in range(MPT_TIMED):
+            for way in ("mesh", "unsharded")[::1 if i % 2 == 0 else -1]:
+                fn = sharded if way == "mesh" else base
+                torch.cuda.synchronize()
+                t0 = time.perf_counter()
+                float(fn())
+                torch.cuda.synchronize()
+                ms[way].append((time.perf_counter() - t0) * 1e3)
+        if base_prof is None:
+            base_prof = mpt_profile(base)
+            plain[accum] = (base, base_prof)
+        prof = {"unsharded": base_prof, "mesh": mpt_profile(sharded)}
+        med = {w: float(np.median(v)) for w, v in ms.items()}
+        desc = "; ".join(
+            f"{w} busy {b:.1f} of {s:.1f} ms (idle {1 - b / s:.1%}), {n} "
+            f"device events, {k} host launches" for w, (b, s, n, k)
+            in prof.items() if b)
+        print(f"(e) {label} step ms ({card}): {med['mesh']:.1f} against "
+              f"{med['unsharded']:.1f} without a mesh "
+              f"({med['mesh'] / med['unsharded']:.2f}x; mesh "
+              f"{[round(v, 1) for v in ms['mesh']]}, unsharded "
+              f"{[round(v, 1) for v in ms['unsharded']]}, in turns); peak "
+              f"{peaks[label]:.2f} GiB; one profiled step each way (accum "
+              f"{accum}'s step without a mesh profiled once): {desc}",
+              flush=True)
+        out[label] = {"ms": ms, "peak_gib": peaks[label], "profile": prof}
+        del sharded
+        torch.cuda.empty_cache()
+    return out
+
+
+def mpt_served(card, root, cfg_text, trained, ref_np, eps_np):
+    """Phase 17 (f): params trained over a mesh, folded and served b=8
+    through the Network in f32, bf16 (1 region launch each, held to
+    region_plain as phase 16 holds it) and calibrated int8 (91
+    launches, each bitwise its plain version).  The heads against those
+    served from the step without a mesh's params: one training step
+    moves the params by f32 noise that the graph amplifies (phase 8
+    (a)), so the bound carries that step's own response to a 1e-7 input
+    change, read on the heads (`yard`: the f32 heads of the params the
+    step took from the changed input, against the step's): f32 within
+    ten yardsticks plus TOL_F32 of each spread, bf16 and int8 within ten
+    yardsticks plus twice the unsharded network's own distance from f32
+    (two rounding chains: a weight that the step moved by f32 noise may
+    round to another bf16 value or int8 step)."""
+    import torch
+
+    from darknet_tpu_torch import Network
+    from darknet_tpu_torch.nn import params as paramlib
+    from darknet_tpu_torch.weights import io as wio
+
+    cfg = os.path.join(root, "yolov4-train.cfg")
+    with open(cfg, "w") as f:
+        f.write(cfg_text)
+    g = quiet_graph(cfg_text)
+    init = {torch.bfloat16: paramlib.params_to_torch(
+        g, paramlib.fuse_conv_batchnorm(
+            g, paramlib.init_params(g, seed=SERVE_PX)), DEVICE,
+        torch.bfloat16)}
+    rng = np.random.default_rng(MP_SEED)
+    frames = rng.uniform(0, 1, (SERVE_BATCH, SERVE_PX, SERVE_PX, 3)).astype(
+        np.float32)
+    calib = [rng.uniform(0, 1, (SERVE_PX, SERVE_PX, 3)).astype(np.float32)
+             for _ in range(INT8_CALIB_FRAMES)]
+    x = torch.from_numpy(frames).to(DEVICE)
+
+    def nets(params, labels):
+        path = os.path.join(root, "trained.weights")
+        wio.save_weights(g, params, path)
+        out = {}
+        with warnings.catch_warnings():
+            warnings.simplefilter("ignore")
+            for label in labels:
+                out[label] = Network.from_cfg(
+                    cfg, weights=path, int8=label == "int8",
+                    compute_dtype=None if label == "f32" else torch.bfloat16,
+                    device=DEVICE)
+        if "int8" in out:
+            out["int8"].calibrate_int8(calib)
+        return out
+
+    def heads(net):
+        return net._fwd(net.forward_params, x)["heads"]
+
+    labels = ("f32", "bf16", "int8")
+    with torch.inference_mode():
+        ref = {k: heads(n) for k, n in nets(ref_np, labels).items()}
+        yard = head_gap(heads(nets(eps_np, ("f32",))["f32"]), ref["f32"])
+    own = {k: head_gap(ref[k], ref["f32"]) for k in labels}
+    out = {}
+    for name, params in trained.items():
+        for label, net in nets(params, labels).items():
+            n_q = INT8_CONVS if label == "int8" else 0
+            got, launches, worst, _h = mp_launches(
+                lambda: heads(net), f"trained {name} {label}", n_q, init)
+            require(launches[0] == 1, f"trained {name} {label}: one region "
+                    f"launch a request, got {launches[0]}")
+            gap = head_gap(got, ref[label])
+            bound = [YARDSTICK_V4 * y + (TOL_F32 if label == "f32"
+                                         else 2 * o)
+                     for (y, _m), (o, _n) in zip(yard, own[label])]
+            ok = all(s <= b for (s, _m), b in zip(gap, bound))
+            print(f"(f) {name}'s trained params served {label} b="
+                  f"{SERVE_BATCH} ({card}): {launches[0]} region launch "
+                  f"(worst {worst:.3g} of the scale against region_plain), "
+                  f"{launches[1]} int8, each bitwise; heads against the "
+                  f"step without a mesh's params "
+                  f"{[round(s, 6) for s, _m in gap]} of each spread, bound "
+                  f"{[round(b, 6) for b in bound]} (the step's 1e-7 "
+                  f"yardstick on the f32 heads "
+                  f"{[round(y, 6) for y, _m in yard]}, the network's own "
+                  f"distance from f32 "
+                  f"{[round(o, 6) for o, _n in own[label]]}): {ok}",
+                  flush=True)
+            require(ok and all(bool(torch.isfinite(h).all()) for h in got),
+                    f"trained {name} {label}: heads")
+            out[(name, label)] = launches
+        torch.cuda.empty_cache()
+    return out
+
+
+def phase_model_parallel_train(card):
+    """Phase 17 (`--only model_parallel_train`): model-parallel training
+    at full width, the card named 2, 4 or 8 times."""
+    import torch
+
+    from darknet_tpu_torch.dryrun import dryrun_multichip
+    from darknet_tpu_torch.nn import params as paramlib
+
+    t_phase = time.perf_counter()
+    cfg_text = par_train_cfg()
+    g = quiet_graph(cfg_text, train=True)
+    p0 = paramlib.init_params(g, seed=0)
+    x, y = train_batch(g, PAR_BATCH, PAR_SEED)
+    noise = np.random.default_rng(99).standard_normal(x.shape)
+    x_eps = (x * (1 + 1e-7 * noise)).astype(np.float32)
+    state0 = train_state0(g, p0)
+    steps = mpt_steps(g, p0)
+    refs, base_peak = {}, {}
+    for accum in sorted({a for a, _m in steps.values()}):
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        refs[accum] = (mpt_unsharded(g, p0, accum, x, y),
+                       mpt_unsharded(g, p0, accum, x_eps, y))
+        base_peak[accum] = torch.cuda.max_memory_allocated() / 2 ** 30
+    print(f"phase 17: yolov4-{SERVE_PX} batch {PAR_BATCH}, f32 (TF32 off), "
+          f"the steps without a mesh (accum {sorted(refs)}) in "
+          f"{time.perf_counter() - t_phase:.1f} s, peak "
+          f"{', '.join(f'{v:.2f}' for v in base_peak.values())} GiB",
+          flush=True)
+    trained, peaks = {}, {}
+    for label, (accum, make) in steps.items():
+        t0 = time.perf_counter()
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        run = make(x, y)
+        got = run()
+        torch.cuda.synchronize()
+        peaks[label] = torch.cuda.max_memory_allocated() / 2 ** 30
+        ref, eps = refs[accum]
+        same = all(np.array_equal(a[k], b[k]) for a, b in zip(got[0], ref[0])
+                   for k in b)
+        extra = ""
+        obj = getattr(run, "obj", None)
+        if obj is not None:
+            extra = f"; cuts {obj.cuts}"
+        mpt_hold(label, got, ref, eps, state0, card, extra + f"; bitwise the step without a mesh: "
+                 f"{same}; peak {peaks[label]:.2f} GiB; "
+                 f"{time.perf_counter() - t0:.1f} s")
+        if label in (f"pipeline {MPT_SERVED[0]} stages x {MPT_SERVED[1]}",
+                     "tp dp=2 tp=2"):
+            trained[label] = got[0]
+        del run
+        torch.cuda.empty_cache()
+    # (c) bf16/act16 on (dp=2, sp=2) against the unsharded bf16/act16 step
+    t0 = time.perf_counter()
+    bf = torch.bfloat16
+    bf_ref = mpt_unsharded(g, p0, PAR_ACCUM, x, y, bf)
+    bf_got = steps["sp dp=2 sp=2"][1](x, y, dtype=bf)()
+    f32 = refs[PAR_ACCUM][0]
+    keys = ("w", "b", "scales")
+    err, scale = update_gap(bf_got[0], bf_ref[0], p0, keys)
+    own, _s = update_gap(bf_ref[0], f32[0], p0, keys)
+    mine, _s = update_gap(bf_got[0], f32[0], p0, keys)
+    rel = abs(bf_got[2] - bf_ref[2]) / abs(bf_ref[2])
+    print(f"(c) sp dp=2 sp=2 bf16/act16 ({card}): cost {bf_got[2]:.8g} "
+          f"against {bf_ref[2]:.8g} (rel {rel:.3g}); updates err {err:.3g} "
+          f"of {scale:.3g}; the unsharded bf16 step's own distance from f32 "
+          f"{own:.3g}, the mesh step's {mine:.3g}; within one own "
+          f"distance: {err <= own}; {time.perf_counter() - t0:.1f} s",
+          flush=True)
+    # two bf16 rounding chains, each `own` from f32, part by up to 2 own
+    require(np.isfinite(bf_got[2]) and err <= 2 * own and rel <= 0.01,
+            "the bf16/act16 mesh step within twice the bf16 step's own "
+            "distance from f32")
+    # (d) the dryrun twin
+    t0 = time.perf_counter()
+    dry = dryrun_multichip(8, device=DEVICE)
+    require(np.isfinite(dry["cost"]) and np.isfinite(dry["pp_cost"]),
+            "dryrun_multichip(8): finite costs")
+    print(f"(d) dryrun_multichip(8) over {dry['mesh']} ({card}): "
+          f"{time.perf_counter() - t0:.1f} s", flush=True)
+    times = {k: steps[k] for k in ("pipeline 4 stages x 4",
+                                   "tp dp=2 tp=2", "sp dp=2 sp=2",
+                                   "3D dp=2 sp=2 tp=2")}
+    t0 = time.perf_counter()
+    out = {"times": mpt_times(card, g, p0, x, y, times, peaks),
+           "peaks": peaks, "base_peaks": base_peak}
+    print(f"(e) in {time.perf_counter() - t0:.1f} s", flush=True)
+    t0 = time.perf_counter()
+    root = tempfile.mkdtemp(prefix="chip_smoke_mpt_")
+    try:
+        out["served"] = mpt_served(card, root, cfg_text, trained,
+                                   refs[PAR_ACCUM][0][0],
+                                   refs[PAR_ACCUM][1][0])
+    finally:
+        shutil.rmtree(root, ignore_errors=True)
+    torch.cuda.empty_cache()
+    print(f"(f) in {time.perf_counter() - t0:.1f} s", flush=True)
+    print(f"phase 17 (model-parallel training) in "
+          f"{time.perf_counter() - t_phase:.1f} s ({card})", flush=True)
+    return out
+
+
 def main(argv=None) -> int:
     import argparse
 
@@ -5904,7 +6358,8 @@ def main(argv=None) -> int:
     parser = argparse.ArgumentParser(description="smoke run on one card")
     parser.add_argument("--only", choices=["video", "gaussian", "v1", "cli",
                                            "export", "parallel",
-                                           "model_parallel"],
+                                           "model_parallel",
+                                           "model_parallel_train"],
                         help="build the kernels and run this phase alone "
                              "(no kernels line, no contract line)")
     only = parser.parse_args(argv).only
@@ -5930,7 +6385,8 @@ def main(argv=None) -> int:
         {"video": phase_video, "gaussian": phase_gaussian,
          "v1": phase_v1, "cli": phase_cli,
          "export": phase_export, "parallel": phase_parallel,
-         "model_parallel": phase_model_parallel}[only](card)
+         "model_parallel": phase_model_parallel,
+         "model_parallel_train": phase_model_parallel_train}[only](card)
         print(card, flush=True)
         print(json.dumps({"only": only, "ok": True}), flush=True)
         return 0
@@ -5949,6 +6405,8 @@ def main(argv=None) -> int:
     export = phase_export(card)
     par = phase_parallel(card)
     mp = phase_model_parallel(card)
+    mpt = phase_model_parallel_train(card)
+    served = mpt["served"]
 
     print(card, flush=True)
     print(json.dumps({"kernels": [{
@@ -5976,7 +6434,9 @@ def main(argv=None) -> int:
             "phase16_tp_int8": mp["tensor"][("int8", 2, 2)][0],
             "phase16_pipeline_bf16": mp["pipeline"][("bf16", 4, 4)][0],
             "phase16_pipeline_int8": mp["pipeline"][("int8", 4, 4)][0],
-            "phase16_mesh_sp": mp["network"]["bf16"][0]}}, {
+            "phase16_mesh_sp": mp["network"]["bf16"][0],
+            "phase17_trained_bf16": served[("tp dp=2 tp=2", "bf16")][0],
+            "phase17_trained_int8": served[("tp dp=2 tp=2", "int8")][0]}}, {
         "name": "int8_gemm", "route": "cuda",
         "source": "darknet_tpu_torch/csrc/int8_gemm.cu",
         "replaces": "darknet_tpu/ops/pallas/quant_matmul.py:91",
@@ -5999,7 +6459,9 @@ def main(argv=None) -> int:
             "phase16_tp_int8": mp["tensor"][("int8", 2, 2)][1],
             "phase16_pipeline_bf16": mp["pipeline"][("bf16", 4, 4)][1],
             "phase16_pipeline_int8": mp["pipeline"][("int8", 4, 4)][1],
-            "phase16_mesh_sp": mp["network"]["bf16"][1]}}]}),
+            "phase16_mesh_sp": mp["network"]["bf16"][1],
+            "phase17_trained_bf16": served[("tp dp=2 tp=2", "bf16")][1],
+            "phase17_trained_int8": served[("tp dp=2 tp=2", "int8")][1]}}]}),
         flush=True)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

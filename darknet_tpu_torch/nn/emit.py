@@ -48,7 +48,8 @@ from darknet_tpu_torch.ops.activations import apply_activation
 from darknet_tpu_torch.ops.conv import (antialias_backref_view,
                                         antialias_blur, batchnorm_block,
                                         connected_block, conv_block,
-                                        conv_block_int8, precise_matmul)
+                                        conv_block_int8, conv_train_pre,
+                                        precise_matmul)
 from darknet_tpu_torch.ops.pooling import (global_avgpool, maxpool,
                                            maxpool_block)
 from darknet_tpu_torch.utils import debug
@@ -460,7 +461,15 @@ def _make_train_forward(graph, *, compute_dtype=None, train_act_dtype=None,
     Dropout, dropblock and [crop] draw from `generator`, which must live on
     x's device (`ops/shapes`); with none, dropout is the identity and crop
     the centre crop, as the JAX package's forward with rng=None.  Not
-    ported: remat "steps"/"all" (region-only levels)."""
+    ported: remat "steps"/"all" (region-only levels).
+
+    `forward(params, x, generator, _lo=, _hi=, _extern=)` runs a stage
+    slice (`parallel/pipeline.PipelineTrain`); the executors that run
+    the layers themselves (`parallel/spatial.MeshTrain`) read the
+    per-layer step `forward.layer`, `forward.live`, and a conv's two
+    halves: `forward.conv_pre` (`ops/conv.conv_train_pre`) and, after the
+    batch norm + activation over the parts, `forward.conv_out` (the
+    act16 cast)."""
     if remat not in (False, True):
         raise NotImplementedError(
             f"remat={remat!r}: only False and True are ported (the "
@@ -474,22 +483,37 @@ def _make_train_forward(graph, *, compute_dtype=None, train_act_dtype=None,
         return conv_block(cur, p, l, train=True, compute_dtype=compute_dtype,
                           res_dtype=res_dt, stats_group=stats_group)
 
-    def forward(params, x, generator=None):
-        outs: dict = {}
+    def forward(params, x, generator=None, *, _lo=0, _hi=None,
+                _extern=None):
+        """_lo/_hi/_extern: stage-slice mode (`parallel/pipeline.
+        PipelineTrain`, `darknet_tpu/nn/emit.py:203-260`): only layers
+        [_lo, _hi) run, `x` is layer _lo's input and `_extern` seeds the
+        outputs of earlier layers that later ones read; the result then
+        also holds "outs", every live output so far.  The random layers
+        draw from `generator` in layer order, so slices run in layer order
+        with one generator draw the unsliced forward's masks (the JAX
+        package offsets its split keys by the random layers below _lo to
+        the same end)."""
+        outs: dict = dict(_extern or {})
         bn_stats: dict = {}
         heads: list = []
         raw_heads: list = []
         check = debug.layer_check()
         cur = x
-        for i, l in enumerate(layers):
+        hi = len(layers) if _hi is None else _hi
+        for i in range(_lo, hi):
+            l = layers[i]
             name = f"L{i:03d}_{l.kind}"
             with scope(name):
                 cur = layer(i, l, cur, outs, bn_stats, heads, raw_heads,
                             params, generator)
             if check is not None:
                 check(name, cur)
-        return {"heads": heads, "raw_heads": raw_heads,
-                "bn_stats": bn_stats, "output": cur}
+        r = {"heads": heads, "raw_heads": raw_heads, "bn_stats": bn_stats,
+             "output": cur}
+        if _lo or _hi is not None:
+            r["outs"] = outs
+        return r
 
     def layer(i, l, cur, outs, bn_stats, heads, raw_heads, params,
               generator):
@@ -555,4 +579,32 @@ def _make_train_forward(graph, *, compute_dtype=None, train_act_dtype=None,
             outs[i] = outs.get(i, cur) if aa_backref else cur
         return cur
 
+    def conv_pre(i, l, x, p):
+        """The first half of layer i's conv on `x` (`ops/conv.
+        conv_train_pre`) with `p` its params (the share_index owner's)."""
+        res_dt = train_act_dtype if i not in head_feed else None
+        return conv_train_pre(x, p, l, compute_dtype=compute_dtype,
+                              res_dtype=res_dt)
+
+    def conv_out(i, y):
+        """A conv output as the next layer reads it: at train_act_dtype
+        unless the conv feeds a head."""
+        if train_act_dtype is not None and i not in head_feed:
+            return y.to(train_act_dtype)
+        return y
+
+    # for the executors that run the layers themselves (`parallel/`): the
+    # per-layer step `layer(i, l, cur, outs, bn_stats, heads, raw_heads,
+    # params, generator)` -> the layer's output (outs, bn_stats and the
+    # head lists updated in place), the liveness set, the convs that
+    # feed a head, the conv's first half and its output cast; training
+    # plans no region
+    forward.layer = layer
+    forward.live = live
+    forward.head_feed = head_feed
+    forward.conv_pre = conv_pre
+    forward.conv_out = conv_out
+    forward.train_act_dtype = train_act_dtype
+    forward.region_plans = {}
+    forward.runners = {}
     return forward

@@ -223,20 +223,40 @@ def batch_mean_var(y, dims, group=None):
     return mean, var
 
 
-def _conv_block_train(x, p, l, *, compute_dtype=None, res_dtype=None,
-                      stats_group=None):
-    """Training darknet conv layer (`darknet_tpu/ops/conv.py:153-213`,
-    train=True): conv, then live batch norm + activation through
-    `ops/train_epilogue.bn_act_train`, or bias + activation.  Returns
-    (y, (batch mean, batch var) or None).
+def batch_mean_var_parts(ys, home):
+    """`batch_mean_var` over the leading dims of every tensor in `ys`
+    together (parts of one micro-batch, on any devices; a part may be
+    empty): the two passes, each one sum over the parts, taken on `home`,
+    differentiably.  Returns (mean, var) on `home`."""
+    dims = tuple(range(ys[0].dim() - 1))
+    n = sum(y.numel() // y.shape[-1] for y in ys)
+    total = None
+    for y in ys:
+        s = y.sum(dims).to(home, non_blocking=True)
+        total = s if total is None else total + s
+    mean = total / n
+    total = None
+    for y in ys:
+        s = (y - mean.to(y.device, non_blocking=True)).square().sum(dims)
+        s = s.to(home, non_blocking=True)
+        total = s if total is None else total + s
+    return mean, total / max(n - 1, 1)
 
-    compute_dtype None (or float32) is full f32 with TF32 off.  bf16 runs a
-    bf16 conv (f32 accumulation, bf16 out; its backward is cuDNN's bf16
-    backward); the epilogue then runs in f32, unless `res_dtype` is set
-    on a batch-normalised conv (keep_lp): then the bf16 conv output goes
-    straight into the epilogue, which keeps y_hat and its output at
-    res_dtype.  p holds unfolded OIHW params ("w", "b"[, "scales"]).  An
-    antialiased conv blurs after the activation."""
+
+def train_keeps_lp(p, l, compute_dtype, res_dtype) -> bool:
+    """Whether a training conv hands its bf16 output straight to the
+    epilogue (keep_lp: a bf16 conv of a batch-normalised layer whose
+    residual dtype is set), rather than an f32 copy."""
+    cd = None if compute_dtype in (None, torch.float32) else compute_dtype
+    return (res_dtype is not None and cd is not None
+            and bool(l.batch_normalize) and "scales" in p)
+
+
+def conv_train_pre(x, p, l, *, compute_dtype=None, res_dtype=None):
+    """The first half of the training conv layer: the conv alone, no bias,
+    NHWC, in the dtype the epilogue reads (f32, or bf16 under keep_lp,
+    `train_keeps_lp`).  Its padding and output size come from the layer's
+    fields (h, out_h, ...), so a slab of rows runs with its own."""
     cd = None if compute_dtype in (None, torch.float32) else compute_dtype
     padding = darknet_conv_padding(
         l.size, l.pad, l.dilation, (l.h, l.w), (l.stride_y, l.stride_x),
@@ -250,18 +270,44 @@ def _conv_block_train(x, p, l, *, compute_dtype=None, res_dtype=None,
                      stride=(l.stride_y, l.stride_x), padding=pad,
                      dilation=(l.dilation, l.dilation), groups=l.groups)
     y = y.permute(0, 2, 3, 1)
-    bn = l.batch_normalize and "scales" in p
-    keep_lp = res_dtype is not None and cd is not None and bn
-    if cd is not None and not keep_lp:
+    if cd is not None and not train_keeps_lp(p, l, compute_dtype, res_dtype):
         y = y.float()
-    if bn:
+    return y
+
+
+def conv_train_post(y, p, l, *, compute_dtype=None, res_dtype=None,
+                    stats_group=None):
+    """The second half: live batch norm + activation through
+    `ops/train_epilogue.bn_act_train` (its statistics over `stats_group`
+    where one is given), or bias + activation.  No blur.  Returns (y,
+    (batch mean, batch var) or None)."""
+    if l.batch_normalize and "scales" in p:
         from darknet_tpu_torch.ops.train_epilogue import bn_act_train
 
-        y, stats = bn_act_train(l.activation, res_dtype if keep_lp else None,
-                                res_dtype, y, p["scales"], p["b"],
-                                stats_group)
-    else:
-        y, stats = apply_activation(y + p["b"], l.activation), None
+        keep_lp = train_keeps_lp(p, l, compute_dtype, res_dtype)
+        return bn_act_train(l.activation, res_dtype if keep_lp else None,
+                            res_dtype, y, p["scales"], p["b"], stats_group)
+    return apply_activation(y + p["b"], l.activation), None
+
+
+def _conv_block_train(x, p, l, *, compute_dtype=None, res_dtype=None,
+                      stats_group=None):
+    """Training darknet conv layer (`darknet_tpu/ops/conv.py:153-213`,
+    train=True): `conv_train_pre`, then `conv_train_post` (live batch
+    norm + activation through `ops/train_epilogue.bn_act_train`, or bias
+    + activation).  Returns (y, (batch mean, batch var) or None).
+
+    compute_dtype None (or float32) is full f32 with TF32 off.  bf16 runs a
+    bf16 conv (f32 accumulation, bf16 out; its backward is cuDNN's bf16
+    backward); the epilogue then runs in f32, unless `res_dtype` is set
+    on a batch-normalised conv (keep_lp): then the bf16 conv output goes
+    straight into the epilogue, which keeps y_hat and its output at
+    res_dtype.  p holds unfolded OIHW params ("w", "b"[, "scales"]).  An
+    antialiased conv blurs after the activation."""
+    y = conv_train_pre(x, p, l, compute_dtype=compute_dtype,
+                       res_dtype=res_dtype)
+    y, stats = conv_train_post(y, p, l, compute_dtype=compute_dtype,
+                               res_dtype=res_dtype, stats_group=stats_group)
     if getattr(l, "antialiasing", 0):
         y = antialias_blur(y, l)
     return y, stats

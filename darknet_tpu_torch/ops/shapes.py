@@ -182,13 +182,19 @@ def dropblock_apply(x, seeds, block: int):
     square (a stride-1 max over the map padded with 0, the seed at offset
     block // 2), those positions drop, and the rest scale by 1 / the kept
     share of each image (at least 1e-6)."""
+    keep, denom = dropblock_keep(seeds, block)
+    return x * keep / denom
+
+
+def dropblock_keep(seeds, block: int):
+    """(keep (B, H, W, 1), denom (B, 1, 1, 1)) of `dropblock_apply`: the
+    grown blocks' complement and each image's kept share."""
     pad = block // 2
     m = F.pad(seeds.permute(0, 3, 1, 2),
               (pad, block - 1 - pad, pad, block - 1 - pad), value=0.0)
     mask = F.max_pool2d(m, block, 1).permute(0, 2, 3, 1)
     keep = 1.0 - mask
-    denom = keep.mean((1, 2, 3), keepdim=True).clamp_min(1e-6)
-    return x * keep / denom
+    return keep, keep.mean((1, 2, 3), keepdim=True).clamp_min(1e-6)
 
 
 def dropblock(x, generator, probability: float, block_size_abs: int,

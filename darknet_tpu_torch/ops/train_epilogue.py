@@ -108,3 +108,112 @@ def bn_act_train(act, out_dtype, res_dtype, y, scales, beta, group=None):
     out, mean, var = _BnActTrain.apply(y, scales, beta, act, out_dtype,
                                        res_dtype, group)
     return out, (mean, var)
+
+
+def _sum_on(vals, home):
+    """The tensors `vals` (one a part, on any devices) summed in order on
+    `home`."""
+    total = None
+    for v in vals:
+        v = v.to(home, non_blocking=True)
+        total = v if total is None else total + v
+    return total
+
+
+class _BnActParts(torch.autograd.Function):
+    """`_BnActTrain` over the parts of one micro-batch (the module's
+    rules, `bn_act_train_parts`): one node, so that the backward sees
+    every part's s1 and s2 before it forms any part's dy."""
+
+    @staticmethod
+    def forward(ctx, scales, beta, act, out_dtype, res_dtype, *ys):
+        home = scales.device
+        dims = tuple(range(ys[0].dim() - 1))
+        cnt = sum(y.numel() // y.shape[-1] for y in ys)
+        if ys[0].dtype == torch.float32:
+            mean = _sum_on([y.sum(dims) for y in ys], home) / cnt
+            var = _sum_on([(y - mean.to(y.device, non_blocking=True))
+                           .square().sum(dims) for y in ys],
+                          home) / max(cnt - 1, 1)
+        else:
+            s = _sum_on([torch.stack([y.float().sum(dims),
+                                      y.float().square().sum(dims)])
+                         for y in ys], home)
+            mean = s[0] / cnt
+            var = torch.clamp_min(s[1] - s[0] * mean, 0.0) / max(cnt - 1, 1)
+        inv = torch.rsqrt(var + BN_EPS)
+        outs, saved = [], []
+        for y in ys:
+            dev = y.device
+            on = [t.to(dev, non_blocking=True) for t in (mean, inv, scales,
+                                                         beta)]
+            y_hat = (y.float() - on[0]) * on[1]
+            out = apply_activation(y_hat * on[2].float() + on[3].float(), act)
+            if out_dtype is not None:
+                out = out.to(out_dtype)
+            outs.append(out)
+            saved.append(y_hat if res_dtype is None else y_hat.to(res_dtype))
+        ctx.save_for_backward(inv, scales, beta, *saved)
+        ctx.act, ctx.y_dtype, ctx.cnt = act, ys[0].dtype, cnt
+        ctx.mark_non_differentiable(mean, var)
+        return (mean, var, *outs)
+
+    @staticmethod
+    def backward(ctx, _g_mean, _g_var, *gs):
+        inv, scales, beta, *saved = ctx.saved_tensors
+        home, cnt = scales.device, ctx.cnt
+        dims = tuple(range(saved[0].dim() - 1))
+        parts = []
+        for res, g in zip(saved, gs):
+            dev = res.device
+            s_f = scales.to(dev, non_blocking=True).float()
+            y_hat = res.float()
+            with torch.enable_grad():
+                y_norm = (y_hat * s_f + beta.to(dev, non_blocking=True)
+                          .float()).requires_grad_()
+                (gp,) = torch.autograd.grad(apply_activation(y_norm, ctx.act),
+                                            y_norm, g.float())
+            gpg = gp * s_f
+            parts.append((y_hat, gpg, s_f, gp.sum(dims), (gp * y_hat).sum(dims),
+                          gpg.sum(dims)))
+        d_beta = _sum_on([p[3] for p in parts], home)
+        d_scales = _sum_on([p[4] for p in parts], home)
+        s1 = _sum_on([p[5] for p in parts], home)
+        s2 = d_scales * scales.float()
+        dys = []
+        for y_hat, gpg, _s_f, *_sums in parts:
+            dev = y_hat.device
+            on = [t.to(dev, non_blocking=True) for t in (inv, s1, s2)]
+            dy = on[0] * (gpg - on[1] / cnt - y_hat * (on[2] / max(cnt - 1,
+                                                                   1)))
+            dys.append(dy.to(ctx.y_dtype))
+        return (d_scales.to(scales.dtype), d_beta.to(beta.dtype), None, None,
+                None, *dys)
+
+
+def bn_act_train_parts(ys, scales, beta, act, out_dtype=None, res_dtype=None,
+                       *, group=None):
+    """`bn_act_train` over the parts of one micro-batch: ([out per part],
+    (mean, var)).
+
+    ys: the parts (N_i, H_i, W, C), NHWC, on any devices, a part possibly
+    empty: a data-parallel block's rows, a spatial slab, or one filter
+    shard's channels seen from every block (`parallel/spatial.MeshTrain`).
+    The statistics are the whole micro-batch's, M counting every part's
+    rows: for f32 parts two passes, each one sum over the parts; for bf16
+    (s1, s2) summed at once; every sum taken on scales' device in part
+    order.  The backward sums its per-channel s1 and s2 over the parts
+    before it forms any part's dy, and returns one dgamma and one dbeta,
+    on scales' and beta's device: it is ONE autograd node over every part.
+    mean and var come back on scales' device, not differentiated through.
+    `group` (a process group the parts span) is not built: meshes across
+    processes are ROADMAP A7c item 4."""
+    if group is not None:
+        raise NotImplementedError(
+            "bn_act_train_parts over a process group: model-parallel "
+            "meshes across processes are ROADMAP A7c item 4")
+    if not ys:
+        raise ValueError("bn_act_train_parts needs at least one part")
+    mean, var, *outs = _BnActParts.apply(scales, beta, act, out_dtype,
+                                         res_dtype, *ys)
+    return outs, (mean, var)

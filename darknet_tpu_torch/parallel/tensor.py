@@ -23,6 +23,17 @@ stem fold are off, as the JAX package's tp forward turns them off
 (their packed layouts interleave channels), so this path launches no
 region kernel.  A dynamic int8 scale is the whole batch's: the dp blocks
 run layer by layer in lockstep and take max|x| over every block.
+
+Training (`make_tp_train_step`, `darknet_tpu/parallel/tensor.py:149-200`):
+the params, their gradients and their optimizer slots split by the same
+rule (`tp_opt_specs` for the slots), one params list a shard on its
+device (`shard_tp_train`; `gather` merges them back), and the step runs
+over `parallel/spatial.MeshTrain`, whose tp layer step is this module's
+structure with a backward: the cell's first device runs the replicated
+layers, a sharded conv's filter slices run on the group's devices with
+their batch norm over every cell's part of their channels, and the
+slices concatenate on the cell's first device.  With `sp_axis` a cell
+is a (dp block, sp slab): the (dp, sp, tp) step.
 """
 
 from __future__ import annotations
@@ -240,3 +251,144 @@ def make_tp_forward(graph, mesh: Mesh, *, axis: str = "tp",
                          for k in range(3))
 
     return run
+
+
+# ------------------------------------------------------------------ training
+def tp_opt_specs(graph, opt_state, params, n_tp: int, *,
+                 axis: str = "tp") -> dict:
+    """Specs of a numpy SGD or Adam state in the JAX package's layout
+    (`darknet_tpu/parallel/tensor.py:68-83`): the params-shaped slot lists
+    ("u", "m", "v") shard exactly as the params; every other entry is
+    replicated (())."""
+    elig = _tp_layers(graph, n_tp)
+
+    def slots(tree):
+        return [{k: _leaf_spec(k, v, graph.layers[i].n, axis) if i in elig
+                 else () for k, v in p.items()} for i, p in enumerate(tree)]
+
+    return {k: slots(v) if isinstance(v, list) else ()
+            for k, v in opt_state.items()}
+
+
+def shard_tp_train(graph, tree, n_tp: int, homes, *, grad: bool) -> list:
+    """A params-shaped list of the port's training tensors (the params,
+    or an optimizer slot list) split over the tp shards: one list a
+    shard, shard t on homes[t], holding its filter slice of each
+    eligible conv (every leaf of one shards on dim 0); every other layer
+    whole in shard 0 and {} elsewhere.  Fresh tensors; with `grad` the
+    trainable ones ("w", "b", "scales") require grad."""
+    from darknet_tpu_torch.nn.params import TRAINABLE
+
+    elig = _tp_layers(graph, n_tp)
+    out = []
+    for t, home in enumerate(homes):
+        shard = []
+        for i, p in enumerate(tree):
+            if i not in elig and t:
+                shard.append({})
+                continue
+            q = {}
+            for k, v in p.items():
+                if i in elig:
+                    n = graph.layers[i].n
+                    if not _filter_dim(k, v, n):
+                        raise ValueError(f"layer {i} {k!r} {tuple(v.shape)}: "
+                                         f"not a filter-dim leaf")
+                    per = n // n_tp
+                    v = v.narrow(0, t * per, per)
+                c = torch.empty_like(v, device=home,
+                                     memory_format=torch.preserve_format)
+                with torch.no_grad():
+                    c.copy_(v)
+                q[k] = c.requires_grad_(grad and k in TRAINABLE)
+            shard.append(q)
+        out.append(shard)
+    return out
+
+
+def gather(placed) -> list:
+    """Shards (`shard_tp_train`'s lists) merged into one params-shaped
+    list: each sharded leaf's slices concatenated on filters (the
+    counterpart of reading a sharded `jax.Array` whole), detached, on
+    shard 0's device."""
+    out = []
+    for i, p0 in enumerate(placed[0]):
+        out.append({k: torch.cat([s[i][k].detach().to(v.device)
+                                  for s in placed if s[i]])
+                    for k, v in p0.items()})
+    return out
+
+
+def gather_opt(opts) -> dict:
+    """Per-shard optimizer states merged into one (`gather` on each slot
+    list; the counter is the shards' own, equal in all)."""
+    return {k: gather([o[k] for o in opts]) if isinstance(v, list) else v
+            for k, v in opts[0].items()}
+
+
+def make_tp_train_step(graph, mesh: Mesh, *, axis: str = "tp",
+                       dp_axis: str = "dp", sp_axis: str | None = None,
+                       accum: int = 1, compute_dtype=None,
+                       train_act_dtype=None):
+    """(step, place): the training step with the eligible convs' filters,
+    their gradients and their optimizer slots split over the mesh's tp
+    axis, the batch over `dp_axis` and, with `sp_axis`, every map's rows
+    over it (`darknet_tpu/parallel/tensor.py:149-200`; the 3-axis step).
+
+    place(params, opt_state, x=None, truths=None) -> (placed, opts[, x,
+    truths]): the port's training params (or unfolded numpy params) and
+    optimizer state split by `tp_param_specs`/`tp_opt_specs`' rule, one
+    list a shard, shard t on the device at (dp 0, sp 0, tp t), which
+    runs its optimizer; x and truths on the mesh's first device.
+    step(placed, opts, x, truths, lr, generator=None) -> (placed, opts,
+    cost, metrics), in place.  `gather(placed)` gives one params list
+    back.
+
+    A cell (a dp block, and an sp slab) is a tp group: its activation
+    lives on the group's first device, which runs every replicated layer
+    (the heads' 255-filter convs among them) once; an eligible conv runs
+    on every device of the group over its filter slice, its batch norm
+    over that slice's channels in every cell (one node, `ops/
+    train_epilogue.bn_act_train_parts`), and the slices are concatenated
+    on channels on the cell's device (`parallel/spatial.MeshTrain`).
+    Regions and the stem fold are off, as in the JAX package's tp step.
+    The step equals `train/step.make_train_step(accum=...)`'s on the
+    whole batch."""
+    from darknet_tpu_torch.parallel.pipeline import leaf_copies
+    from darknet_tpu_torch.parallel.spatial import (MeshTrain,
+                                                    mesh_train_step)
+
+    if axis not in mesh.shape:
+        raise ValueError(f"{mesh} has no {axis!r} axis for the tp step")
+    if sp_axis is not None and sp_axis not in mesh.shape:
+        raise ValueError(f"{mesh} has no {sp_axis!r} axis")
+    n_tp = mesh.shape[axis]
+    elig = _tp_layers(graph, n_tp)
+    ex = MeshTrain(graph, mesh, dp_axis=dp_axis, sp_axis=sp_axis,
+                   tp_axis=axis, elig=elig, compute_dtype=compute_dtype,
+                   train_act_dtype=train_act_dtype)
+    inner = mesh_train_step(graph, ex, accum=accum)
+
+    def place(params, opt_state, x=None, truths=None):
+        params = leaf_copies(graph, params, "cpu") if not any(
+            isinstance(v, torch.Tensor) for p in params
+            for v in p.values()) else params
+        placed = shard_tp_train(graph, params, n_tp, ex.homes, grad=True)
+        slots = {k: shard_tp_train(graph, v, n_tp, ex.homes, grad=False)
+                 for k, v in opt_state.items() if isinstance(v, list)}
+        opts = [{k: slots[k][t] if k in slots else v
+                 for k, v in opt_state.items()} for t in range(n_tp)]
+        out = [placed, opts]
+        for a in (x, truths):
+            if a is not None:
+                out.append(torch.as_tensor(a).to(ex.first))
+        return tuple(out)
+
+    def step(placed, opts, x, truths, lr, generator=None):
+        if len(placed) != n_tp:
+            raise ValueError(f"{len(placed)} shards placed for a tp axis "
+                             f"of {n_tp} (use `place`)")
+        cost, metrics = inner(placed, opts, x, truths, lr, generator)
+        return placed, opts, cost, metrics
+
+    return step, place

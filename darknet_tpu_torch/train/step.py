@@ -162,6 +162,133 @@ def all_reduce_grads(params, group) -> None:
             off += g.numel()
 
 
+def zero_grads(params) -> None:
+    for p in params:
+        for v in p.values():
+            v.grad = None
+
+
+def head_deltas(raws, heads, truths, net, *, parts: bool = False,
+                first: int = 0):
+    """Each head's delta on its raw input, under `no_grad`: (costs,
+    metrics, roots, cotangents), the roots being the raws that require
+    grad and the cotangents their deltas times the cfg's loss_scale.
+    `parts`: the metrics also carry the cost's parts ("sum", "mean",
+    `cost_parts`) for `combine_ranks`.  `first`: the index of raws[0]
+    among the graph's heads (the profiler range's name)."""
+    costs, metrics, roots, cts = [], [], [], []
+    for hi, (raw, l) in enumerate(zip(raws, heads)):
+        with scope(f"head_delta_{first + hi}"):
+            d, c, m = HEAD_DELTA[l.kind](raw.detach().float(), truths, l,
+                                        net.w, net.h)
+        costs.append(c)
+        if parts:
+            m = dict(m)
+            m["sum"], m["mean"] = cost_parts(l, d, c)
+        metrics.append(m)
+        if raw.requires_grad:
+            roots.append(raw)
+            cts.append(d.to(raw.dtype) * net.loss_scale)
+    return costs, metrics, roots, cts
+
+
+def backward(roots, cts, compute_dtype, cost) -> None:
+    """The backward from `roots` with cotangents `cts`: .grad gains the
+    ascent directions."""
+    if roots:
+        # the backward's f32 convs run without TF32, as the forward's
+        with precise(compute_dtype or torch.float32), debug.anomaly():
+            torch.autograd.backward(roots, grad_tensors=cts)
+        check = debug.layer_check()
+        if check is not None:
+            check("backward", cost)
+
+
+def optimizer_update(graph, params, opt_state, lr) -> None:
+    """The cfg's optimizer over `params` from their .grad (divided by the
+    loss scale; a param without one counts as a zero gradient), in place;
+    the grads are cleared after."""
+    net = graph.net
+    loss_scale = net.loss_scale
+    grads = []
+    for p in params:
+        g = {}
+        for k, v in p.items():
+            if v.grad is not None:
+                g[k] = v.grad / loss_scale if loss_scale != 1.0 else v.grad
+        grads.append(g)
+    with scope("optimizer_update"):
+        if net.adam:
+            opt.adam_update(graph, params, grads, opt_state, lr=lr,
+                            B1=net.B1, B2=net.B2, eps=net.eps,
+                            decay=net.decay, batch=net.optimizer_batch)
+        else:
+            opt.sgd_update(graph, params, grads, opt_state, lr=lr,
+                           momentum=net.momentum, decay=net.decay,
+                           batch=net.optimizer_batch)
+
+
+def roll_bn_stats(params, stats) -> None:
+    """The rolling statistics of `params` from each micro-batch's batch
+    statistics (`stats`: one {layer index: (mean, var)} a micro-batch,
+    in order): 0.9/0.1 per micro-batch in sequence, i.e. 0.9^M * old +
+    0.1 * sum_j 0.9^(M-1-j) * stats_j."""
+    accum = len(stats)
+    with torch.no_grad():
+        keep = 0.9 ** accum
+        wgts: dict = {}
+        for i in stats[0]:
+            p = params[i]
+            if "mean" not in p:
+                continue
+            dev = p["mean"].device
+            if dev not in wgts:
+                wgts[dev] = 0.1 * torch.pow(0.9, torch.arange(
+                    accum - 1, -1, -1, dtype=torch.float32, device=dev))
+            for slot, k in ((0, "mean"), (1, "var")):
+                contrib = torch.tensordot(
+                    wgts[dev], torch.stack([s[i][slot] for s in stats]), 1) \
+                    if accum > 1 else 0.1 * stats[0][i][slot]
+                p[k].mul_(keep).add_(contrib)
+
+
+def summarize(costs, mets, n_heads):
+    """(cost, metrics) of a step from each micro-batch's cost and
+    per-head metrics, with make_train_step(accum=M) semantics."""
+    accum = len(costs)
+    cost = torch.stack(costs).sum()
+    metrics_list = [aggregate_micro_metrics(
+        {k: torch.stack([mets[j][hi][k] for j in range(accum)])
+         for k in mets[0][hi]}) for hi in range(n_heads)]
+    metrics = {
+        "loss": sum(m["loss"] for m in metrics_list),
+        "avg_iou": sum(m["avg_iou"] for m in metrics_list) / n_heads,
+        "count": sum(m["count"] for m in metrics_list),
+        "class_loss": sum(m["class_loss"] for m in metrics_list),
+        "iou_loss_mag": sum(m["iou_loss"] for m in metrics_list),
+    }
+    return cost, metrics
+
+
+def finish_step(graph, params, opt_state, lr, cost) -> None:
+    """The optimizer update of `params` from their .grad, the grads
+    cleared; the debug check after it."""
+    optimizer_update(graph, params, opt_state, lr)
+    check = debug.layer_check()
+    if check is not None:
+        check("optimizer_update", cost)
+    zero_grads(params)
+
+
+def micro_batches(x, truths, accum: int):
+    """make_train_step's interleaved split: micro-batch j takes images j,
+    j + accum, ...; the batch must divide."""
+    b = x.shape[0]
+    if b % accum:
+        raise ValueError(f"batch {b} is not divisible by accum {accum}")
+    return [(x[j::accum], truths[j::accum]) for j in range(accum)]
+
+
 def make_train_step(graph, *, compute_dtype=None, remat: bool | str = False,
                     accum: int = 1, train_act_dtype=None, group=None):
     """Build `train_step(params, opt_state, x, truths, lr, generator=None)`,
@@ -177,13 +304,15 @@ def make_train_step(graph, *, compute_dtype=None, remat: bool | str = False,
     residuals in bf16, the head-feeding convs' outputs excepted.
     remat=True recomputes each conv block in the backward pass.
     group: the process group of data parallelism (the module docstring);
-    x and truths are then this rank's block of the global batch."""
+    x and truths are then this rank's block of the global batch.  The
+    model-parallel steps (`parallel/{pipeline,tensor,spatial}`) reuse its
+    parts: `head_deltas`, `backward`, `summarize`, `optimizer_update`
+    and `roll_bn_stats`."""
     net = graph.net
     heads = [l for l in graph.layers if l.kind in HEAD_KINDS]
     fwd = make_forward(graph, train=True, compute_dtype=compute_dtype,
                        remat=remat, train_act_dtype=train_act_dtype,
                        stats_group=group)
-    loss_scale = net.loss_scale
     ranks = group_size(group)
 
     def one_micro_batch(params, x, truths, generator):
@@ -192,40 +321,17 @@ def make_train_step(graph, *, compute_dtype=None, remat: bool | str = False,
         over a group, the metrics also carry the cost's parts ("sum",
         "mean")."""
         r = fwd(params, x, generator)
-        costs, metrics, roots, cts = [], [], [], []
-        for hi, (raw, l) in enumerate(zip(r["raw_heads"], heads)):
-            with scope(f"head_delta_{hi}"):
-                d, c, m = HEAD_DELTA[l.kind](raw.detach().float(), truths, l,
-                                            net.w, net.h)
-            costs.append(c)
-            if ranks > 1:
-                m = dict(m)
-                m["sum"], m["mean"] = cost_parts(l, d, c)
-            metrics.append(m)
-            if raw.requires_grad:
-                roots.append(raw)
-                cts.append(d.to(raw.dtype) * loss_scale)
+        costs, metrics, roots, cts = head_deltas(
+            r["raw_heads"], heads, truths, net, parts=ranks > 1)
         cost = torch.stack(costs).sum()
-        if roots:
-            # the backward's f32 convs run without TF32, as the forward's
-            with precise(compute_dtype or torch.float32), debug.anomaly():
-                torch.autograd.backward(roots, grad_tensors=cts)
-            check = debug.layer_check()
-            if check is not None:
-                check("backward", cost)
+        backward(roots, cts, compute_dtype, cost)
         return cost, metrics, r["bn_stats"]
 
     def step(params, opt_state, x, truths, lr, generator=None):
-        for p in params:
-            for v in p.values():
-                v.grad = None
-        b = x.shape[0]
-        if b % accum:
-            raise ValueError(f"batch {b} is not divisible by accum {accum}")
+        zero_grads(params)
         costs, mets, stats = [], [], []
-        for j in range(accum):
-            c, m, s = one_micro_batch(params, x[j::accum], truths[j::accum],
-                                      generator)
+        for xj, tj in micro_batches(x, truths, accum):
+            c, m, s = one_micro_batch(params, xj, tj, generator)
             costs.append(c)
             mets.append(m)
             stats.append(s)
@@ -233,57 +339,9 @@ def make_train_step(graph, *, compute_dtype=None, remat: bool | str = False,
             all_reduce_grads(params, group)
         if ranks > 1:
             costs, mets = _over_ranks(mets)
-        cost = torch.stack(costs).sum()
-        metrics_list = [aggregate_micro_metrics(
-            {k: torch.stack([mets[j][hi][k] for j in range(accum)])
-             for k in mets[0][hi]}) for hi in range(len(heads))]
-        grads = []
-        for p in params:
-            g = {}
-            for k, v in p.items():
-                if v.grad is not None:
-                    g[k] = v.grad / loss_scale if loss_scale != 1.0 else v.grad
-            grads.append(g)
-
-        with scope("optimizer_update"):
-            if net.adam:
-                opt.adam_update(graph, params, grads, opt_state, lr=lr,
-                                B1=net.B1, B2=net.B2, eps=net.eps,
-                                decay=net.decay, batch=net.optimizer_batch)
-            else:
-                opt.sgd_update(graph, params, grads, opt_state, lr=lr,
-                               momentum=net.momentum, decay=net.decay,
-                               batch=net.optimizer_batch)
-        check = debug.layer_check()
-        if check is not None:
-            check("optimizer_update", cost)
-        for p in params:
-            for v in p.values():
-                v.grad = None
-
-        # rolling statistics: 0.9/0.1 per micro-batch in sequence, i.e.
-        # 0.9^M * old + 0.1 * sum_j 0.9^(M-1-j) * stats_j
-        with torch.no_grad():
-            wgt = 0.1 * torch.pow(0.9, torch.arange(
-                accum - 1, -1, -1, dtype=torch.float32, device=x.device))
-            keep = 0.9 ** accum
-            for i in stats[0]:
-                p = params[i]
-                if "mean" not in p:
-                    continue
-                for slot, k in ((0, "mean"), (1, "var")):
-                    contrib = torch.tensordot(
-                        wgt, torch.stack([s[i][slot] for s in stats]), 1) \
-                        if accum > 1 else 0.1 * stats[0][i][slot]
-                    p[k].mul_(keep).add_(contrib)
-
-        metrics = {
-            "loss": sum(m["loss"] for m in metrics_list),
-            "avg_iou": sum(m["avg_iou"] for m in metrics_list) / len(heads),
-            "count": sum(m["count"] for m in metrics_list),
-            "class_loss": sum(m["class_loss"] for m in metrics_list),
-            "iou_loss_mag": sum(m["iou_loss"] for m in metrics_list),
-        }
+        cost, metrics = summarize(costs, mets, len(heads))
+        finish_step(graph, params, opt_state, lr, cost)
+        roll_bn_stats(params, stats)
         return params, opt_state, cost, metrics
 
     def _over_ranks(mets):

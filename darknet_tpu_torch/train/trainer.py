@@ -54,8 +54,13 @@ alone logs, draws the chart and writes `.weights`; the resumable state is
 the sharded directory (`train/checkpoint.save_checkpoint_sharded`), which
 every rank writes its part of; the in-training mAP rides the mesh.  The
 random layers of rank r draw from the step's seed + r, so their masks
-are not the single-process run's.  Training over the spatial, tensor and
-pipeline meshes is ROADMAP A7c.
+are not the single-process run's.  Model-parallel training runs in one
+process that drives every device of a mesh, through the steps of
+`parallel/pipeline.PipelineTrain`, `parallel/tensor.make_tp_train_step`
+(with `sp_axis` the (dp, sp, tp) step) and `parallel/spatial.
+make_spatial_train_step`; the trainer does not drive them.  Meshes
+across processes for those steps are the one part of ROADMAP A7c still
+open.
 """
 
 from __future__ import annotations

@@ -23,7 +23,10 @@ ninth runs a data-parallel step over two spawned gloo ranks with the
 same three blocked in every process (a `sitecustomize` that the ranks
 load too); a tenth, with jax, jaxlib and `darknet_tpu` blocked, serves
 yolov4-64 through `make_spatial_forward`, `make_tp_forward`,
-`PipelineForward` and the Network's ("dp", "sp") mesh; and no source of the port (`eval/`, `apps/` and `parallel/`
+`PipelineForward` and the Network's ("dp", "sp") mesh; an eleventh,
+with the same three blocked, trains one step of yolov4-64 each through
+`PipelineTrain`, `make_tp_train_step` and `make_spatial_train_step` and
+runs `dryrun_multichip(2, device="cpu")`; and no source of the port (`eval/`, `apps/` and `parallel/`
 included), nor the chip
 scripts (chip_smoke.py, chip_int8_shapes.py, chip_region_tiles.py),
 imports any of the three, nor does the port's C shim import a module
@@ -550,6 +553,72 @@ print("MODEL-PARALLEL", sum(map(len, dets)))
 """
 
 
+BLOCKED_MODEL_PARALLEL_TRAIN = r"""
+import sys
+
+class Block:
+    def find_spec(self, name, path=None, target=None):
+        if name.split(".")[0] in ("jax", "jaxlib", "darknet_tpu"):
+            raise ImportError(f"blocked: {name}")
+        return None
+
+sys.meta_path.insert(0, Block())
+import warnings
+import numpy as np
+import torch
+torch.set_num_threads(2)
+from darknet_tpu_torch import model_zoo
+from darknet_tpu_torch.dryrun import dryrun_multichip
+from darknet_tpu_torch.graph.builder import build_graph
+from darknet_tpu_torch.nn import params as paramlib
+from darknet_tpu_torch.parallel.mesh import grid_mesh
+from darknet_tpu_torch.parallel.pipeline import PipelineTrain
+from darknet_tpu_torch.parallel.spatial import (make_spatial_mesh,
+                                                make_spatial_train_step)
+from darknet_tpu_torch.parallel.tensor import gather, make_tp_train_step
+from darknet_tpu_torch.train.step import init_opt_state, make_train_step
+
+with warnings.catch_warnings():
+    warnings.simplefilter("ignore")
+    g = build_graph(model_zoo.yolov4_cfg(64, 64, batch=4, subdiv=1),
+                    train=True)
+p0 = paramlib.init_params(g, seed=0)
+x = np.random.default_rng(0).uniform(0, 1, (4, 64, 64, 3)).astype(np.float32)
+y = np.zeros((4, 4, 5), np.float32)
+y[:, 0] = [0.5, 0.5, 0.4, 0.4, 1]
+
+
+def fresh():
+    p = paramlib.train_params_to_torch(g, p0, "cpu")
+    return p, init_opt_state(g, p)
+
+
+p, o = fresh()
+_p, _o, ref, _m = make_train_step(g)(p, o, torch.from_numpy(x),
+                                     torch.from_numpy(y), 1e-3)
+costs = {}
+costs["pp"], _m = PipelineTrain(g, p0, ["cpu"] * 2, microbatches=1).step(
+    x, y, 1e-3)
+step, place = make_tp_train_step(g, grid_mesh({"dp": 2, "tp": 2},
+                                              device="cpu"))
+placed, opts, xt, yt = place(*fresh(), x, y)
+placed, opts, costs["tp"], _m = step(placed, opts, xt, yt, 1e-3)
+assert len(gather(placed)) == len(g.layers)
+p, o = fresh()
+_p, _o, costs["sp"], _m = make_spatial_train_step(
+    g, make_spatial_mesh(2, 2, device="cpu"))(p, o, torch.from_numpy(x),
+                                              torch.from_numpy(y), 1e-3)
+for k, c in costs.items():
+    assert abs(float(c) - float(ref)) <= 1e-4 * abs(float(ref)), (k, c, ref)
+out = dryrun_multichip(2, device="cpu")
+assert np.isfinite(out["cost"]) and np.isfinite(out["pp_cost"])
+bad = [m for m in sys.modules
+       if m.split(".")[0] in ("jax", "jaxlib", "darknet_tpu")]
+assert not bad, bad
+print("MODEL-PARALLEL-TRAIN", float(ref))
+"""
+
+
 def run_blocked(script, *args, site=None):
     """Run `script` with the repo on the path; `site`: a directory whose
     sitecustomize.py every process of the run loads first."""
@@ -596,6 +665,13 @@ def test_port_serves_and_trains_yolov1_with_jax_blocked():
 
 def test_model_parallel_serving_with_jax_blocked():
     assert "MODEL-PARALLEL" in run_blocked(BLOCKED_MODEL_PARALLEL)
+
+
+def test_model_parallel_training_with_jax_blocked():
+    """One step each of PipelineTrain, make_tp_train_step and
+    make_spatial_train_step on yolov4-64, and dryrun_multichip(2)."""
+    assert "MODEL-PARALLEL-TRAIN" in run_blocked(
+        BLOCKED_MODEL_PARALLEL_TRAIN)
 
 
 def test_tools_and_region_int8_with_jax_blocked():
