@@ -605,6 +605,4 @@ def _make_train_forward(graph, *, compute_dtype=None, train_act_dtype=None,
     forward.conv_pre = conv_pre
     forward.conv_out = conv_out
     forward.train_act_dtype = train_act_dtype
-    forward.region_plans = {}
-    forward.runners = {}
     return forward

@@ -223,6 +223,16 @@ def batch_mean_var(y, dims, group=None):
     return mean, var
 
 
+def sum_on(vals, home):
+    """The tensors `vals` (one a part, on any devices) summed in order on
+    `home`."""
+    total = None
+    for v in vals:
+        v = v.to(home, non_blocking=True)
+        total = v if total is None else total + v
+    return total
+
+
 def batch_mean_var_parts(ys, home):
     """`batch_mean_var` over the leading dims of every tensor in `ys`
     together (parts of one micro-batch, on any devices; a part may be
@@ -230,17 +240,10 @@ def batch_mean_var_parts(ys, home):
     differentiably.  Returns (mean, var) on `home`."""
     dims = tuple(range(ys[0].dim() - 1))
     n = sum(y.numel() // y.shape[-1] for y in ys)
-    total = None
-    for y in ys:
-        s = y.sum(dims).to(home, non_blocking=True)
-        total = s if total is None else total + s
-    mean = total / n
-    total = None
-    for y in ys:
-        s = (y - mean.to(y.device, non_blocking=True)).square().sum(dims)
-        s = s.to(home, non_blocking=True)
-        total = s if total is None else total + s
-    return mean, total / max(n - 1, 1)
+    mean = sum_on([y.sum(dims) for y in ys], home) / n
+    var = sum_on([(y - mean.to(y.device, non_blocking=True)).square()
+                  .sum(dims) for y in ys], home)
+    return mean, var / max(n - 1, 1)
 
 
 def train_keeps_lp(p, l, compute_dtype, res_dtype) -> bool:

@@ -565,9 +565,13 @@ class MeshTrain(SpatialForward):
                  train_act_dtype=None):
         from darknet_tpu_torch.nn.emit import HEAD_KINDS
 
-        super().__init__(graph, fwd=make_forward(
-            graph, train=True, compute_dtype=compute_dtype,
-            train_act_dtype=train_act_dtype))
+        # SpatialForward's fields for the training forward, which plans
+        # no region
+        self.graph, self.layers, self.region_of = graph, graph.layers, {}
+        self.fwd = make_forward(graph, train=True,
+                                compute_dtype=compute_dtype,
+                                train_act_dtype=train_act_dtype)
+        self.live = self.fwd.live
         if mesh.group is not None:
             raise NotImplementedError(
                 f"model-parallel training over {mesh}: meshes across "

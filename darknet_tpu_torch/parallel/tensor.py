@@ -336,10 +336,11 @@ def make_tp_train_step(graph, mesh: Mesh, *, axis: str = "tp",
     over it (`darknet_tpu/parallel/tensor.py:149-200`; the 3-axis step).
 
     place(params, opt_state, x=None, truths=None) -> (placed, opts[, x,
-    truths]): the port's training params (or unfolded numpy params) and
-    optimizer state split by `tp_param_specs`/`tp_opt_specs`' rule, one
-    list a shard, shard t on the device at (dp 0, sp 0, tp t), which
-    runs its optimizer; x and truths on the mesh's first device.
+    truths]): the port's training params (torch, `nn/params.
+    train_params_to_torch`) and optimizer state split by `tp_param_specs`/
+    `tp_opt_specs`' rule, one list a shard, shard t on the device at
+    (dp 0, sp 0, tp t), which runs its optimizer; x and truths on the
+    mesh's first device.
     step(placed, opts, x, truths, lr, generator=None) -> (placed, opts,
     cost, metrics), in place.  `gather(placed)` gives one params list
     back.
@@ -354,7 +355,6 @@ def make_tp_train_step(graph, mesh: Mesh, *, axis: str = "tp",
     Regions and the stem fold are off, as in the JAX package's tp step.
     The step equals `train/step.make_train_step(accum=...)`'s on the
     whole batch."""
-    from darknet_tpu_torch.parallel.pipeline import leaf_copies
     from darknet_tpu_torch.parallel.spatial import (MeshTrain,
                                                     mesh_train_step)
 
@@ -370,9 +370,6 @@ def make_tp_train_step(graph, mesh: Mesh, *, axis: str = "tp",
     inner = mesh_train_step(graph, ex, accum=accum)
 
     def place(params, opt_state, x=None, truths=None):
-        params = leaf_copies(graph, params, "cpu") if not any(
-            isinstance(v, torch.Tensor) for p in params
-            for v in p.values()) else params
         placed = shard_tp_train(graph, params, n_tp, ex.homes, grad=True)
         slots = {k: shard_tp_train(graph, v, n_tp, ex.homes, grad=False)
                  for k, v in opt_state.items() if isinstance(v, list)}
