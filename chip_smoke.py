@@ -73,7 +73,8 @@ Phases, each of which fails the run (non-zero exit) on any error:
          forces while the loss is unset; the bucket, s/iter and img/s
          over the 896 iterations after the profiled third, each loss, the
          peak memory, the loader's rate beside the step's, a profile of
-         the third iteration (device busy share, top kernels); finite
+         the third iteration (its CUDA activity: device busy share, top
+         kernels); finite
          losses, nonzero batches, non-empty truths,
          moved rolling statistics, nonzero momentum buffers and no kernel
          launch are required;
@@ -219,15 +220,17 @@ Phases, each of which fails the run (non-zero exit) on any error:
      (b) calibrated int8: the same, with 1 region and 91 int8 launches a
          request, and 1 region node and 91 int8_conv nodes in the
          exported graph;
-     (c) the artifact's img/s against eager's in 1 window of 20
+     (c) the artifact's img/s against eager's in 1 window of 10
          requests each way, in turns, one request each way in a trace,
          and the host time of one torch.ops int8_conv call against its
          binding's;
      (d) the C ABI twin built with gcc and native/capi/demo.c linked
          against it on the card (DTPU_DEVICE=cuda), the fixture
          yolov3-tiny cfg: test_capi's lines;
-     (e) the walkthrough twins 01-05 on the card at their test sizes (05
-         on a mesh naming the card twice: its ranks' weights equal).
+     (e) the walkthrough twins 01-05 on the card at their test sizes (01
+         for 3 of its test's 12 iterations; 05 on a mesh naming the card
+         twice: its ranks' weights equal); (d) and (e) run beside (a) and
+         (b) and end before (c).
      The kernels line gives the children's launches
      (`phase14_export_bf16_child`, `phase14_export_int8_child`).
  15. data parallelism (`--only parallel`; its own timing line),
@@ -253,7 +256,8 @@ Phases, each of which fails the run (non-zero exit) on any error:
          or score-order decision of NMS that the two requests' pre-NMS
          values take the other way, the score noise under bf16's own
          against f32); the mesh's img/s against
-         the unsharded (bf16, int8), 3 windows each way in turns;
+         the unsharded (bf16, int8), 2 windows of 10 requests each way in
+         turns;
      (c) `-mode valid -num_chips 2` through the CLI's main over 8 synth
          images on probe weights, the mesh's devices named cuda:0 twice
          (the card's one): 2 region launches a batch of 8, the one-device
@@ -283,8 +287,8 @@ Phases, each of which fails the run (non-zero exit) on any error:
      (e) dynamic int8 on a dp=2 mesh: every conv quantized with the
          whole batch's max|x|, kept differences traced;
      (f) bf16 img/s of the sp mesh (whole requests), tp (dp=2, tp=2) and
-         the pipeline (4 stages, 4 micro-batches) against unsharded, 3
-         windows of 20 each way in turns; one profiled request each way
+         the pipeline (4 stages, 4 micro-batches) against unsharded, 2
+         windows of 10 each way in turns; one profiled request each way
          (device busy share, device events a request).
      The kernels line gives their launches (`phase16_spatial_bf16`,
      `phase16_spatial_int8`, `phase16_tp_int8`, `phase16_pipeline_bf16`,
@@ -309,9 +313,8 @@ Phases, each of which fails the run (non-zero exit) on any error:
          bf16 steps part by the update's own size there);
      (d) the (dp=2, sp=2, tp=2) step, and `darknet_tpu_torch.dryrun.
          dryrun_multichip(8)` (yolov4-tiny-128);
-     (e) the 4x4 pipeline, (dp=2, tp=2), (dp=2, sp=2) and the 3D mesh:
-         step ms against the step without a mesh, 3 steps each way in
-         turns; one profiled step each way (device busy and idle share,
+     (e) the 4x4 pipeline: step ms against the step without a mesh, 2
+         steps each way in turns; one profiled step each way (device busy and idle share,
          device events, host kernel launches; the step without a mesh
          profiled once an accum); the peak memory of (a)-(d);
      (f) the params that the 4-stage pipeline (2 micro-batches) and
@@ -326,12 +329,46 @@ Phases, each of which fails the run (non-zero exit) on any error:
          trained ones).
      The kernels line gives the (dp=2, tp=2) params' launches
      (`phase17_trained_bf16`, `phase17_trained_int8`).
+ 18. the model-parallel meshes across processes (`--only
+     model_parallel_mp`; its own timing line): gloo ranks sharing the
+     card (`parallel.multihost.spawn`, `parallel.mesh.world_mesh`), one
+     world of 4 ranks; every rank counts its own launches
+     and holds each of them to its plain version (region: `region_plain`
+     on its own input; int8: bitwise):
+     (a) yolov4-608 b=8 on phase 16's probe weights, bf16 and calibrated
+         int8, over (dp=2, sp=2) through the Network's
+         `submit_detect_device(mesh=)` (each rank passes its dp block;
+         decode, top-k and NMS on each rank), (dp=2, tp=2) through
+         `make_tp_forward` and a
+         4-stage `PipelineForward` with 4 micro-batches: the launches by
+         rank (a region launch a slab; none under tp; one a micro-batch
+         on stage 0's rank), the world's launches the one-process mesh's
+         (sp, pipeline), and the served triples (sp, gathered over dp)
+         held bitwise to phase 16's one-process mesh of the same shape on
+         rank 0, the heads (tp, pipeline) bitwise or else within phase
+         16's bounds;
+     (b) phase 15's init at global batch 8, subdivisions 2, f32 (TF32
+         off, cuDNN's deterministic algorithms): one step each of the
+         4-stage pipeline with 4 micro-batches, (dp=2, tp=2) and (dp=2,
+         sp=2), held to phase 17's one-process step of the same mesh (bitwise, or else in phase 8
+         (a)'s form against the step without a mesh's response to a 1e-7
+         input change), every rank's cost the same; the pipeline's params
+         gathered and served once in bf16 (its region launch held);
+     (c) the sp and pipeline bf16 requests of (a) and the pipeline's
+         step against the one-process mesh, 2 each way in turns (rank 0's ms; the
+         one-process run on rank 0 alone), the last world run with the
+         host time in the exchanges clocked (the point-to-point and
+         collective calls of torch.distributed and the waits for posted
+         sends); the other steps' first ms against the one-process
+         mesh's beside (b).  Printed only.
+     The kernels line gives the launches by rank (`phase18_mp_sp_bf16`,
+     `phase18_mp_sp_int8`, `phase18_mp_pipeline_bf16`).
 
 `python3 chip_smoke.py --only video` (or `--only gaussian`, `--only v1`,
 `--only cli`, `--only export`, `--only parallel`, `--only
-model_parallel`, `--only model_parallel_train`) builds the kernels and
-runs phase 10 (11, 12, 13, 14, 15, 16, 17) alone (its last line is then
-not the contract's).
+model_parallel`, `--only model_parallel_train`, `--only
+model_parallel_mp`) builds the kernels and runs phase 10 (11, 12, 13,
+14, 15, 16, 17, 18) alone (its last line is then not the contract's).
 
 Weights are random (numpy, seed 0); the training images are drawn from a
 seed into a temporary directory; no file outside the checkout is read.
@@ -345,6 +382,7 @@ import shutil
 import subprocess
 import sys
 import tempfile
+import threading
 import time
 import warnings
 
@@ -1266,9 +1304,12 @@ def profiled_ms(fn, name=None):
     return sum(e.time_range.elapsed_us() for e in hit) / 1e3, len(hit)
 
 
-def trace_summary(fn, label, card, n=8):
+def trace_summary(fn, label, card, n=8, cpu=True):
     """fn() once in a profiler trace: device busy time, the idle share of
-    the device window, and the kernels that take the most time."""
+    the device window, and the kernels that take the most time.
+    cpu=False records the CUDA activity alone and reads the trace's raw
+    events (a training iteration's event tree takes longer to build than
+    the iteration)."""
     import collections
 
     import torch
@@ -1276,21 +1317,30 @@ def trace_summary(fn, label, card, n=8):
 
     from darknet_tpu_torch.utils.profiler import device_events
 
-    with profile(activities=[ProfilerActivity.CPU,
-                             ProfilerActivity.CUDA]) as prof:
+    acts = [ProfilerActivity.CPU] if cpu else []
+    with profile(activities=acts + [ProfilerActivity.CUDA]) as prof:
         fn()
         torch.cuda.synchronize()
     # the kernels and copies, not the profiler ranges' device spans
-    dev = device_events(prof.events())
+    if cpu:
+        dev = [(e.name, e.time_range.start, e.time_range.end)
+               for e in device_events(prof.events())]
+    else:
+        from torch.autograd import DeviceType
+
+        dev = [(e.name(), e.start_ns() / 1e3,
+                (e.start_ns() + e.duration_ns()) / 1e3)
+               for e in prof.profiler.kineto_results.events()
+               if e.device_type() == DeviceType.CUDA
+               and not e.is_user_annotation()]
     if not dev:
         print(f"{label} profile: no device events", flush=True)
         return None
-    busy = sum(e.time_range.elapsed_us() for e in dev) / 1e3
-    span = (max(e.time_range.end for e in dev)
-            - min(e.time_range.start for e in dev)) / 1e3
+    busy = sum(b - a for _n, a, b in dev) / 1e3
+    span = (max(b for _n, _a, b in dev) - min(a for _n, a, _b in dev)) / 1e3
     by = collections.Counter()
-    for e in dev:
-        by[e.name[:60]] += e.time_range.elapsed_us() / 1e3
+    for name, a, b in dev:
+        by[name[:60]] += (b - a) / 1e3
     top = "; ".join(f"{k} {v:.3f}" for k, v in by.most_common(n))
     print(f"{label} profile: {len(dev)} device events, busy "
           f"{busy:.3f} ms of a {span:.3f} ms window (idle "
@@ -2135,7 +2185,7 @@ def train_full(card, root):
                 trace_summary(lambda: res.append(step(params, opt, x, y, lr,
                                                       generator)),
                               f"train iteration {len(steps) + 1} ({hw})",
-                              card, 10)
+                              card, 10, cpu=False)
                 steps.append((hw, None))
                 return res[0]
             ev = [torch.cuda.Event(enable_timing=True) for _ in range(2)]
@@ -4315,7 +4365,7 @@ def cli_phase(card, root):
 # the rates of the artifact against eager serving (1 window of 20
 # requests each way, interleaved), the op dispatch's host cost, the C ABI
 # twin and the walkthrough twins at their test sizes
-EXPORT_RATE = dict(warmup=2, windows=1, requests=20)
+EXPORT_RATE = dict(warmup=2, windows=1, requests=10)
 EXPORT_ROUNDS = 1         # windows each way, eager and artifact in turns
 EXPORT_CHILD_REQUESTS = 2
 DISPATCH_CALLS = 200
@@ -4360,16 +4410,12 @@ def _start(*args, **kw):
     return proc
 
 
-def export_nodes(path) -> dict:
-    """Counts of the loaded artifact's op nodes: the port's ops, aten's
+def export_nodes(module) -> dict:
+    """Counts of a loaded artifact's op nodes (`module`: the program's
+    module, `load_exported_serving`'s): the port's ops, aten's
     convolutions, and every call ("call_function")."""
-    import torch
-
-    from darknet_tpu_torch.ops import library  # noqa: F401 (the ops)
-
-    ep = torch.export.load(path)
     out: dict = {}
-    for n in ep.graph.nodes:
+    for n in module.graph.nodes:
         t = str(n.target)
         if t.startswith(("darknet_tpu_torch.", "aten.conv")):
             out[t] = out.get(t, 0) + 1
@@ -4411,13 +4457,13 @@ def export_one(label, net, frames, root, n_q, children):
     net.export_serving(art, batch=SERVE_BATCH)
     export_s = time.perf_counter() - t0
     size = os.path.getsize(art)
-    nodes = export_nodes(art)
-    n_region = nodes.get("darknet_tpu_torch.region.default", 0)
-    n_int8 = nodes.get("darknet_tpu_torch.int8_conv.default", 0)
     netmod._loaded.clear()
     t0 = time.perf_counter()
-    netmod.load_exported_serving(art)
+    module = netmod.load_exported_serving(art)[0]
     load_s = time.perf_counter() - t0
+    nodes = export_nodes(module)
+    n_region = nodes.get("darknet_tpu_torch.region.default", 0)
+    n_int8 = nodes.get("darknet_tpu_torch.int8_conv.default", 0)
     t0 = time.perf_counter()
     got = Network.run_exported_serving(art, frames)
     torch.cuda.synchronize()
@@ -4549,6 +4595,9 @@ def run_capi(root):
         env=env, cwd=root)
 
 
+WALKTHROUGH_ITERS = 3      # walkthrough 01's iterations (its test runs 12)
+
+
 def run_walkthroughs(root):
     """The walkthrough twins 01-05 on the card at their test sizes, in one
     workdir: 01, then 02-05 together (05 on a mesh naming the card twice:
@@ -4569,8 +4618,9 @@ def run_walkthroughs(root):
         return out
 
     t0 = time.perf_counter()
-    outs = {"01": done("01", start("01_train_synthetic.py", "--iters", "12",
-                                   "--images", "48"))}
+    outs = {"01": done("01", start("01_train_synthetic.py", "--iters",
+                                   str(WALKTHROUGH_ITERS), "--images",
+                                   "48"))}
     procs = {"02": start("02_detect.py", "--thresh", "0.01"),
              "03": start("03_serving_export.py", "--batch", "4"),
              "04": start("04_video_tracking.py"),
@@ -4666,14 +4716,58 @@ def export_phase(card, root):
     print(f"export setup (probe weights, two networks, calibration): "
           f"{time.perf_counter() - t0:.1f} s", flush=True)
 
+    # (d), (e): the C ABI twin and the walkthrough twins start first and
+    # run beside (a) and (b) (their own processes; the exports are host
+    # work on one core), and end before (c)'s rates, which want a quiet
+    # host
+    t_de = time.perf_counter()
+    demo = run_capi(root)
+    walk: dict = {}
+
+    def walkthroughs():
+        try:
+            run_walkthroughs(root)
+        except BaseException as e:  # re-raised in the phase's thread
+            walk["error"] = e
+        walk["s"] = time.perf_counter() - t_de
+
+    walker = threading.Thread(target=walkthroughs)
+    walker.start()
+
     # (a), (b): export, save, reload here; each child starts at once and
-    # runs beside what follows up to the rates, which want a quiet host
+    # runs beside what follows up to the rates
+    t0 = time.perf_counter()
     children: dict = {}
     res = {"bf16": export_one("bf16", bf16, frames, root, 0, children),
            "int8": export_one("int8", q, frames, root, INT8_CONVS,
                               children)}
     for label, n in (("bf16", 0), ("int8", INT8_CONVS)):
         res[label]["child"] = finish_child(label, children, res[label], n)
+    print(f"export (a), (b) in {time.perf_counter() - t0:.1f} s",
+          flush=True)
+    walker.join()
+    if "error" in walk:
+        raise walk["error"]
+    stdout, stderr = demo.communicate(timeout=600)
+    require(demo.returncode == 0, f"C demo failed: {stderr[-2000:]}")
+    n = int([ln for ln in stdout.splitlines()
+             if ln.startswith("detections:")][0].split()[1])
+    for want in ("net 416x416x3 classes=80", "json head:", "weights saved",
+                 "ok"):
+        require(want in stdout, f"C demo prints {want!r}: {stdout[-800:]}")
+    require(n > 0, "the C demo detects")
+    # the unchanged client saves to a fixed /tmp path, which the twin's
+    # build sends to DTPU_DEMO_WEIGHTS (`run_capi`)
+    saved = os.path.join(root, "dtpu_demo.weights")
+    require(os.path.getsize(saved) > 0, "the C demo saved weights")
+    print("C demo (native/capi/demo.c against libdarknet_tpu_torch_c.so, "
+          "DTPU_DEVICE=cuda): " + " | ".join(
+              ln for ln in stdout.splitlines()
+              if ln.startswith(("net ", "detections:", "tracks:", "ok"))),
+          flush=True)
+    print(f"export (d), (e) beside (a), (b) in {walk['s']:.1f} s",
+          flush=True)
+    t0 = time.perf_counter()
 
     # (c) the artifact's rate against eager's, interleaved, same frames
     from darknet_tpu_torch.nn import network as netmod
@@ -4715,27 +4809,8 @@ def export_phase(card, root):
           f"(b=1 8x8x128 -> 128 1x1, {DISPATCH_CALLS} calls)", flush=True)
     del bf16, q
     torch.cuda.empty_cache()
+    print(f"export (c) in {time.perf_counter() - t0:.1f} s", flush=True)
 
-    # (d), (e): the C ABI twin and the walkthrough twins, side by side
-    demo = run_capi(root)
-    run_walkthroughs(root)
-    stdout, stderr = demo.communicate(timeout=600)
-    require(demo.returncode == 0, f"C demo failed: {stderr[-2000:]}")
-    n = int([ln for ln in stdout.splitlines()
-             if ln.startswith("detections:")][0].split()[1])
-    for want in ("net 416x416x3 classes=80", "json head:", "weights saved",
-                 "ok"):
-        require(want in stdout, f"C demo prints {want!r}: {stdout[-800:]}")
-    require(n > 0, "the C demo detects")
-    # the unchanged client saves to a fixed /tmp path, which the twin's
-    # build sends to DTPU_DEMO_WEIGHTS (`run_capi`)
-    saved = os.path.join(root, "dtpu_demo.weights")
-    require(os.path.getsize(saved) > 0, "the C demo saved weights")
-    print("C demo (native/capi/demo.c against libdarknet_tpu_torch_c.so, "
-          "DTPU_DEVICE=cuda): " + " | ".join(
-              ln for ln in stdout.splitlines()
-              if ln.startswith(("net ", "detections:", "tracks:", "ok"))),
-          flush=True)
     return {label: {"child": res[label]["child"], "rates": rates[label],
                     "bytes": res[label]["bytes"]}
             for label in ("bf16", "int8")}
@@ -4748,9 +4823,9 @@ PAR_DEVICES = ("cuda:0", "cuda:0")
 PAR_BATCH = 8
 PAR_ACCUM = 2
 PAR_SEED = 15
-PAR_TIMED_STEPS = 5
-PAR_RATE = dict(warmup=2, windows=1, requests=20)
-PAR_ROUNDS = 3            # windows each way, unsharded and mesh in turns
+PAR_TIMED_STEPS = 2
+PAR_RATE = dict(warmup=2, windows=1, requests=10)
+PAR_ROUNDS = 2            # windows each way, unsharded and mesh in turns
 PAR_VALID_IMAGES = 8
 
 
@@ -5442,8 +5517,8 @@ MP_DEVICE = "cuda:0"
 MP_SPATIAL = ((1, 2), (2, 2))            # (dp, sp) meshes naming the card
 MP_TENSOR = ((1, 2), (2, 2))             # (dp, tp)
 MP_PIPELINE = ((2, 2), (2, 4), (4, 2), (4, 4))   # (stages, micro-batches)
-MP_RATE = dict(warmup=2, windows=1, requests=20)
-MP_ROUNDS = 3            # windows each way, unsharded and sharded in turns
+MP_RATE = dict(warmup=2, windows=1, requests=10)
+MP_ROUNDS = 2            # windows each way, unsharded and sharded in turns
 
 
 class region_records:
@@ -5953,7 +6028,7 @@ MPT_PIPELINE = ((2, 2), (2, 4), (4, 2), (4, 4))  # (stages, micro-batches)
 MPT_TENSOR = ((1, 2), (2, 2))                     # (dp, tp)
 MPT_SPATIAL = ((1, 2), (2, 2))                    # (dp, sp)
 MPT_3D = (2, 2, 2)                                # (dp, sp, tp)
-MPT_TIMED = 3             # steps each way, unsharded and sharded in turns
+MPT_TIMED = 2             # steps each way, unsharded and sharded in turns
 MPT_SERVED = (4, 2)       # the pipeline (stages, micro-batches) served in (f)
 
 
@@ -6364,13 +6439,15 @@ def phase_model_parallel_train(card):
           f"{time.perf_counter() - t_phase:.1f} s, peak "
           f"{', '.join(f'{v:.2f}' for v in base_peak.values())} GiB",
           flush=True)
-    trained, peaks = {}, {}
+    trained, peaks, shared = {}, {}, {}
     for label, (accum, make) in steps.items():
         t0 = time.perf_counter()
         torch.cuda.synchronize()
         torch.cuda.reset_peak_memory_stats()
         run = make(x, y)
-        got = run()
+        # deterministic, as phase 18 takes these steps as its references
+        with deterministic():
+            got = run()
         torch.cuda.synchronize()
         peaks[label] = torch.cuda.max_memory_allocated() / 2 ** 30
         ref, eps = refs[accum]
@@ -6386,6 +6463,8 @@ def phase_model_parallel_train(card):
         if label in (f"pipeline {MPT_SERVED[0]} stages x {MPT_SERVED[1]}",
                      "tp dp=2 tp=2"):
             trained[label] = got[0]
+        if label in {v[1] for v in MPW_TRAIN.values()}:
+            shared[label] = got
         del run
         torch.cuda.empty_cache()
     # (c) bf16/act16 on (dp=2, sp=2) against the unsharded bf16/act16 step
@@ -6402,12 +6481,12 @@ def phase_model_parallel_train(card):
             "dryrun_multichip(8): finite costs")
     print(f"(d) dryrun_multichip(8) over {dry['mesh']} ({card}): "
           f"{time.perf_counter() - t0:.1f} s", flush=True)
-    times = {k: steps[k] for k in ("pipeline 4 stages x 4",
-                                   "tp dp=2 tp=2", "sp dp=2 sp=2",
-                                   "3D dp=2 sp=2 tp=2")}
+    times = {k: steps[k] for k in ("pipeline 4 stages x 4",)}
     t0 = time.perf_counter()
     out = {"times": mpt_times(card, g, p0, x, y, times, peaks),
-           "peaks": peaks, "base_peaks": base_peak}
+           "peaks": peaks, "base_peaks": base_peak,
+           "shared": {"steps": shared,
+                      "eps": {a: r[1] for a, r in refs.items()}}}
     print(f"(e) in {time.perf_counter() - t0:.1f} s", flush=True)
     t0 = time.perf_counter()
     root = tempfile.mkdtemp(prefix="chip_smoke_mpt_")
@@ -6424,6 +6503,584 @@ def phase_model_parallel_train(card):
     return out
 
 
+MPW_DEVICES = ("cuda:0",) * 4      # phase 18's gloo ranks, sharing the card
+MPW_TIMED = 2            # (c): world and one-process runs each, in turns
+MPW_SPAWN_S = 900
+MPW_SERVE = {            # (a): label -> the grid's shape
+    "sp": {"dp": 2, "sp": 2}, "tp": {"dp": 2, "tp": 2}, "pipe": {"pp": 4}}
+MPW_MB = 4               # the pipeline's micro-batches
+MPW_TRAIN = {            # (b): label -> (grid shape, phase 17's label)
+    "pipeline": ({"pp": 4}, "pipeline 4 stages x 4"),
+    "tp": ({"dp": 2, "tp": 2}, "tp dp=2 tp=2"),
+    "sp": ({"dp": 2, "sp": 2}, "sp dp=2 sp=2")}
+MPW_TIMED_STEPS = ("pipeline",)          # (c)'s steps in turns
+MPW_TIMED_SERVE = ("sp", "pipe")         # (c)'s requests in turns
+
+
+class exchange_clock:
+    """Inside the block, the host seconds this process spends in the
+    exchanges: torch.distributed's point-to-point and collective calls
+    and `ops/collective.flush` (waiting for posted sends)."""
+
+    NAMES = ("recv", "isend", "all_reduce", "all_gather",
+             "all_gather_object", "barrier")
+
+    def __enter__(self):
+        import torch.distributed as dist
+
+        from darknet_tpu_torch.ops import collective
+
+        self.s, self.n = 0.0, 0
+        self.saved = [(dist, k, getattr(dist, k)) for k in self.NAMES] + \
+            [(collective, "flush", collective.flush)]
+        for mod, k, fn in self.saved:
+            setattr(mod, k, self._timed(fn))
+        return self
+
+    def _timed(self, fn):
+        def call(*a, **kw):
+            t0 = time.perf_counter()
+            try:
+                return fn(*a, **kw)
+            finally:
+                self.s += time.perf_counter() - t0
+                self.n += 1
+        return call
+
+    def __exit__(self, *exc):
+        for mod, k, fn in self.saved:
+            setattr(mod, k, fn)
+
+
+def mpw_launches(fn, label, init):
+    """`mp_launches` in one rank of a world: fn() once with this rank's
+    region and int8 launches recorded and counted, each region launch
+    held to its plain version on its own input, each int8 launch bitwise
+    its plain version; (result, (region, int8), worst, input heights)."""
+    import torch
+
+    from darknet_tpu_torch.ops import quant_matmul as qm
+    from darknet_tpu_torch.ops.cuda import fused_region as kfr
+
+    torch.cuda.synchronize()
+    with region_records() as rr, int8_records() as ir:
+        kfr.launches = qm.launches = 0
+        with torch.inference_mode():
+            out = fn()
+        torch.cuda.synchronize()
+        launches = (kfr.launches, qm.launches)
+    with torch.inference_mode():
+        worst, ok, heights = rr.held_to_plain(init)
+        q_eq, q_n = ir.bitwise_to_plain()
+    require(ok, f"{label}: every region launch within its plain version's "
+            f"tolerance (worst {worst:.3g} of the scale)")
+    require(q_eq == q_n == launches[1], f"{label}: every int8 launch "
+            f"bitwise its plain version ({q_eq} of {q_n}, {launches[1]} "
+            f"counted)")
+    return out, launches, worst, heights
+
+
+def mpw_turns(world_fn, one_fn, rank, group):
+    """(c): world_fn() (every rank of `group`) and one_fn() (rank 0 alone,
+    the others waiting) MPW_TIMED times each in turns: (rank 0's ms of
+    each, and the last world run's exchanges: their ms and calls)."""
+    import torch
+    import torch.distributed as dist
+
+    ms = {"world": [], "one": []}
+    ex = None
+    for i in range(MPW_TIMED):
+        for way in ("world", "one")[::1 if i % 2 == 0 else -1]:
+            torch.cuda.synchronize()
+            dist.barrier(group=group)
+            t0 = time.perf_counter()
+            if way == "world":
+                with exchange_clock() as clk:
+                    world_fn()
+                    torch.cuda.synchronize()
+                ex = (clk.s * 1e3, clk.n)
+            elif rank == 0:
+                one_fn()
+            torch.cuda.synchronize()
+            ms[way].append((time.perf_counter() - t0) * 1e3)
+            dist.barrier(group=group)
+    return {"ms": ms, "exchanges": ex}
+
+
+def mpw_serve(rank, root, init):
+    """Phase 18 (a): yolov4-608 b=8 on phase 16's probe weights, bf16 and
+    calibrated int8, through (dp=2, sp=2) of the Network's
+    submit_detect_device (each rank passes its dp block; the served
+    triples gathered over dp), (dp=2, tp=2) of make_tp_forward and the
+    4-stage PipelineForward; rank 0 then runs phase 16's one-process mesh
+    of each shape and holds the world's triple (sp) or heads to it.  (c):
+    the bf16 requests' ms against the one-process mesh's, in turns
+    (MPW_TIMED_SERVE)."""
+    import torch
+
+    from darknet_tpu_torch import Network
+    from darknet_tpu_torch.parallel.mesh import world_mesh
+    from darknet_tpu_torch.parallel.multihost import make_global_batch
+    from darknet_tpu_torch.parallel.pipeline import PipelineForward
+    from darknet_tpu_torch.parallel.spatial import make_spatial_mesh
+    from darknet_tpu_torch.parallel.tensor import (make_tp_forward,
+                                                   make_tp_mesh)
+
+    meshes = {k: world_mesh(v, devices=list(MPW_DEVICES))
+              for k, v in MPW_SERVE.items()}
+    frames = np.load(os.path.join(root, "frames.npy"))
+    cfg, weights = (os.path.join(root, n) for n in ("yolov4.cfg",
+                                                    "probe.weights"))
+    nets = {}
+    with warnings.catch_warnings():
+        warnings.simplefilter("ignore")
+        for label in ("bf16", "int8"):
+            nets[label] = Network.from_cfg(cfg, weights=weights,
+                                           int8=label == "int8",
+                                           compute_dtype=torch.bfloat16,
+                                           device=DEVICE)
+    nets["int8"].load_calibration(os.path.join(root, "int8.cache"))
+    g = nets["bf16"].graph
+    ones = {"sp": make_spatial_mesh(2, 2, devices=[MP_DEVICE] * 4),
+            "tp": make_tp_mesh(2, 2, devices=[MP_DEVICE] * 4)}
+    x = torch.from_numpy(frames)
+    per = SERVE_BATCH // 2
+
+    def paths(net):
+        m = meshes["sp"]
+        b = m.coords["dp"]
+        cd = net.compute_dtype
+        tp_w = make_tp_forward(g, meshes["tp"], compute_dtype=cd,
+                               decode=False)
+        tp_1 = make_tp_forward(g, ones["tp"], compute_dtype=cd,
+                               decode=False)
+        pf_w = PipelineForward(g, net.params, mesh=meshes["pipe"],
+                               compute_dtype=cd, microbatches=MPW_MB)
+        pf_1 = PipelineForward(g, net.params, [MP_DEVICE] * 4,
+                               compute_dtype=cd, microbatches=MPW_MB)
+
+        def sp_w():
+            triple = net.submit_detect_device(x[b * per:(b + 1) * per],
+                                              mesh=m)
+            return [make_global_batch(m, t, "dp") for t in triple]
+
+        def sp_1():
+            return list(net.submit_detect_device(x, mesh=ones["sp"]))
+        return {"sp": (sp_w, sp_1), "tp": (lambda: tp_w(net.params, x),
+                                           lambda: tp_1(net.params, x)),
+                "pipe": (lambda: pf_w(x), lambda: pf_1(x))}
+
+    out, f32 = {}, None
+    for label, net in nets.items():
+        for name, (world, one) in paths(net).items():
+            heads, launches, worst, heights = mpw_launches(
+                world, f"rank {rank} {name} {label}", init)
+            rec = {"launches": launches, "worst": worst,
+                   "heights": heights}
+            if rank == 0:
+                from darknet_tpu_torch.ops import quant_matmul as qm
+                from darknet_tpu_torch.ops.cuda import fused_region as kfr
+
+                kfr.launches = qm.launches = 0
+                with torch.inference_mode():
+                    want = one()
+                torch.cuda.synchronize()
+                rec["one_launches"] = (kfr.launches, qm.launches)
+                same = len(heads) == len(want) and all(
+                    torch.equal(a, b) for a, b in zip(heads, want))
+                rec["bitwise"] = same
+                if name == "sp":
+                    # the served triple: bitwise, as the slabs' heads are
+                    rec["gap"] = [(float((a.float() - b.float()).abs().max()),
+                                   0.0) for a, b in zip(heads, want)]
+                    rec["within"] = (same, "the served triple")
+                else:
+                    rec["gap"] = head_gap(heads, want)
+                if not same and name != "sp":
+                    if f32 is None:
+                        with warnings.catch_warnings():
+                            warnings.simplefilter("ignore")
+                            fn = Network.from_cfg(cfg, weights=weights,
+                                                  device=DEVICE)
+                        with torch.inference_mode():
+                            f32 = fn._fwd(fn.forward_params,
+                                          x.to(DEVICE))["heads"]
+                        del fn
+                    rec["within"] = heads_ok(label, heads, want, f32)
+                rec["finite"] = all(bool(torch.isfinite(h).all())
+                                    for h in heads)
+            out[f"{name} {label}"] = rec
+    # (c) the bf16 requests against the one-process mesh's, in turns
+    times = {}
+    group = meshes["sp"].group
+    for name, (world, one) in paths(nets["bf16"]).items():
+        if name in MPW_TIMED_SERVE:
+            with torch.inference_mode():
+                times[name] = mpw_turns(world, one, rank, group)
+    return out, times
+
+
+def mpw_state(g, mesh, kind, obj):
+    """(params, momentum) of a world step, numpy, whole on every rank."""
+    import torch.distributed as dist
+
+    from darknet_tpu_torch.nn import params as paramlib
+    from darknet_tpu_torch.parallel.tensor import gather, gather_opt
+
+    if kind == "pipeline":
+        own = {i: {k: v.detach().cpu() for k, v in u.items()} for i, u in
+               enumerate(obj.stages[obj.stage]["opt"]["u"]) if u}
+        every = [None] * len(obj.ranks)
+        dist.all_gather_object(every, own, group=obj.group)
+        u = [{} for _ in g.layers]
+        for d in every:
+            for i, v in d.items():
+                u[i] = u[i] or v
+        return (paramlib.train_params_to_numpy(g, obj.gather_params()),
+                paramlib.train_params_to_numpy(g, u))
+    placed, opts = obj
+    if kind == "sp":
+        return (paramlib.train_params_to_numpy(g, placed[0]),
+                paramlib.train_params_to_numpy(g, opts[0]["u"]))
+    return (paramlib.train_params_to_numpy(g, gather(placed, mesh=mesh,
+                                                     graph=g)),
+            paramlib.train_params_to_numpy(
+                g, gather_opt(opts, mesh=mesh, graph=g)["u"]))
+
+
+def mpw_train(rank, root):
+    """Phase 18 (b): one step of each MPW_TRAIN kind from phase 15's init
+    at global batch 8, subdivisions 2 (the pipeline: 4 micro-batches),
+    f32 with TF32 off and cuDNN's deterministic algorithms, over the 4
+    ranks; its ms on rank 0 (synchronised); rank
+    0 takes phase 17's one-process step of the same mesh (its ms beside)
+    and holds the world's to it (bitwise, else phase 8 (a)'s form
+    against the step without a mesh and its response to a 1e-7 input
+    change).  The pipeline's params, gathered, are served once in bf16
+    (rank 0).  (c) for MPW_TIMED_STEPS: step ms against the one-process
+    mesh's, in turns."""
+    import torch
+
+    from darknet_tpu_torch.nn import params as paramlib
+    from darknet_tpu_torch.parallel.mesh import world_mesh
+    from darknet_tpu_torch.parallel.pipeline import PipelineTrain
+    from darknet_tpu_torch.parallel.spatial import make_spatial_train_step
+    from darknet_tpu_torch.parallel.tensor import make_tp_train_step
+    from darknet_tpu_torch.train.step import init_opt_state
+
+    cfg_text = par_train_cfg()
+    g = quiet_graph(cfg_text, train=True)
+    p0 = paramlib.init_params(g, seed=0)
+    x, y = train_batch(g, PAR_BATCH, PAR_SEED)
+    xt, yt = torch.from_numpy(x).to(DEVICE), torch.from_numpy(y).to(DEVICE)
+    lr = g.net.lr
+    one_steps = mpt_steps(g, p0) if rank == 0 else {}
+    # phase 17's one-process steps and yardsticks where it ran first
+    shared = {"steps": {}, "eps": {}}
+    if rank == 0 and os.path.exists(os.path.join(root, "phase17.pkl")):
+        import pickle
+
+        with open(os.path.join(root, "phase17.pkl"), "rb") as f:
+            shared = pickle.load(f)
+    out, times, trained, eps = {}, {}, None, shared["eps"]
+    for kind, (shape, label) in MPW_TRAIN.items():
+        n = int(np.prod(list(shape.values())))
+        mesh = world_mesh(shape, devices=list(MPW_DEVICES))
+
+        def make():
+            if kind == "pipeline":
+                pt = PipelineTrain(g, p0, mesh=mesh, microbatches=MPW_MB)
+                return pt, lambda: pt.step(xt, yt, lr)[0]
+            p = paramlib.train_params_to_torch(g, p0, DEVICE)
+            o = init_opt_state(g, p)
+            if kind == "sp":
+                step = make_spatial_train_step(g, mesh, accum=PAR_ACCUM)
+                return ([p], [o]), lambda: step(p, o, xt, yt, lr)[2]
+            step, place = make_tp_train_step(
+                g, mesh, sp_axis="sp" if "sp" in shape else None,
+                accum=PAR_ACCUM)
+            placed, opts = place(p, o)
+            return (placed, opts), lambda: step(placed, opts, xt, yt, lr)[2]
+
+        with deterministic():
+            obj, step = make()
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            cost = float(step())
+            rec = {"ms": (time.perf_counter() - t0) * 1e3, "cost": cost,
+                   "ranks": n}
+            params, u = mpw_state(g, mesh, kind, obj)
+        if kind == "pipeline":
+            trained = params
+        if rank == 0:
+            ref = shared["steps"].get(label)
+            rec["one_ms"] = None
+            if ref is None:
+                with deterministic():
+                    run = one_steps[label][1](x, y)
+                    torch.cuda.synchronize()
+                    t0 = time.perf_counter()
+                    ref = run()
+                    rec["one_ms"] = (time.perf_counter() - t0) * 1e3
+                del run
+            same = cost == ref[2] and all(
+                np.array_equal(a[k], b[k]) for a, b in zip(params, ref[0])
+                for k in b)
+            rec.update(bitwise=same, one_cost=ref[2])
+            if not same:
+                accum = MPW_MB if kind == "pipeline" else PAR_ACCUM
+                if accum not in eps:
+                    noise = np.random.default_rng(99).standard_normal(
+                        x.shape)
+                    x_eps = (x * (1 + 1e-7 * noise)).astype(np.float32)
+                    with deterministic():
+                        eps[accum] = mpt_unsharded(g, p0, accum, x_eps, y)
+                rec["held"] = (ref, eps[accum])
+                rec["got"] = (params, u, cost)
+        out[kind] = rec
+        if kind in MPW_TIMED_STEPS:
+            with deterministic():
+                one = one_steps[label][1](x, y).step if rank == 0 else None
+                times[kind] = mpw_turns(step, one, rank, mesh.group)
+        del obj, step
+        torch.cuda.empty_cache()
+    served = None
+    if trained is not None and rank == 0:
+        served = mpw_serve_trained(root, cfg_text, trained)
+    return out, times, served
+
+
+def mpw_serve_trained(root, cfg_text, trained):
+    """The pipeline-trained params folded and served b=8 in bf16 through
+    the Network: (region launches, worst against region_plain, finite)."""
+    import torch
+
+    from darknet_tpu_torch import Network
+    from darknet_tpu_torch.nn import params as paramlib
+    from darknet_tpu_torch.weights import io as wio
+
+    cfg = os.path.join(root, "yolov4-train.cfg")
+    with open(cfg, "w") as f:
+        f.write(cfg_text)
+    g = quiet_graph(cfg_text)
+    path = os.path.join(root, "trained.weights")
+    wio.save_weights(g, trained, path)
+    with warnings.catch_warnings():
+        warnings.simplefilter("ignore")
+        net = Network.from_cfg(cfg, weights=path,
+                               compute_dtype=torch.bfloat16, device=DEVICE)
+    frames = np.load(os.path.join(root, "frames.npy"))
+    xt = torch.from_numpy(frames).to(DEVICE)
+    heads, launches, worst, _h = mpw_launches(
+        lambda: net._fwd(net.forward_params, xt)["heads"],
+        "pipeline-trained bf16", mpw_init(g))
+    return launches, worst, all(bool(torch.isfinite(h).all()) for h in heads)
+
+
+def mpw_init(g):
+    """Phase 1's seeded bf16 params of `g`, for the region kernel's check
+    on each launch's own input (`region_records.held_to_plain`)."""
+    import torch
+
+    from darknet_tpu_torch.nn import params as paramlib
+
+    return {torch.bfloat16: paramlib.params_to_torch(
+        g, paramlib.fuse_conv_batchnorm(
+            g, paramlib.init_params(g, seed=SERVE_PX)), DEVICE,
+        torch.bfloat16)}
+
+
+def mpw_rank(rank, root):
+    """A rank of phase 18's world of 4 gloo ranks on the card: (a), (b)
+    and (c).  Each rank writes what it recorded to `mpw_<rank>.pkl`; rank
+    0 also the comparisons."""
+    import pickle
+
+    import torch
+
+    t_in = time.perf_counter()
+    g = quiet_graph(open(os.path.join(root, "yolov4.cfg")).read())
+    out = {}
+    out["serve"], out["serve_times"] = mpw_serve(rank, root, mpw_init(g))
+    torch.cuda.empty_cache()
+    out["train"], out["train_times"], out["served"] = mpw_train(rank, root)
+    out["s"] = time.perf_counter() - t_in
+    out["peak_gib"] = torch.cuda.max_memory_allocated() / 2 ** 30
+    with open(os.path.join(root, f"mpw_{rank}.pkl"), "wb") as f:
+        pickle.dump(out, f)
+
+
+def mpw_setup(root):
+    """Phase 16's probe weights and calibration of yolov4-608, written to
+    `root` (yolov4.cfg, probe.weights, int8.cache, frames.npy)."""
+    import torch
+
+    from darknet_tpu_torch import Network, model_zoo
+    from darknet_tpu_torch.nn import params as paramlib
+    from darknet_tpu_torch.weights import io as wio
+
+    cfg_text = model_zoo.yolov4_cfg(SERVE_PX, SERVE_PX)
+    cfg = os.path.join(root, "yolov4.cfg")
+    with open(cfg, "w") as f:
+        f.write(cfg_text)
+    rng = np.random.default_rng(MP_SEED)
+    shape = (SERVE_BATCH, SERVE_PX, SERVE_PX, 3)
+    frames = rng.uniform(0, 1, shape).astype(np.float32)
+    np.save(os.path.join(root, "frames.npy"), frames)
+    g = quiet_graph(cfg_text)
+    probe = Network(g, paramlib.params_to_torch(
+        g, probe_params(g), DEVICE, torch.bfloat16),
+        compute_dtype=torch.bfloat16, device=DEVICE)
+    with torch.inference_mode():
+        raw = probe._fwd(probe.params,
+                         torch.from_numpy(frames).to(DEVICE))["raw_heads"]
+    bias = obj_bias_for([h.float() for h in raw], 0.25,
+                        PROBE_PASS * SERVE_BATCH)
+    del probe, raw
+    weights = os.path.join(root, "probe.weights")
+    wio.save_weights(g, unfolded(g, probe_params(g, obj_bias=bias)), weights)
+    with warnings.catch_warnings():
+        warnings.simplefilter("ignore")
+        q = Network.from_cfg(cfg, weights=weights, int8=True,
+                             compute_dtype=torch.bfloat16, device=DEVICE)
+    q.calibrate_int8([rng.uniform(0, 1, shape[1:]).astype(np.float32)
+                      for _ in range(INT8_CALIB_FRAMES)])
+    q.save_calibration(os.path.join(root, "int8.cache"))
+    del q
+    torch.cuda.empty_cache()
+
+
+def phase_model_parallel_mp(card, shared=None):
+    """Phase 18 (`--only model_parallel_mp`): the model-parallel meshes
+    across processes, gloo ranks sharing the card.  `shared`: phase 17's
+    one-process steps of the same meshes and its steps' 1e-7 yardsticks
+    (taken with cuDNN's deterministic algorithms, as phase 18's are),
+    which rank 0 then holds the world's steps to instead of taking them
+    again."""
+    import pickle
+
+    from darknet_tpu_torch.parallel.multihost import spawn
+
+    t_phase = time.perf_counter()
+    root = tempfile.mkdtemp(prefix="chip_smoke_mpw_")
+    try:
+        if shared is not None:
+            with open(os.path.join(root, "phase17.pkl"), "wb") as f:
+                pickle.dump(shared, f)
+        mpw_setup(root)
+        t0 = time.perf_counter()
+        print(f"phase 18: set-up in {t0 - t_phase:.1f} s", flush=True)
+        spawn(mpw_rank, list(MPW_DEVICES), root, timeout_s=MPW_SPAWN_S)
+        ranks = []
+        for r in range(len(MPW_DEVICES)):
+            with open(os.path.join(root, f"mpw_{r}.pkl"), "rb") as f:
+                ranks.append(pickle.load(f))
+        print(f"phase 18: the {len(MPW_DEVICES)}-rank world in "
+              f"{time.perf_counter() - t0:.1f} s (rank 0's run "
+              f"{ranks[0]['s']:.1f} s; peaks "
+              f"{[round(r['peak_gib'], 2) for r in ranks]} GiB)", flush=True)
+        out = mpw_report(card, ranks)
+    finally:
+        shutil.rmtree(root, ignore_errors=True)
+    print(f"phase 18 (model-parallel meshes across processes) in "
+          f"{time.perf_counter() - t_phase:.1f} s ({card})", flush=True)
+    return out
+
+
+def mpw_report(card, ranks):
+    """Phase 18's lines and checks from the ranks' records; the launches
+    by rank for the kernels line."""
+    out = {"serve": {}, "train": {}}
+    # (a)
+    for key, rec0 in ranks[0]["serve"].items():
+        name, label = key.split()
+        per = [r["serve"][key]["launches"] for r in ranks]
+        total = (sum(p[0] for p in per), sum(p[1] for p in per))
+        n_q = INT8_CONVS if label == "int8" else 0
+        if name == "pipe":
+            require(per[0][0] == MPW_MB and all(p[0] == 0 for p in per[1:]),
+                    f"{key}: a region launch a micro-batch on stage 0's "
+                    f"rank alone, got {[p[0] for p in per]}")
+            require(total[1] == n_q * MPW_MB, f"{key}: {n_q * MPW_MB} int8 "
+                    f"launches over the stages, got {total[1]}")
+        else:
+            want_r = 1 if name == "sp" else 0
+            require(all(p == (want_r, n_q) for p in per),
+                    f"{key}: {want_r} region and {n_q} int8 launches on "
+                    f"every rank, got {per}")
+        one = tuple(rec0["one_launches"])
+        if name != "tp":
+            require(total == one, f"{key}: the world's launches {total} "
+                    f"are the one-process mesh's {one}")
+        within = rec0.get("within", (True, "bitwise"))
+        print(f"(a) {key} over 4 ranks ({card}): launches by rank "
+              f"{per} (the one-process mesh {one}), each region launch "
+              f"held to region_plain on its own input (worst "
+              f"{max(r['serve'][key]['worst'] for r in ranks):.3g} of the "
+              f"scale; slabs of {rec0['heights']} rows on rank 0), each "
+              f"int8 launch bitwise; "
+              f"{'served triple' if name == 'sp' else 'heads'} against "
+              f"the one-process mesh: "
+              f"bitwise {rec0['bitwise']}, gap "
+              f"{[(round(a, 7), round(b, 7)) for a, b in rec0['gap']]} "
+              f"({within[1]})", flush=True)
+        require(rec0["finite"] and (rec0["bitwise"] or within[0]),
+                f"{key}: heads against the one-process mesh")
+        out["serve"][key] = per
+    # (b)
+    state0 = None
+    for kind, rec in ranks[0]["train"].items():
+        label = MPW_TRAIN[kind][1]
+        costs = [r["train"][kind]["cost"] for r in ranks[:rec["ranks"]]]
+        require(len(set(costs)) == 1, f"{kind}: every rank's cost is the "
+                f"same, got {costs}")
+        if not rec["bitwise"]:
+            if state0 is None:
+                state0 = mpw_state0()
+            ref, eps = rec["held"]
+            mpt_hold(f"18 (b) {label}", rec["got"], ref, eps, state0, card,
+                     f"; {rec['ranks']} ranks")
+        one = "phase 17's" if rec["one_ms"] is None else \
+            f"{rec['one_ms']:.1f} ms with its numpy state out"
+        print(f"(b) {label} over {rec['ranks']} ranks ({card}): step "
+              f"{rec['ms']:.1f} ms (rank 0, the first; the one-process "
+              f"mesh's first: {one}); cost "
+              f"{rec['cost']:.8g} against the one-process mesh's "
+              f"{rec['one_cost']:.8g}; bitwise {rec['bitwise']}",
+              flush=True)
+        out["train"][kind] = rec["bitwise"]
+    launches, worst, finite = ranks[0]["served"]
+    print(f"(b) the pipeline-trained params served bf16 b={SERVE_BATCH} "
+          f"({card}): {launches[0]} region launch (worst {worst:.3g} of the "
+          f"scale against region_plain), finite heads {finite}", flush=True)
+    require(launches[0] == 1 and finite, "pipeline-trained params served")
+    out["served"] = launches
+    # (c)
+    for what, key in (("bf16 request", "serve_times"),
+                      ("step", "train_times")):
+        for name, t in ranks[0][key].items():
+            ms = t["ms"]
+            ex_ms, n_ex = t["exchanges"]
+            med = {w: float(np.median(v)) for w, v in ms.items()}
+            print(f"(c) {name} {what} ms ({card}): {med['world']:.1f} over "
+                  f"4 ranks against {med['one']:.1f} on the one-process "
+                  f"mesh ({med['world'] / med['one']:.2f}x; "
+                  f"{[round(v, 1) for v in ms['world']]} and "
+                  f"{[round(v, 1) for v in ms['one']]}, in turns); rank "
+                  f"0's last world {what}: {ex_ms:.1f} ms "
+                  f"({ex_ms / ms['world'][-1]:.1%}) in {n_ex} exchange "
+                  f"calls", flush=True)
+    return out
+
+
+def mpw_state0():
+    """Phase 15's init as train_state0 gives it."""
+    from darknet_tpu_torch.nn import params as paramlib
+
+    g = quiet_graph(par_train_cfg(), train=True)
+    return train_state0(g, paramlib.init_params(g, seed=0))
+
+
 def main(argv=None) -> int:
     import argparse
 
@@ -6433,7 +7090,8 @@ def main(argv=None) -> int:
     parser.add_argument("--only", choices=["video", "gaussian", "v1", "cli",
                                            "export", "parallel",
                                            "model_parallel",
-                                           "model_parallel_train"],
+                                           "model_parallel_train",
+                                           "model_parallel_mp"],
                         help="build the kernels and run this phase alone "
                              "(no kernels line, no contract line)")
     only = parser.parse_args(argv).only
@@ -6460,7 +7118,8 @@ def main(argv=None) -> int:
          "v1": phase_v1, "cli": phase_cli,
          "export": phase_export, "parallel": phase_parallel,
          "model_parallel": phase_model_parallel,
-         "model_parallel_train": phase_model_parallel_train}[only](card)
+         "model_parallel_train": phase_model_parallel_train,
+         "model_parallel_mp": phase_model_parallel_mp}[only](card)
         print(card, flush=True)
         print(json.dumps({"only": only, "ok": True}), flush=True)
         return 0
@@ -6489,6 +7148,7 @@ def main(argv=None) -> int:
     mp = timed(phase_model_parallel, card)
     mpt = timed(phase_model_parallel_train, card)
     served = mpt["served"]
+    mpw = timed(phase_model_parallel_mp, card, mpt["shared"])["serve"]
 
     print(f"phase seconds ({card}): {json.dumps(seconds)}", flush=True)
     print(card, flush=True)
@@ -6519,7 +7179,11 @@ def main(argv=None) -> int:
             "phase16_pipeline_int8": mp["pipeline"][("int8", 4, 4)][0],
             "phase16_mesh_sp": mp["network"]["bf16"][0],
             "phase17_trained_bf16": served[("tp dp=2 tp=2", "bf16")][0],
-            "phase17_trained_int8": served[("tp dp=2 tp=2", "int8")][0]}}, {
+            "phase17_trained_int8": served[("tp dp=2 tp=2", "int8")][0],
+            "phase18_mp_sp_bf16": [r[0] for r in mpw["sp bf16"]],
+            "phase18_mp_sp_int8": [r[0] for r in mpw["sp int8"]],
+            "phase18_mp_pipeline_bf16":
+                [r[0] for r in mpw["pipe bf16"]]}}, {
         "name": "int8_gemm", "route": "cuda",
         "source": "darknet_tpu_torch/csrc/int8_gemm.cu",
         "replaces": "darknet_tpu/ops/pallas/quant_matmul.py:91",
@@ -6544,7 +7208,11 @@ def main(argv=None) -> int:
             "phase16_pipeline_int8": mp["pipeline"][("int8", 4, 4)][1],
             "phase16_mesh_sp": mp["network"]["bf16"][1],
             "phase17_trained_bf16": served[("tp dp=2 tp=2", "bf16")][1],
-            "phase17_trained_int8": served[("tp dp=2 tp=2", "int8")][1]}}]}),
+            "phase17_trained_int8": served[("tp dp=2 tp=2", "int8")][1],
+            "phase18_mp_sp_bf16": [r[1] for r in mpw["sp bf16"]],
+            "phase18_mp_sp_int8": [r[1] for r in mpw["sp int8"]],
+            "phase18_mp_pipeline_bf16":
+                [r[1] for r in mpw["pipe bf16"]]}}]}),
         flush=True)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

@@ -28,8 +28,8 @@ every batch; -mode valid and the multi-camera serving use a one-process
 mesh of N devices (`parallel/mesh`), with no mesh where the camera batch
 does not divide by N.  The devices are cuda:0..N-1 (N CPU entries with
 -device cpu).  A mesh of more cards than the machine has raises.  The
-model-parallel meshes (`parallel/{spatial,tensor,pipeline}.py`) are not
-CLI flags.
+model-parallel meshes (`parallel/{spatial,tensor,pipeline}.py`, in one
+process or over a world) are not CLI flags.
 """
 
 from __future__ import annotations

@@ -131,7 +131,9 @@ def validate_detector(net, img_paths, classes: int, iou_thresh: float = 0.5,
     MapResult is too.  Over a mesh that spans processes every rank
     predicts its block and matches the whole batch.  A mesh with an "sp"
     axis also splits each block's feature maps over its devices
-    (`parallel/spatial.py`), in one process."""
+    (`parallel/spatial.py`): in one process, or over the ranks of a grid
+    that spans the world, where each dp block's ranks predict the whole
+    batch (the Network serves the batch it is given over its sp ranks)."""
     det_kw = {} if mesh is None else {"mesh": mesh}
     # thresholds to MATCH at: the headline iou_thresh plus the (deduped)
     # sweep; map_by_iou/map_mean_iou report over exactly iou_thresholds

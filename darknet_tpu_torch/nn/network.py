@@ -39,7 +39,11 @@ whole (`parallel/multihost.make_global_batch`).  A mesh with an `sp` axis
 (`parallel/spatial.make_spatial_mesh`) also splits each block's feature
 maps over the block's sp devices, in one process that drives them all
 (`parallel/spatial.SpatialForward`); other axes are ignored, as the JAX
-package's serving shardings ignore them.  Where a served conv has int8
+package's serving shardings ignore them.  A ("dp", "sp") grid that spans
+processes (`parallel/mesh.world_mesh`, one slab a rank) serves a dp
+block's slabs across its sp ranks instead: each rank passes its dp
+block's images, runs its own slab in lockstep with the block's other
+ranks, and gets the block's outputs back, on every rank of the block.  Where a served conv has int8
 weights and no calibrated input scale, its scale is the whole batch's
 (the JAX package's over its mesh, where GSPMD takes max|x| over the
 global batch): the blocks then run in that lockstep executor, and over
@@ -455,12 +459,15 @@ class Network:
         if "dp" not in axes:
             raise ValueError(f"serving mesh needs a 'dp' axis, got {axes}")
         n_sp = mesh.shape.get("sp", 1)
-        if n_sp > 1 and mesh.group is not None:
-            raise NotImplementedError(
-                "a serving mesh with an 'sp' axis over processes is ROADMAP "
-                "A7c; the 'sp' axis runs in one process that drives every "
-                "device of the mesh")
         n_dp = mesh.shape["dp"]
+        if n_sp > 1 and mesh.group is not None:
+            if not mesh.spans_world:
+                raise ValueError(
+                    f"a mesh of shape {mesh.shape} with an 'sp' axis over "
+                    f"processes must be a grid that spans the world "
+                    f"(parallel.mesh.world_mesh)")
+            # over processes each rank passes its own dp block
+            return n_dp, n_sp
         if batch % n_dp:
             raise ValueError(f"batch {batch} not divisible by the mesh's "
                              f"dp size {n_dp}")
@@ -487,25 +494,32 @@ class Network:
         return any(sf._dynamic_int8(self.params, i, l)
                    for i, l in enumerate(self.graph.layers))
 
-    def _mesh_heads(self, blocks, group=None) -> list:
+    def _mesh_heads(self, blocks, group=None, lane=None) -> list:
         """The activated heads of each block, on its first device, through
         the lockstep executor: blocks are (devices, the block's batch on
-        the first) and each block's maps split over its devices."""
+        the first) and each block's maps split over its devices (over a
+        `lane` of ranks, `parallel/spatial.SpatialForward.heads`, this
+        rank's slab alone, its device named once)."""
         from darknet_tpu_torch.parallel.spatial import slab_rows
 
         split = []
         for devs, xs in blocks:
             unit = self._replica(devs[0])[1]
+            if lane is not None:
+                devs = lane.devs(devs[0])
             slabs = []
             for d, (lo, hi) in zip(devs, slab_rows(xs.shape[1],
                                                    len(devs))):
+                if d is None:
+                    slabs.append(None)
+                    continue
                 slab = xs[:, lo:hi].to(d)
                 if slab.dtype == torch.uint8:
                     slab = unit.to(d)[slab.int()]
                 slabs.append(slab)
             split.append((devs, slabs))
         return self._spatial().heads(lambda d: self._replica(d)[0], split,
-                                     group=group)
+                                     group=group, lane=lane)
 
     def _over_mesh(self, mesh, x, run, finish=None) -> tuple:
         """run(params, u8 table, block, heads) -> a tuple of tensors (or
@@ -525,16 +539,29 @@ class Network:
         per = x.shape[0] // n
         finish = finish or (lambda *outs: outs)
         lockstep = n_sp > 1 or self._dynamic_int8()
+        if mesh.group is not None and n_sp > 1:
+            from darknet_tpu_torch.parallel.spatial import world_lane
+
+            # x is this rank's dp block; its slabs run over the sp ranks
+            dev = mesh.devices[0]
+            xs = x.to(dev)
+            lane = world_lane(mesh, height=xs.shape[1])
+            heads = self._mesh_heads([((dev,), xs)], group=mesh.sub(
+                "dp", "sp"), lane=lane)[0]
+            return finish(*run(*self._replica(dev), xs, heads))
         if mesh.group is not None:
             from darknet_tpu_torch.parallel.multihost import \
                 make_global_batch
 
-            r, dev = mesh.rank, mesh.devices[0]
+            axis = "dp" if mesh.spans_world else None
+            r = mesh.coords["dp"] if axis else mesh.rank
+            dev = mesh.devices[0]
             xs = x[r * per:(r + 1) * per].to(dev)
             heads = self._mesh_heads([((dev,), xs)], group=mesh.group)[0] \
                 if lockstep else None
             outs = finish(*run(*self._replica(dev), xs, heads))
-            return tuple(None if o is None else make_global_batch(mesh, o)
+            return tuple(None if o is None else make_global_batch(mesh, o,
+                                                                  axis)
                          for o in outs)
         devs = [mesh.block(b, "sp") for b in range(n)]
         blocks = [x[b * per:(b + 1) * per].to(d[0])
@@ -615,7 +642,9 @@ class Network:
         raises ValueError before any work.  With `mesh` the batch splits
         over the mesh's devices (the module docstring); each block
         uploads to its own device and the triple is gathered on the
-        mesh's first."""
+        mesh's first.  Over a ("dp", "sp") grid that spans processes,
+        `images` are this rank's dp block and the block's triple comes
+        back on every rank of the block."""
         self._require_decoded_head()
         if isinstance(images, torch.Tensor):
             x = images if images.dim() == 4 else images[None]

@@ -202,12 +202,13 @@ def conv_block(x, p, l, *, compute_dtype=None, train: bool = False,
     return y
 
 
-def batch_mean_var(y, dims, group=None):
+def batch_mean_var(y, dims, group=None, count=None):
     """Batch statistics of mean_cpu/variance_cpu (blas.c:164-201): the
     mean over `dims`, the variance with Bessel's 1/(N-1).  `dims` are the
     leading dims; with a process `group` (sync-BN, `ops/collective`) the
     two passes sum over its ranks as well, differentiably, and N counts
-    every rank's share."""
+    every rank's share: `count` where given (shares of unequal size),
+    else this rank's times the group's size."""
     n = 1
     for d in dims:
         n *= y.shape[d]
@@ -216,7 +217,7 @@ def batch_mean_var(y, dims, group=None):
         mean = y.mean(dims, keepdim=True)
         var = (y - mean).square().sum(dims) / max(n - 1, 1)
         return mean.squeeze(dims), var
-    n *= ranks
+    n = count if count is not None else n * ranks
     mean = group_sum_grad(y.sum(dims), group) / n
     var = group_sum_grad((y - mean).square().sum(dims), group) / max(n - 1,
                                                                      1)
@@ -233,16 +234,25 @@ def sum_on(vals, home):
     return total
 
 
-def batch_mean_var_parts(ys, home):
+def batch_mean_var_parts(ys, home, group=None, count=None):
     """`batch_mean_var` over the leading dims of every tensor in `ys`
     together (parts of one micro-batch, on any devices; a part may be
-    empty): the two passes, each one sum over the parts, taken on `home`,
-    differentiably.  Returns (mean, var) on `home`."""
+    empty): the two passes, each one sum over the parts in order, taken on
+    `home`, then over the ranks of `group` where one is given,
+    differentiably (N: `count` where given, else the parts' rows times
+    the group's size).  Returns (mean, var) on `home`."""
     dims = tuple(range(ys[0].dim() - 1))
-    n = sum(y.numel() // y.shape[-1] for y in ys)
-    mean = sum_on([y.sum(dims) for y in ys], home) / n
-    var = sum_on([(y - mean.to(y.device, non_blocking=True)).square()
-                  .sum(dims) for y in ys], home)
+    ranks = group_size(group)
+    n = count if count is not None else \
+        sum(y.numel() // y.shape[-1] for y in ys) * ranks
+
+    def total(vals):
+        s = sum_on(vals, home)
+        return group_sum_grad(s, group) if ranks > 1 else s
+
+    mean = total([y.sum(dims) for y in ys]) / n
+    var = total([(y - mean.to(y.device, non_blocking=True)).square()
+                 .sum(dims) for y in ys])
     return mean, var / max(n - 1, 1)
 
 

@@ -29,12 +29,13 @@ forward sums (s1, s2) over the group at once.  The backward sums its
 per-channel s1 and s2 over the group before it forms dy, and returns the
 rank's own dgamma and dbeta, which the step's gradient sum then adds up.
 
-Parts (model parallelism in one process, `parallel/spatial.MeshTrain`):
-the micro-batch may come as several parts on several devices.  The one
-autograd node takes them all, sums every statistic over the parts on
-scales' device, and in the backward sums s1 and s2 over the parts before
-it forms any part's dy.  One part is the whole tensor, and then the
-arithmetic is the one above, bit for bit.
+Parts (model parallelism, `parallel/spatial.MeshTrain`): the micro-batch
+may come as several parts on several devices.  The one autograd node
+takes them all, sums every statistic over the parts on scales' device
+(then over `group`, where the parts of other ranks make up the rest of
+the micro-batch), and in the backward sums s1 and s2 over the parts and
+then the group before it forms any part's dy.  One part is the whole
+tensor, and then the arithmetic is the one above, bit for bit.
 """
 
 from __future__ import annotations
@@ -47,19 +48,28 @@ from darknet_tpu_torch.ops.conv import (BN_EPS, batch_mean_var,
                                        batch_mean_var_parts, sum_on)
 
 
-def batch_stats(ys, home, group=None):
+def _count(ys, group, count):
+    """The rows the statistics run over: `count`, else the parts' rows
+    times the group's size (equal shares)."""
+    if count is not None:
+        return count
+    return sum(y.numel() // y.shape[-1] for y in ys) * group_size(group)
+
+
+def batch_stats(ys, home, group=None, count=None):
     """(mean, var) per channel over the NHWC parts `ys` of one
     micro-batch, accumulated in f32 with Bessel's correction, on `home`:
     two passes for f32 (`ops/conv.batch_mean_var`, or its parts form),
     (s1, s2) at once for a narrower dtype; over the ranks of `group` too
-    where one is given."""
+    where one is given (`count`: the rows of every rank, where their
+    shares differ)."""
     n = group_size(group)
-    cnt = sum(y.numel() // y.shape[-1] for y in ys) * n
+    cnt = _count(ys, group, count)
     dims = tuple(range(ys[0].dim() - 1))
     if ys[0].dtype == torch.float32:
         if len(ys) == 1:
-            return batch_mean_var(ys[0], dims, group)
-        return batch_mean_var_parts(ys, home)
+            return batch_mean_var(ys[0], dims, group, count)
+        return batch_mean_var_parts(ys, home, group, count)
     s = sum_on([torch.stack([y.float().sum(dims),
                              y.float().square().sum(dims)]) for y in ys],
                home)
@@ -75,9 +85,10 @@ class _BnActTrain(torch.autograd.Function):
     part's dy."""
 
     @staticmethod
-    def forward(ctx, scales, beta, act, out_dtype, res_dtype, group, *ys):
+    def forward(ctx, scales, beta, act, out_dtype, res_dtype, group, count,
+                *ys):
         home = scales.device
-        mean, var = batch_stats(ys, home, group)
+        mean, var = batch_stats(ys, home, group, count)
         inv = torch.rsqrt(var + BN_EPS)
         outs, saved = [], []
         for y in ys:
@@ -91,8 +102,7 @@ class _BnActTrain(torch.autograd.Function):
             saved.append(y_hat if res_dtype is None else y_hat.to(res_dtype))
         ctx.save_for_backward(inv, scales, beta, *saved)
         ctx.act, ctx.y_dtype, ctx.group = act, ys[0].dtype, group
-        ctx.cnt = (sum(y.numel() // y.shape[-1] for y in ys)
-                   * group_size(group))
+        ctx.cnt = _count(ys, group, count)
         ctx.mark_non_differentiable(mean, var)
         return (mean, var, *outs)
 
@@ -129,11 +139,11 @@ class _BnActTrain(torch.autograd.Function):
                                                                    1)))
             dys.append(dy.to(ctx.y_dtype))
         return (d_scales.to(scales.dtype), d_beta.to(beta.dtype), None, None,
-                None, None, *dys)
+                None, None, None, *dys)
 
 
 def bn_act_train_parts(ys, scales, beta, act, out_dtype=None, res_dtype=None,
-                       *, group=None):
+                       *, group=None, count=None):
     """([out per part], (mean, var)) = act(batchnorm(y)) with live batch
     statistics, y the micro-batch that the parts `ys` make up.
 
@@ -152,17 +162,15 @@ def bn_act_train_parts(ys, scales, beta, act, out_dtype=None, res_dtype=None,
     rank's own under a group, which the step's gradient sum then adds
     up).  mean and var come back on scales' device and are not
     differentiated through.  `group`: the process group the statistics
-    are taken over (sync-BN), for one part; several parts over a group
-    (model-parallel meshes across processes) are ROADMAP A7c item 4."""
+    are taken over (sync-BN, or the model-parallel meshes across
+    processes): each sum runs over the parts in part order, then over the
+    group.  `count`: the rows (N x H x W) of the whole micro-batch, where
+    the ranks' shares differ (uneven slabs); None counts this rank's parts
+    times the group's size."""
     if not ys:
         raise ValueError("bn_act_train_parts needs at least one part")
-    if len(ys) > 1 and group_size(group) > 1:
-        raise NotImplementedError(
-            "bn_act_train_parts: several parts over a process group "
-            "(model-parallel meshes across processes) are ROADMAP A7c "
-            "item 4")
     mean, var, *outs = _BnActTrain.apply(scales, beta, act, out_dtype,
-                                         res_dtype, group, *ys)
+                                         res_dtype, group, count, *ys)
     return outs, (mean, var)
 
 

@@ -32,7 +32,10 @@ def make_dp_train_step(graph, mesh, *, axis: str = "dp", compute_dtype=None,
     """The step of one rank, `step(params, opt_state, x, truths, lr,
     generator=None)` on this rank's block (`train/step.make_train_step`).
     A mesh of several devices must span processes (one a device): a mesh
-    of one process's devices has no group to sum over and raises."""
+    of one process's devices has no group to sum over and raises.  On a
+    grid of several axes over the world (`parallel/mesh.world_mesh`) the
+    statistics and the gradient sum run over the `axis` line through
+    this rank only: the ranks on the other axes hold other replicas."""
     n_dp = mesh.shape[axis]
     if n_dp > 1 and mesh.group is None:
         raise ValueError(
@@ -47,6 +50,7 @@ def make_dp_train_step(graph, mesh, *, axis: str = "dp", compute_dtype=None,
         raise ValueError(
             f"micro-batch {b // accum} (= batch {b} / subdivisions {accum}) "
             f"must divide evenly across the {n_dp}-device '{axis}' axis")
+    group = mesh.sub(axis) if mesh.spans_world else mesh.group
     return make_train_step(graph, compute_dtype=compute_dtype, accum=accum,
                            remat=remat, train_act_dtype=train_act_dtype,
-                           group=mesh.group)
+                           group=group)

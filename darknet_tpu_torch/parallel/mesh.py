@@ -1,6 +1,5 @@
 """Device mesh and batch placement, the communication layer
-(`darknet_tpu/parallel/mesh.py`) on torch: data parallelism over a `dp`
-axis.
+(`darknet_tpu/parallel/mesh.py`) on torch.
 
 The JAX package drives every device from one process and lets GSPMD
 insert the sums.  The port follows PyTorch instead where it trains: one
@@ -11,17 +10,26 @@ of devices, each holding a replica of the serving state, and a batch
 splits over them (`Network.submit_detect_device(mesh=)`).
 
 `Mesh` covers both: `devices` are the devices THIS process drives, and
-`group` is the process group when the (one) axis spans processes (then
+`group` is the process group when the mesh spans processes (then
 `devices` is this rank's one device), else None.  A mesh of one process
 may have several axes: its devices lie on a grid in row-major order over
 `shape`, as `np.array(devices).reshape(n_dp, n_sp)` lays them out in the
 JAX package (`parallel/spatial.make_spatial_mesh`,
 `parallel/tensor.make_tp_mesh`); `block` and `along` read the grid.
+
+A grid may also span a world (`world_mesh`): one process a device, rank r
+at the row-major coordinates of r on `shape`, the same layout.  Such a
+mesh carries this rank's `coords` and one process group for each line and
+plane of the grid through them (`sub`), made with `dist.new_group` in the
+same order on every rank; the model-parallel executors exchange over
+them (`ops/collective`).  `make_mesh`'s one-axis world is the case of one
+axis, whose `group` is the world.
 """
 
 from __future__ import annotations
 
 import dataclasses
+import itertools
 import math
 import os
 
@@ -38,6 +46,37 @@ class Mesh:
     shape: dict
     devices: tuple
     group: object = None
+    coords: dict | None = None
+    groups: dict | None = None
+    members: tuple | None = None
+
+    @property
+    def spans_world(self) -> bool:
+        """Whether the grid spans processes, one device a rank."""
+        return self.coords is not None
+
+    def sub(self, *axes):
+        """The process group of the ranks that differ from this one only on
+        `axes` (a line of the grid for one axis, a plane for two); None
+        where that is this rank alone."""
+        if math.prod(self.shape.get(a, 1) for a in axes) == 1:
+            return None
+        return self.groups[frozenset(a for a in axes if self.shape.get(a, 1)
+                                     > 1)]
+
+    def rank_at(self, **coords) -> int:
+        """The global rank at `coords`, this rank's coordinates on the axes
+        not named."""
+        at = dict(self.coords, **coords)
+        flat = 0
+        for axis, n in self.shape.items():
+            flat = flat * n + at[axis]
+        return flat if self.members is None else self.members[flat]
+
+    def line(self, axis: str) -> list:
+        """The global ranks along `axis` through this rank, in order."""
+        return [self.rank_at(**{axis: i})
+                for i in range(self.shape.get(axis, 1))]
 
     @property
     def axis_names(self) -> tuple:
@@ -117,7 +156,8 @@ def make_mesh(n: int | None = None, axis: str = "dp", *, devices=None,
             mine = torch.device("cuda", int(os.environ.get("LOCAL_RANK",
                                                            rank)))
         _check_cards([mine])
-        return Mesh({axis: world}, (mine,), dist.group.WORLD)
+        return Mesh({axis: world}, (mine,), dist.group.WORLD, {axis: rank},
+                    {frozenset([axis]): dist.group.WORLD})
     if devices is not None:
         if n is not None and n != len(devices):
             raise ValueError(f"a mesh of {n} with {len(devices)} devices "
@@ -156,6 +196,60 @@ def grid_mesh(shape: dict, *, devices=None, device: str = "cuda") -> Mesh:
                          f"got {len(devices)}")
     _check_cards(devices)
     return Mesh(dict(shape), tuple(devices))
+
+
+def world_mesh(shape: dict, *, devices=None, device: str = "cuda",
+               ranks=None) -> Mesh | None:
+    """A grid over the axes `shape` that spans the initialised world, one
+    device a rank: rank r at the row-major coordinates of r, driving
+    `devices[r]` where named (one a rank of the world), else the CPU
+    (device="cpu") or cuda:<local rank>.  `ranks`: the grid spans these
+    ranks of the world alone, in this order (the others get None).
+    Every rank of the world must call it at the same point: it makes the
+    process groups of every line and plane of the grid in a fixed order,
+    each on every rank."""
+    world, rank = dist.get_world_size(), dist.get_rank()
+    members = list(range(world)) if ranks is None else list(ranks)
+    n = math.prod(shape.values())
+    if n != len(members):
+        raise ValueError(f"a mesh of shape {shape} takes {n} ranks; "
+                         f"{len(members)} are named of a world of {world}")
+    whole = len(members) == world
+    group = dist.group.WORLD if whole else dist.new_group(sorted(members))
+    if devices is not None:
+        if len(devices) != world:
+            raise ValueError(f"{len(devices)} devices named for a world of "
+                             f"{world} ranks")
+        mine = _indexed(devices[rank])
+    elif device == "cpu":
+        mine = torch.device("cpu")
+    else:
+        mine = torch.device("cuda", int(os.environ.get("LOCAL_RANK", rank)))
+    _check_cards([mine])
+    axes = list(shape)
+    coords, r = {}, members.index(rank) if rank in members else 0
+    for axis in reversed(axes):
+        coords[axis] = r % shape[axis]
+        r //= shape[axis]
+    coords = {a: coords[a] for a in axes}
+    mesh = Mesh(dict(shape), (mine,), group, coords, {},
+                None if whole and ranks is None else tuple(members))
+    wide = [a for a in axes if shape[a] > 1]
+    for k in range(1, len(wide) + 1):
+        for sub in itertools.combinations(wide, k):
+            if k == len(wide):
+                mesh.groups[frozenset(sub)] = group
+                continue
+            rest = [a for a in axes if a not in sub]
+            for fixed in itertools.product(*(range(shape[a]) for a in rest)):
+                at = dict(zip(rest, fixed))
+                line = [mesh.rank_at(**at, **dict(zip(sub, v)))
+                        for v in itertools.product(*(range(shape[a])
+                                                     for a in sub))]
+                g = dist.new_group(sorted(line))
+                if rank in line:
+                    mesh.groups[frozenset(sub)] = g
+    return mesh if rank in members else None
 
 
 def _indexed(d) -> torch.device:

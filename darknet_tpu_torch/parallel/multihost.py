@@ -9,7 +9,9 @@ assembles the global batch where a caller needs it.
 `fn(rank, *args)` in each.  The backend is chosen from the devices and
 printed: NCCL where each rank has a card of its own, gloo where ranks
 share a card or run on the CPU (NCCL refuses two ranks on one card;
-gloo sums CUDA tensors through the host).  A failing collective raises;
+gloo sums CUDA tensors through the host), and gloo for a grid with a
+model-parallel axis (its exchanges match messages by tag, which NCCL
+does not: `ops/collective`).  A failing collective raises;
 nothing retries on another backend or on the CPU.
 """
 
@@ -37,25 +39,35 @@ def process_batch_slice(global_batch: int) -> tuple:
     return i * per, per
 
 
-def make_global_batch(mesh, local):
+def make_global_batch(mesh, local, axis: str | None = None):
     """The global batch on this rank's device, every rank's block in rank
     order, from this rank's block `local` (a tensor).  In one process
-    (mesh.group None) the local block is the global batch.  Under gloo,
-    which has no CUDA all_gather, the blocks travel through the host."""
+    (mesh.group None) the local block is the global batch.  With `axis`
+    (a grid that spans the world, `parallel/mesh.world_mesh`) the blocks
+    of the ranks along that axis through this one, in coordinate order.
+    Under gloo, which has no CUDA all_gather, the blocks travel through
+    the host."""
     if mesh.group is None:
         return local
-    world = dist.get_world_size(mesh.group)
+    group = mesh.group if axis is None else mesh.sub(axis)
+    if group is None:
+        return local
+    world = dist.get_world_size(group)
     staged = local.contiguous()
-    if dist.get_backend(mesh.group) == "gloo":
+    if dist.get_backend(group) == "gloo":
         staged = staged.cpu()
     parts = [torch.empty_like(staged) for _ in range(world)]
-    dist.all_gather(parts, staged, group=mesh.group)
+    dist.all_gather(parts, staged, group=group)
     return torch.cat(parts).to(local.device)
 
 
-def backend_for(devices) -> str:
+def backend_for(devices, shape: dict | None = None) -> str:
     """"nccl" where every rank has a card of its own, else "gloo" (ranks
-    sharing a card, or on the CPU)."""
+    sharing a card, or on the CPU); "gloo" too for a grid `shape` with an
+    axis other than "dp" of several ranks (the model-parallel exchanges
+    run over gloo, `ops/collective`)."""
+    if any(n > 1 for a, n in (shape or {}).items() if a != "dp"):
+        return "gloo"
     devices = [torch.device(d) for d in devices]
     cards = [d for d in devices if d.type == "cuda"]
     if len(cards) == len(devices) and \
@@ -76,11 +88,12 @@ def free_port() -> int:
 COLLECTIVE_TIMEOUT_S = 600
 
 
-def init_process(rank: int, devices, port: int) -> str:
+def init_process(rank: int, devices, port: int,
+                 shape: dict | None = None) -> str:
     """Join this process to a world of len(devices) ranks at
     tcp://localhost:<port>; rank r drives devices[r].  Returns the
-    backend (`backend_for`), which rank 0 prints."""
-    backend = backend_for(devices)
+    backend (`backend_for(devices, shape)`), which rank 0 prints."""
+    backend = backend_for(devices, shape)
     device = torch.device(devices[rank])
     if device.type == "cuda":
         torch.cuda.set_device(device)
@@ -94,25 +107,34 @@ def init_process(rank: int, devices, port: int) -> str:
     return backend
 
 
-def _rank_main(rank, fn, devices, port, args):
-    init_process(rank, devices, port)
+def _rank_main(rank, fn, devices, port, args, shape):
+    init_process(rank, devices, port, shape)
     try:
-        fn(rank, *args)
+        if shape is None:
+            fn(rank, *args)
+        else:
+            from darknet_tpu_torch.parallel.mesh import world_mesh
+
+            fn(rank, *args, mesh=world_mesh(shape, devices=devices))
     finally:
         dist.destroy_process_group()
 
 
-def spawn(fn, devices, *args, timeout_s: float | None = None) -> None:
+def spawn(fn, devices, *args, timeout_s: float | None = None,
+          shape: dict | None = None) -> None:
     """Run fn(rank, *args) in len(devices) new processes joined into one
     world (rank r on devices[r]); returns when every rank has returned and
     raises when any rank raised (the others are then stopped).  With
+    `shape` ({axis: size}, prod = the number of devices) each rank first
+    makes the grid mesh of that shape over the world (`parallel/mesh.
+    world_mesh`) and is called fn(rank, *args, mesh=mesh).  With
     timeout_s, ranks still running after it are killed and TimeoutError
     raised.  `fn` and `args` must pickle (`fn` a module-level function)."""
     import torch.multiprocessing as tmp
 
     devices = [str(d) for d in devices]
     ctx = tmp.start_processes(
-        _rank_main, args=(fn, devices, free_port(), args),
+        _rank_main, args=(fn, devices, free_port(), args, shape),
         nprocs=len(devices), start_method="spawn", join=False)
     deadline = None if timeout_s is None else time.monotonic() + timeout_s
     while not ctx.join(timeout=1.0):

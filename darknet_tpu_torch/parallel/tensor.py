@@ -34,6 +34,13 @@ layers, a sharded conv's filter slices run on the group's devices with
 their batch norm over every cell's part of their channels, and the
 slices concatenate on the cell's first device.  With `sp_axis` a cell
 is a (dp block, sp slab): the (dp, sp, tp) step.
+
+Across processes (a grid that spans the world, `parallel/mesh.
+world_mesh`, one tp shard a rank): each rank holds its filter slice of
+every sharded conv and every other layer whole (`shard_tp_world`), runs
+the replicated layers itself on the same input as the block's other tp
+ranks, and gathers a sharded conv's slices from them
+(`ops/collective.all_gather_cat`) where one process concatenates them.
 """
 
 from __future__ import annotations
@@ -44,6 +51,7 @@ import torch
 
 from darknet_tpu_torch.nn.emit import _aa_backref_needed, _aa_split
 from darknet_tpu_torch.nn.emit import make_forward
+from darknet_tpu_torch.ops import collective
 from darknet_tpu_torch.ops.conv import antialias_blur
 from darknet_tpu_torch.ops.quant_matmul import input_scale
 from darknet_tpu_torch.parallel.mesh import Mesh, grid_mesh
@@ -131,12 +139,19 @@ class TensorForward:
     (`shard_tp_params`)."""
 
     def __init__(self, graph, n_tp: int, *, compute_dtype=None,
-                 fused_bn: bool = True):
+                 fused_bn: bool = True, mesh=None, axis: str = "tp"):
         self.graph = graph
         self.n_tp = n_tp
         self.fwd = make_forward(graph, compute_dtype=compute_dtype,
                                 fused_bn=fused_bn, fuse_regions=None)
         self.elig = _tp_layers(graph, n_tp)
+        # over a world grid (`parallel/mesh.world_mesh`): this rank holds
+        # shard me_tp of its block, whose other shards tp_ranks hold
+        self.world = mesh is not None and mesh.spans_world
+        if self.world:
+            self.tp_ranks = mesh.line(axis)
+            self.me_tp = mesh.coords[axis]
+            self.group = mesh.group
 
     def _src(self, i, l):
         s = getattr(l, "share_index", None)
@@ -149,8 +164,13 @@ class TensorForward:
         if src not in self.elig:
             return placed_b[0][src]
         ref = placed_b[0][src]
-        home = ref["b"].device
         per = self.graph.layers[src].n // self.n_tp
+        if self.world:
+            return {k: collective.all_gather_cat(v, self.tp_ranks,
+                                                 self.me_tp, 0)
+                    if k != "x_scale" and _filter_dim(k, v, per) else v
+                    for k, v in ref.items()}
+        home = ref["b"].device
         return {k: torch.cat([p[src][k].to(home) for p in placed_b])
                 if k != "x_scale" and _filter_dim(k, v, per) else v
                 for k, v in ref.items()}
@@ -170,6 +190,8 @@ class TensorForward:
                         v = st["cur"].float().abs().amax()
                         m = v if m is None else torch.maximum(
                             m, v.to(m.device))
+                    if self.world:
+                        m = collective.group_max(m, self.group)
                     scale = torch.clamp_min(m, 1e-8)
             for b, st in enumerate(states):
                 self._step(i, l, st, placed[b], scale)
@@ -195,12 +217,18 @@ class TensorForward:
             return
         aa = bool(getattr(l, "antialiasing", 0))
         l1 = dataclasses.replace(l, antialiasing=0) if aa else l
-        parts = []
-        for t, d in enumerate(devs):
-            p = with_scale(placed_b[t][i], d)
-            parts.append(fwd.layer(i, l1, cur.to(d, non_blocking=True), {},
-                                   {}, [], [], {i: p}))
-        y = torch.cat([y.to(home, non_blocking=True) for y in parts], -1)
+        if self.world:
+            y = fwd.layer(i, l1, cur, {}, {}, [], [],
+                          {i: with_scale(placed_b[0][i], home)})
+            y = collective.all_gather_cat(y, self.tp_ranks, self.me_tp, -1)
+        else:
+            parts = []
+            for t, d in enumerate(devs):
+                p = with_scale(placed_b[t][i], d)
+                parts.append(fwd.layer(i, l1, cur.to(d, non_blocking=True),
+                                       {}, {}, [], [], {i: p}))
+            y = torch.cat([y.to(home, non_blocking=True) for y in parts],
+                          -1)
         if aa:
             if _aa_backref_needed(l, i, fwd.live):
                 y, st["outs"][i] = _aa_split(y, l)
@@ -218,12 +246,13 @@ def make_tp_forward(graph, mesh: Mesh, *, axis: str = "tp",
                     fused_bn: bool = True, decode: bool = True):
     """`fn(params, x) -> (boxes, obj, cls)` with the conv filters split
     over `axis` and the batch over `dp_axis` (when the mesh has it): the
-    outputs in the unsharded order on the mesh's first device, or with
-    decode=False the activated heads.  params are the port's torch
+    outputs in the unsharded order on the mesh's first device (over a
+    grid that spans the world, on every rank, each passing the whole
+    batch), or with decode=False the activated heads.  params are the port's torch
     params, placed once per list (`shard_tp_params`)."""
     n_tp = mesh.shape[axis]
     tf = TensorForward(graph, n_tp, compute_dtype=compute_dtype,
-                       fused_bn=fused_bn)
+                       fused_bn=fused_bn, mesh=mesh, axis=axis)
     n_dp = mesh.shape[dp_axis] if dp_axis and dp_axis in mesh.shape else 1
     held: dict = {}
     home = mesh.devices[0]
@@ -231,12 +260,17 @@ def make_tp_forward(graph, mesh: Mesh, *, axis: str = "tp",
     def run(params, x):
         if held.get("src") is not params:
             held["src"] = params
-            held["placed"] = shard_tp_params(mesh, graph, params, axis=axis)
+            held["placed"] = [[shard_tp_world(
+                graph, params, n_tp, tf.me_tp, home)]] if tf.world else \
+                shard_tp_params(mesh, graph, params, axis=axis)
         x = torch.as_tensor(x)
         if x.shape[0] % n_dp:
             raise ValueError(f"batch {x.shape[0]} not divisible by the "
                              f"mesh's dp size {n_dp}")
         per = x.shape[0] // n_dp
+        if tf.world:
+            return _world_run(tf, graph, mesh, held["placed"], x, per,
+                              dp_axis if n_dp > 1 else None, decode)
         blocks = []
         for b in range(n_dp):
             devs = mesh.block(b, axis)
@@ -251,6 +285,57 @@ def make_tp_forward(graph, mesh: Mesh, *, axis: str = "tp",
                          for k in range(3))
 
     return run
+
+
+def _world_run(tf, graph, mesh, placed, x, per, dp_axis, decode):
+    """`make_tp_forward`'s run over a world grid: this rank's dp block
+    through its tp shard, the block's outputs on every rank of it, then
+    the blocks gathered over dp, so every rank returns the whole batch's
+    outputs in the unsharded order."""
+    from darknet_tpu_torch.parallel.multihost import make_global_batch
+
+    b = mesh.coords[dp_axis] if dp_axis else 0
+    dev = mesh.devices[0]
+    with torch.inference_mode():
+        heads = tf.heads(placed, [((dev,), x[b * per:(b + 1) * per]
+                                   .to(dev))])[0]
+        outs = _decode(heads, graph) if decode else heads
+        if dp_axis is None:
+            return outs
+        return type(outs)(make_global_batch(mesh, o, dp_axis) for o in outs)
+
+
+def shard_tp_world(graph, tree, n_tp: int, t: int, device, *,
+                   grad: bool = False) -> list:
+    """Shard t of a params-shaped list of the port's tensors for the tp
+    rank t of a world grid, on `device`: each eligible conv's filter
+    slice of its filter-dim leaves (its calibrated "x_scale" whole), every
+    other layer whole (every tp rank runs the replicated layers itself).
+    Fresh tensors; with `grad` the trainable ones ("w", "b", "scales")
+    require grad."""
+    return _shard(graph, tree, n_tp, t, device, grad, range(len(tree)))
+
+
+def _shard(graph, tree, n_tp, t, device, grad, keep) -> list:
+    """Shard t of `tree` on `device`: the filter slices of the eligible
+    convs, the other layers in `keep` whole, {} for the rest."""
+    from darknet_tpu_torch.nn.params import TRAINABLE
+
+    elig = _tp_layers(graph, n_tp)
+    out = []
+    for i, p in enumerate(tree):
+        q = {}
+        for k, v in p.items() if i in keep or i in elig else ():
+            n = graph.layers[i].n
+            if i in elig and k != "x_scale" and _filter_dim(k, v, n):
+                v = v.narrow(0, t * (n // n_tp), n // n_tp)
+            c = torch.empty_like(v, device=device,
+                                 memory_format=torch.preserve_format)
+            with torch.no_grad():
+                c.copy_(v)
+            q[k] = c.requires_grad_(grad and k in TRAINABLE)
+        out.append(q)
+    return out
 
 
 # ------------------------------------------------------------------ training
@@ -277,40 +362,26 @@ def shard_tp_train(graph, tree, n_tp: int, homes, *, grad: bool) -> list:
     eligible conv (every leaf of one shards on dim 0); every other layer
     whole in shard 0 and {} elsewhere.  Fresh tensors; with `grad` the
     trainable ones ("w", "b", "scales") require grad."""
-    from darknet_tpu_torch.nn.params import TRAINABLE
-
-    elig = _tp_layers(graph, n_tp)
-    out = []
-    for t, home in enumerate(homes):
-        shard = []
-        for i, p in enumerate(tree):
-            if i not in elig and t:
-                shard.append({})
-                continue
-            q = {}
-            for k, v in p.items():
-                if i in elig:
-                    n = graph.layers[i].n
-                    if not _filter_dim(k, v, n):
-                        raise ValueError(f"layer {i} {k!r} {tuple(v.shape)}: "
-                                         f"not a filter-dim leaf")
-                    per = n // n_tp
-                    v = v.narrow(0, t * per, per)
-                c = torch.empty_like(v, device=home,
-                                     memory_format=torch.preserve_format)
-                with torch.no_grad():
-                    c.copy_(v)
-                q[k] = c.requires_grad_(grad and k in TRAINABLE)
-            shard.append(q)
-        out.append(shard)
-    return out
+    every = range(len(tree))
+    return [_shard(graph, tree, n_tp, t, home, grad, () if t else every)
+            for t, home in enumerate(homes)]
 
 
-def gather(placed) -> list:
+def gather(placed, *, mesh=None, graph=None, axis: str = "tp") -> list:
     """Shards (`shard_tp_train`'s lists) merged into one params-shaped
     list: each sharded leaf's slices concatenated on filters (the
     counterpart of reading a sharded `jax.Array` whole), detached, on
-    shard 0's device."""
+    shard 0's device.  Over a world grid (`mesh` spanning processes,
+    `placed` this rank's one shard, `graph` the step's): the slices of
+    the tp ranks through this one, gathered on every rank, which then
+    all hold the whole params."""
+    if mesh is not None and mesh.spans_world:
+        n_tp = mesh.shape[axis]
+        elig = _tp_layers(graph, n_tp)
+        ranks, me = mesh.line(axis), mesh.coords[axis]
+        return [{k: collective.all_gather_cat(v.detach(), ranks, me, 0)
+                 if i in elig else v.detach() for k, v in p.items()}
+                for i, p in enumerate(placed[0])]
     out = []
     for i, p0 in enumerate(placed[0]):
         out.append({k: torch.cat([s[i][k].detach().to(v.device)
@@ -319,10 +390,12 @@ def gather(placed) -> list:
     return out
 
 
-def gather_opt(opts) -> dict:
+def gather_opt(opts, *, mesh=None, graph=None, axis: str = "tp") -> dict:
     """Per-shard optimizer states merged into one (`gather` on each slot
-    list; the counter is the shards' own, equal in all)."""
-    return {k: gather([o[k] for o in opts]) if isinstance(v, list) else v
+    list, over a world grid on every rank; the counter is the shards'
+    own, equal in all)."""
+    return {k: gather([o[k] for o in opts], mesh=mesh, graph=graph,
+                      axis=axis) if isinstance(v, list) else v
             for k, v in opts[0].items()}
 
 
@@ -343,7 +416,9 @@ def make_tp_train_step(graph, mesh: Mesh, *, axis: str = "tp",
     mesh's first device.
     step(placed, opts, x, truths, lr, generator=None) -> (placed, opts,
     cost, metrics), in place.  `gather(placed)` gives one params list
-    back.
+    back.  Over a grid that spans the world, `place` gives this rank's
+    one shard (`shard_tp_world`) and `gather(placed, mesh=, graph=)`
+    the whole params on every rank.
 
     A cell (a dp block, and an sp slab) is a tp group: its activation
     lives on the group's first device, which runs every replicated layer
@@ -370,6 +445,17 @@ def make_tp_train_step(graph, mesh: Mesh, *, axis: str = "tp",
     inner = mesh_train_step(graph, ex, accum=accum)
 
     def place(params, opt_state, x=None, truths=None):
+        if ex.world:
+            placed = [shard_tp_world(graph, params, n_tp, ex.me_tp, ex.dev,
+                                     grad=True)]
+            opts = [{k: shard_tp_world(graph, v, n_tp, ex.me_tp, ex.dev)
+                     if isinstance(v, list) else v
+                     for k, v in opt_state.items()}]
+            out = [placed, opts]
+            for a in (x, truths):
+                if a is not None:
+                    out.append(torch.as_tensor(a).to(ex.first))
+            return tuple(out)
         placed = shard_tp_train(graph, params, n_tp, ex.homes, grad=True)
         slots = {k: shard_tp_train(graph, v, n_tp, ex.homes, grad=False)
                  for k, v in opt_state.items() if isinstance(v, list)}
@@ -382,7 +468,7 @@ def make_tp_train_step(graph, mesh: Mesh, *, axis: str = "tp",
         return tuple(out)
 
     def step(placed, opts, x, truths, lr, generator=None):
-        if len(placed) != n_tp:
+        if len(placed) != (1 if ex.world else n_tp):
             raise ValueError(f"{len(placed)} shards placed for a tp axis "
                              f"of {n_tp} (use `place`)")
         cost, metrics = inner(placed, opts, x, truths, lr, generator)

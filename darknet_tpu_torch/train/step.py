@@ -34,7 +34,10 @@ the micro-batches, in one flat buffer a dtype (the JAX step's single
 `psum`), and the optimizer divides by the global batch as before; the
 cost and the head metrics of each micro-batch combine the ranks' as one
 global micro-batch would have them (`combine_ranks`).  Every rank then
-holds the same params, bit for bit.
+holds the same params, bit for bit.  On a grid of several axes over the
+world, `group` is the dp line through the rank (`parallel/dp`), so the
+sum runs over dp only; the model-parallel steps sum over their own
+sub-groups (`parallel/spatial.mesh_train_step`).
 """
 
 from __future__ import annotations
@@ -145,12 +148,16 @@ def _gather_rows(vec, group):
     return rows
 
 
-def all_reduce_grads(params, group) -> None:
+def all_reduce_grads(params, group, *, every: bool = False) -> None:
     """Sum every param's .grad over the group in place: one flat buffer a
-    dtype, one all-reduce each."""
+    dtype, one all-reduce each.  every=True first gives each param that
+    requires grad and has none a zero .grad, for ranks whose backward may
+    not reach the same params (an empty slab)."""
     by_dtype: dict = {}
     for p in params:
         for v in p.values():
+            if every and v.requires_grad and v.grad is None:
+                v.grad = torch.zeros_like(v)
             if v.grad is not None:
                 by_dtype.setdefault(v.grad.dtype, []).append(v.grad)
     for grads in by_dtype.values():

@@ -54,13 +54,12 @@ alone logs, draws the chart and writes `.weights`; the resumable state is
 the sharded directory (`train/checkpoint.save_checkpoint_sharded`), which
 every rank writes its part of; the in-training mAP rides the mesh.  The
 random layers of rank r draw from the step's seed + r, so their masks
-are not the single-process run's.  Model-parallel training runs in one
-process that drives every device of a mesh, through the steps of
-`parallel/pipeline.PipelineTrain`, `parallel/tensor.make_tp_train_step`
-(with `sp_axis` the (dp, sp, tp) step) and `parallel/spatial.
-make_spatial_train_step`; the trainer does not drive them.  Meshes
-across processes for those steps are the one part of ROADMAP A7c still
-open.
+are not the single-process run's.  Model-parallel training runs through
+the steps of `parallel/pipeline.PipelineTrain`, `parallel/tensor.
+make_tp_train_step` (with `sp_axis` the (dp, sp, tp) step) and
+`parallel/spatial.make_spatial_train_step`, in one process that drives
+every device of a mesh or over a grid that spans the world, one process
+a device (`parallel/mesh.world_mesh`); the trainer does not drive them.
 """
 
 from __future__ import annotations

@@ -201,10 +201,11 @@ def test_validate_detector_stub(png_set, batch, sweep):
 
 
 def test_mesh_refused(png_set):
-    """The mesh reaches the network's detect_batch, which refuses the
-    meshes that are not ported: an 'sp' axis over processes (ROADMAP
-    A7c); an 'sp' mesh of one process validates as one device does.
-    Mesh validation itself is tests/test_torch_parallel.py."""
+    """The mesh reaches the network's detect_batch, which refuses an
+    'sp' axis over processes on a mesh that is not a grid over the world
+    (`parallel.mesh.world_mesh`, which tests/test_torch_mp_serve.py
+    serves on); an 'sp' mesh of one process validates as one device
+    does.  Mesh validation itself is tests/test_torch_parallel.py."""
     from darknet_tpu_torch.parallel.mesh import Mesh
 
     net = Network.from_cfg(model_zoo.MODELS["yolov3-tiny"](64, 64,
@@ -212,7 +213,7 @@ def test_mesh_refused(png_set):
                            device="cpu")
     cpu = torch.device("cpu")
     sp = Mesh({"dp": 1, "sp": 2}, (cpu,), group=object())
-    with pytest.raises(NotImplementedError, match="A7c"):
+    with pytest.raises(ValueError, match="world_mesh"):
         tmap.validate_detector(net, png_set, classes=3, mesh=sp,
                                progress=False)
     got = tmap.validate_detector(net, png_set, classes=3, progress=False,

@@ -509,6 +509,24 @@ print("DATA-PARALLEL", float(z[0]["costs"][0]))
 """
 
 
+BLOCKED_MP_WORLD = BLOCKED_DP.split("case = {")[0] + r"""
+from darknet_tpu_torch.nn.params import init_params as _init
+out = tempfile.mkdtemp()
+spawn(workers.mp_nojax_ranks, ["cpu", "cpu"], out, cfg, x, y,
+      _init(build_graph(cfg, train=True), seed=0), timeout_s=240,
+      shape={"dp": 1, "sp": 2})
+z = [np.load(f"{out}/mp_{r}.npz") for r in (0, 1)]
+assert float(z[0]["cost"]) == float(z[1]["cost"])
+assert np.isfinite(float(z[0]["cost"]))
+assert "head0" in z[0].files and "head0" not in z[1].files
+assert np.isfinite(z[0]["head0"]).all()
+bad = [m for m in sys.modules
+       if m.split(".")[0] in ("jax", "jaxlib", "darknet_tpu")]
+assert not bad, bad
+print("MP-WORLD", float(z[0]["cost"]))
+"""
+
+
 BLOCKED_MODEL_PARALLEL = r"""
 import sys
 
@@ -705,6 +723,14 @@ def test_exported_artifact_runs_with_jax_blocked(tmp_path):
 def test_data_parallel_step_with_jax_blocked(tmp_path):
     (tmp_path / "sitecustomize.py").write_text(BLOCKER)
     assert "DATA-PARALLEL" in run_blocked(BLOCKED_DP, site=tmp_path)
+
+
+def test_model_parallel_world_with_jax_blocked(tmp_path):
+    """A spatial (sp=2) step and a 2-stage PipelineForward over a world
+    of two gloo ranks, jax, jaxlib and darknet_tpu blocked in every rank
+    (a sitecustomize on the ranks' path)."""
+    (tmp_path / "sitecustomize.py").write_text(BLOCKER)
+    assert "MP-WORLD" in run_blocked(BLOCKED_MP_WORLD, site=tmp_path)
 
 
 def test_capi_imports_only_the_port():

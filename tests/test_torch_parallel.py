@@ -164,6 +164,25 @@ def test_backend_rule():
     assert tmulti.backend_for(["cuda:0", "cpu"]) == "gloo"
 
 
+def test_model_parallel_grid_takes_gloo(monkeypatch):
+    """A grid with a model-parallel axis runs over gloo even where each
+    rank has a card of its own, and the exchanges refuse another backend:
+    they match messages by tag, which NCCL ignores (it matches a pair's
+    messages in posting order)."""
+    from darknet_tpu_torch.ops import collective
+
+    cards = ["cuda:0", "cuda:1", "cuda:2", "cuda:3"]
+    assert tmulti.backend_for(cards, {"dp": 4}) == "nccl"
+    for shape in ({"dp": 2, "sp": 2}, {"tp": 4}, {"pp": 4},
+                  {"dp": 2, "tp": 2}, {"dp": 1, "sp": 4}):
+        assert tmulti.backend_for(cards, shape) == "gloo", shape
+    monkeypatch.setattr(collective.dist, "get_backend", lambda *a: "nccl")
+    with pytest.raises(RuntimeError, match="gloo"):
+        collective.send(torch.zeros(2), 1)
+    with pytest.raises(RuntimeError, match="gloo"):
+        collective.recv(0, "cpu")
+
+
 # ----------------------------------------------------------------- loader
 @pytest.fixture(scope="module")
 def synth_set(tmp_path_factory):
@@ -450,10 +469,11 @@ def test_mesh_refusals(nets):
                                                     device="cpu"))
     with pytest.raises(ValueError, match="not divisible"):
         tnet.detect_batch(x[:3], mesh=make_mesh(2, device="cpu"))
-    # an sp axis over processes is ROADMAP A7c (the sp mesh of one
-    # process: tests/test_torch_spatial.py); the refusal comes before the
-    # group is used
-    with pytest.raises(NotImplementedError, match="A7c"):
+    # an sp axis over processes runs on a grid that spans the world
+    # (parallel.mesh.world_mesh; served in tests/test_torch_mp_serve.py):
+    # a mesh with a process group but no grid coordinates is refused
+    # before the group is used
+    with pytest.raises(ValueError, match="world_mesh"):
         tnet.detect_batch_device(x, mesh=Mesh({"dp": 1, "sp": 2}, cpu[:1],
                                               group=object()))
 

@@ -35,6 +35,7 @@ from darknet_tpu_torch.graph.builder import build_graph
 from darknet_tpu_torch.nn import params as tparams
 from darknet_tpu_torch.nn.emit import make_forward
 from darknet_tpu_torch.parallel import pipeline as tpipe
+from tests.test_reference_fuzz import random_cfg
 from tests.torch_params import spread_params
 
 torch.set_num_threads(2)
@@ -182,3 +183,38 @@ def test_stage_holds_share_index_owner():
     jwant = jpipe.PipelineForward(jg, npar, jax.devices()[:3],
                                   microbatches=2)(x)
     _near_jax(got, jwant)
+
+
+# random_cfg seeds (size, width) whose cut at 2 or 3 stages lands right
+# after a back-referenced antialiased layer of stride 2 (ROADMAP C5)
+AA_CUT_CFGS = [(294, 64, None), (421, 64, None), (441, 64, None),
+               (388, 48, 64)]
+
+
+@pytest.mark.parametrize("stages", [2, 3])
+@pytest.mark.parametrize("seed,size,width", AA_CUT_CFGS)
+def test_cut_after_backref_antialias(seed, size, width, stages):
+    """A cut right after a back-referenced antialiased layer (ROADMAP C5):
+    the next stage takes the blurred tensor as its input and the stride-1
+    view as that layer's output (`pipeline.stage_keys`), and the heads are
+    the unsharded forward's at full resolution, within 1e-4 of each
+    head's largest value (measured equal).  Held to the unsharded forward
+    and not to the JAX `PipelineForward`, which hands the next stage the
+    blurred tensor in both roles."""
+    g, _jg = _graphs(random_cfg(seed, size, width=width))
+    npar = tparams.init_params(g, seed=1)
+    tp = tparams.params_to_torch(g, npar, "cpu")
+    x = np.random.default_rng(0).uniform(
+        0, 1, (4, size, width or size, 3)).astype(np.float32)
+    pf = tpipe.PipelineForward(g, tp, ["cpu"] * stages, microbatches=2)
+    if stages == 3:
+        lo = pf.stages[2]["lo"]
+        assert lo - 1 in pf.stages[2]["keys_in"]
+    got = pf(x)
+    with torch.inference_mode():
+        want = make_forward(g)(tp, torch.from_numpy(x))["heads"]
+    assert len(got) == len(want)
+    for a, b in zip(got, want):
+        assert a.shape == b.shape
+        torch.testing.assert_close(a, b, rtol=0,
+                                   atol=1e-4 * float(b.abs().max()))

@@ -15,7 +15,8 @@ Tolerances:
   tests/test_pipeline.py holds it, to the update's cosine > 0.98 and
   norm ratio in (0.85, 1.15) at layers 0, 54, 85 and the last conv, and
   measured bitwise too;
-* the slice mode with a generator: bitwise the unsliced forward.
+* the slice mode with a generator: bitwise the unsliced forward; a
+  step with a generator: bitwise the unsharded step given the same seed.
 """
 
 import warnings
@@ -37,7 +38,7 @@ from darknet_tpu_torch.nn import params as tparams
 from darknet_tpu_torch.nn.emit import make_forward
 from darknet_tpu_torch.parallel import pipeline as tpipe
 from darknet_tpu_torch.train.step import init_opt_state, make_train_step
-from test_torch_pipeline import SHARE_CFG
+from test_torch_pipeline import AA_CUT_CFGS, SHARE_CFG, random_cfg
 from torch_params import chip_smoke
 
 torch.set_num_threads(2)
@@ -98,6 +99,51 @@ def test_train_slice_mode_with_generator_bitwise():
     # and the masks are drawn: another seed moves the heads
     other = fwd(p, x, torch.Generator().manual_seed(4))
     assert not torch.equal(other["heads"][0], full["heads"][0])
+
+
+def drop_cfg(accum):
+    """A net whose 3-stage cuts (at layers 4 and 6) leave a random layer
+    in every stage (the second's a dropblock): their masks draw from the
+    generator's state handed across the cuts, as the unsliced step draws
+    them."""
+    cfg = model_zoo._net(64, 64, 4, accum)
+    cfg += model_zoo._conv(16, 3, 1, act="leaky")
+    cfg += model_zoo._conv(16, 3, 1, act="leaky")
+    cfg += "[dropout]\nprobability=.3\n\n"
+    cfg += model_zoo._conv(32, 3, 2, act="leaky")
+    cfg += ("[dropout]\nprobability=.2\ndropblock=1\n"
+            "dropblock_size_abs=3\n\n")
+    cfg += model_zoo._conv(32, 3, 1, act="leaky")
+    cfg += model_zoo._conv(32, 3, 1, act="leaky")
+    cfg += "[dropout]\nprobability=.4\n\n"
+    cfg += model_zoo._conv(27, 1, 1, act="linear", bn=False)
+    return cfg + ("[yolo]\nmask=0,1,2\nnum=3\nclasses=4\n"
+                  "anchors=10,13, 16,30, 33,23\n\n")
+
+
+@pytest.mark.parametrize("n_stages", [2, 3])
+def test_train_with_generator_bitwise(n_stages):
+    """A step with a generator over 2 and 3 stages (a random layer in
+    every stage at 3): bitwise the unsharded step given the same seed,
+    the generator left in the same state."""
+    g, _jg = _graphs(drop_cfg(2))
+    p0 = tparams.init_params(g, seed=0)
+    x = np.random.default_rng(6).uniform(0, 1, (4, 64, 64, 3)).astype(
+        np.float32)
+    y = np.zeros((4, 8, 5), np.float32)
+    y[:, 0] = [0.5, 0.5, 0.25, 0.25, 1]
+    pt = tpipe.PipelineTrain(g, p0, ["cpu"] * n_stages, microbatches=2)
+    gen = torch.Generator().manual_seed(3)
+    cost, _m = pt.step(x, y, 1e-3, generator=gen)
+    p = tparams.train_params_to_torch(g, p0, "cpu")
+    ref_gen = torch.Generator().manual_seed(3)
+    p, _o, c_ref, _m = make_train_step(g, accum=2)(
+        p, init_opt_state(g, p), torch.from_numpy(x), torch.from_numpy(y),
+        1e-3, ref_gen)
+    _equal(tparams.train_params_to_numpy(g, pt.gather_params()),
+           tparams.train_params_to_numpy(g, p))
+    assert float(cost) == float(c_ref)
+    assert torch.equal(gen.get_state(), ref_gen.get_state())
 
 
 @pytest.mark.parametrize("name", sorted(model_zoo.MODELS))
@@ -240,3 +286,34 @@ def test_pipeline_train_adam():
         pt.step(x, y, 1e-3)
     ref, _c, _m = _unsharded(g, p0, x, y, 2, iters=2)
     _equal(tparams.train_params_to_numpy(g, pt.gather_params()), ref)
+
+
+@pytest.mark.parametrize("stages", [2, 3])
+@pytest.mark.parametrize("seed,size,width", AA_CUT_CFGS)
+def test_train_cut_after_backref_antialias(seed, size, width, stages):
+    """PipelineTrain with a cut right after a back-referenced antialiased
+    layer (ROADMAP C5): the view crosses the cut as its own output and its
+    cotangent comes back, so one f32 step (2 micro-batches) equals the
+    unsharded step, held in the form of chip_smoke.py's phase 8 (a):
+    within ten times the unsharded step's response to a 1e-7 input change
+    plus 1e-4 of the update, capped at 30% of it (measured bitwise)."""
+    g, _jg = _graphs(random_cfg(seed, size, width=width))
+    p0 = tparams.init_params(g, seed=1)
+    x = np.random.default_rng(0).uniform(
+        0, 1, (4, size, width or size, 3)).astype(np.float32)
+    truths = np.zeros((4, 4, 5), np.float32)
+    truths[:, 0] = [0.5, 0.5, 0.3, 0.3, 1]
+    pt = tpipe.PipelineTrain(g, p0, ["cpu"] * stages, microbatches=2)
+    if stages == 3:
+        assert pt.stages[2]["lo"] - 1 in pt.stages[2]["keys_in"]
+    cost, _m = pt.step(x, truths, 1e-3)
+    got = tparams.train_params_to_numpy(g, pt.gather_params())
+    ref, c_ref, _m = _unsharded(g, p0, x, truths, 2)
+    nudged, _c, _m = _unsharded(g, p0, x + np.float32(1e-7), truths, 2)
+    keys = ("w", "b", "scales")
+    err, scale = chip_smoke().update_gap(got, ref, p0, keys)
+    noise, _s = chip_smoke().update_gap(nudged, ref, p0, keys)
+    assert scale > 0
+    assert err <= min(10 * noise + 1e-4 * scale, 0.3 * scale), (err, noise,
+                                                                scale)
+    np.testing.assert_allclose(float(cost), float(c_ref), rtol=1e-5)
