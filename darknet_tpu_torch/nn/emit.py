@@ -33,13 +33,11 @@ region kernel launches.
 
 from __future__ import annotations
 
-import contextlib
 import dataclasses
 import zlib
 
 import torch
 import torch.nn.functional as F
-from torch.autograd.profiler import record_function
 from torch.utils.checkpoint import checkpoint
 
 from darknet_tpu_torch.ops import shapes as shapeops
@@ -53,19 +51,7 @@ from darknet_tpu_torch.ops.conv import (antialias_backref_view,
 from darknet_tpu_torch.ops.pooling import (global_avgpool, maxpool,
                                            maxpool_block)
 from darknet_tpu_torch.utils import debug
-
-_NO_SCOPE = contextlib.nullcontext()
-
-
-def scope(name: str):
-    """A profiler range named after a cfg layer or a step phase (the JAX
-    emitter's `jax.named_scope` names: `L{i:03d}_{kind}`,
-    `L{a:03d}-{b:03d}_region`, `head_delta_{n}`, `optimizer_update`),
-    which `utils/profiler.trace_report` attributes device time to.  A
-    range only while torch.profiler records: serving pays one check."""
-    return (record_function(name) if torch.autograd._profiler_enabled()
-            else _NO_SCOPE)
-
+from darknet_tpu_torch.utils.spans import scope
 
 HEAD_KINDS = ("yolo", "gaussian_yolo", "detection", "cost")
 

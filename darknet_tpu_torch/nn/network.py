@@ -68,6 +68,7 @@ from darknet_tpu_torch.nn import params as paramlib
 from darknet_tpu_torch.nn.emit import make_forward, region_int8_convs
 from darknet_tpu_torch.ops import nms as nmslib
 from darknet_tpu_torch.ops import yolo as yoloops
+from darknet_tpu_torch.utils import spans
 from darknet_tpu_torch.weights import io as wio
 
 
@@ -118,6 +119,13 @@ def detections_to_json(dets: list, frame_id: int = 0,
         out["filename"] = filename             # network.cpp:542-545
     out["objects"] = objects
     return json.dumps(out, indent=1)
+
+
+def _to(x, device):
+    """x on `device`, the copy's wait on the host counted
+    (`utils/spans.count_copy`)."""
+    spans.count_copy(x, device)
+    return x.to(device)
 
 
 # the head kinds decoded, with their decode
@@ -513,13 +521,14 @@ class Network:
                 if d is None:
                     slabs.append(None)
                     continue
-                slab = xs[:, lo:hi].to(d)
+                slab = _to(xs[:, lo:hi], d)
                 if slab.dtype == torch.uint8:
                     slab = unit.to(d)[slab.int()]
                 slabs.append(slab)
             split.append((devs, slabs))
-        return self._spatial().heads(lambda d: self._replica(d)[0], split,
-                                     group=group, lane=lane)
+        with spans.span("serve_forward"):
+            return self._spatial().heads(lambda d: self._replica(d)[0],
+                                         split, group=group, lane=lane)
 
     def _over_mesh(self, mesh, x, run, finish=None) -> tuple:
         """run(params, u8 table, block, heads) -> a tuple of tensors (or
@@ -544,7 +553,7 @@ class Network:
 
             # x is this rank's dp block; its slabs run over the sp ranks
             dev = mesh.devices[0]
-            xs = x.to(dev)
+            xs = _to(x, dev)
             lane = world_lane(mesh, height=xs.shape[1])
             heads = self._mesh_heads([((dev,), xs)], group=mesh.sub(
                 "dp", "sp"), lane=lane)[0]
@@ -556,7 +565,7 @@ class Network:
             axis = "dp" if mesh.spans_world else None
             r = mesh.coords["dp"] if axis else mesh.rank
             dev = mesh.devices[0]
-            xs = x[r * per:(r + 1) * per].to(dev)
+            xs = _to(x[r * per:(r + 1) * per], dev)
             heads = self._mesh_heads([((dev,), xs)], group=mesh.group)[0] \
                 if lockstep else None
             outs = finish(*run(*self._replica(dev), xs, heads))
@@ -564,7 +573,7 @@ class Network:
                                                                   axis)
                          for o in outs)
         devs = [mesh.block(b, "sp") for b in range(n)]
-        blocks = [x[b * per:(b + 1) * per].to(d[0])
+        blocks = [_to(x[b * per:(b + 1) * per], d[0])
                   for b, d in enumerate(devs)]
         heads = self._mesh_heads(list(zip(devs, blocks))) if lockstep \
             else [None] * n
@@ -595,40 +604,54 @@ class Network:
         if heads is not None:
             return self._serve_heads(heads, thresh, nms, top_k, score_dtype)
         if x.dtype == torch.uint8:
-            # frames upload as raw uint8 (1/4 of the f32 bytes) and
-            # normalize on the device through the host's own quotients:
-            # x / 255 by multiplication with a rounded reciprocal (as
-            # torch's CUDA division by a scalar computes it) differs from
-            # the host's division by one ulp for half of the 256 values
-            x = (self._u8_unit if unit is None else unit)[x.int()]
-        r = self._fwd(self.forward_params if params is None else params, x)
+            with spans.span("serve_upload"):
+                x = self._unit(x, unit)
+        with spans.span("serve_forward"):
+            r = self._fwd(self.forward_params if params is None else params,
+                          x)
         return self._serve_heads(r["heads"], thresh, nms, top_k, score_dtype)
+
+    def _unit(self, x, unit=None):
+        """uint8 frames in [0, 1] on their device, through `unit` (the
+        network's uint8 table by default); other frames as they are."""
+        if x.dtype != torch.uint8:
+            return x
+        # frames upload as raw uint8 (1/4 of the f32 bytes) and normalize
+        # on the device through the host's own quotients: x / 255 by
+        # multiplication with a rounded reciprocal (as torch's CUDA
+        # division by a scalar computes it) differs from the host's
+        # division by one ulp for half of the 256 values
+        return (self._u8_unit if unit is None else unit)[x.int()]
 
     def _serve_heads(self, heads, thresh, nms, top_k, score_dtype):
         """The serving program after the forward."""
-        # a Gaussian head's sigmas stay behind: the triple is the same
-        # for every head kind
-        boxes, obj, cls, _uc = self._decode([h.float() for h in heads],
-                                            order="native",
-                                            score_dtype=score_dtype)
-        obj = torch.where(obj > thresh, obj, torch.zeros_like(obj))
-        k = min(top_k, obj.shape[1])
-        # stable descending sort: ties rank by index, as lax.top_k does
-        ov, idx = torch.sort(obj, dim=1, descending=True, stable=True)
-        ov, idx = ov[:, :k], idx[:, :k]
-        tb = torch.gather(boxes, 1, idx[..., None].expand(-1, -1, 4))
-        tc = torch.gather(cls, 1,
-                          idx[..., None].expand(-1, -1, cls.shape[-1]))
-        probs = ov[..., None] * tc
-        probs = torch.where(probs > thresh, probs, torch.zeros_like(probs))
+        with spans.span("serve_select"):
+            # a Gaussian head's sigmas stay behind: the triple is the
+            # same for every head kind
+            boxes, obj, cls, _uc = self._decode([h.float() for h in heads],
+                                                order="native",
+                                                score_dtype=score_dtype)
+            obj = torch.where(obj > thresh, obj, torch.zeros_like(obj))
+            k = min(top_k, obj.shape[1])
+            # stable descending sort: ties rank by index, as lax.top_k does
+            ov, idx = torch.sort(obj, dim=1, descending=True, stable=True)
+            ov, idx = ov[:, :k], idx[:, :k]
+            tb = torch.gather(boxes, 1, idx[..., None].expand(-1, -1, 4))
+            tc = torch.gather(cls, 1,
+                              idx[..., None].expand(-1, -1, cls.shape[-1]))
+            probs = ov[..., None] * tc
+            probs = torch.where(probs > thresh, probs,
+                                torch.zeros_like(probs))
         return self._serve_nms(tb, ov, probs, nms)
 
     def _serve_nms(self, tb, ov, probs, nms):
         """The serving program's last stage, the device NMS (its loop
         reads a flag on the host every round)."""
         if nms > 0:
-            probs = nmslib.nms_device(tb, probs, nms, kind=self._nms_kind,
-                                      beta=self._nms_beta)
+            with spans.span("serve_nms"):
+                probs = nmslib.nms_device(tb, probs, nms,
+                                          kind=self._nms_kind,
+                                          beta=self._nms_beta)
         return tb, ov, probs
 
     def submit_detect_device(self, images, thresh: float = 0.25,
@@ -646,18 +669,21 @@ class Network:
         `images` are this rank's dp block and the block's triple comes
         back on every rank of the block."""
         self._require_decoded_head()
-        if isinstance(images, torch.Tensor):
-            x = images if images.dim() == 4 else images[None]
-        elif getattr(images, "dtype", None) == np.uint8:
-            x = np.asarray(images)
-            x = torch.from_numpy(x if x.ndim == 4 else x[None])
-        else:
-            x = torch.from_numpy(self._prep_input(images))
-        self._check_shape(x)
-        with torch.inference_mode():
+        with spans.span("serve_request", request=True), \
+                torch.inference_mode():
+            with spans.span("serve_upload"):
+                if isinstance(images, torch.Tensor):
+                    x = images if images.dim() == 4 else images[None]
+                elif getattr(images, "dtype", None) == np.uint8:
+                    x = np.asarray(images)
+                    x = torch.from_numpy(x if x.ndim == 4 else x[None])
+                else:
+                    x = torch.from_numpy(self._prep_input(images))
+                self._check_shape(x)
+                if mesh is None:
+                    x = self._unit(_to(x, self.device))
             if mesh is None:
-                return self._serve(x.to(self.device), thresh, nms, top_k,
-                                   score_dtype)
+                return self._serve(x, thresh, nms, top_k, score_dtype)
             # every block's forward is queued before any block's NMS
             return self._over_mesh(
                 mesh, x, lambda p, unit, xs, heads: self._serve(

@@ -14,6 +14,7 @@ import numpy as np
 import torch
 
 from darknet_tpu_torch.ops import boxes as boxops
+from darknet_tpu_torch.utils import spans
 
 
 def _np_edges(v):
@@ -110,9 +111,19 @@ def nms_device(boxes, probs, thresh: float, kind: str = "greedynms",
         return active & ~(P & K[..., None, :]).any(dim=-1)
 
     def unsettled(lo, hi, active, P):
+        # called eagerly, the loop reads this flag on the host
+        spans.count("host_syncs")
         return (lo != hi).any()
 
+    first = [True]
+
     def round_(lo, hi, active, P):
+        spans.count("nms_rounds")
+        if first:
+            # eagerly the loop reads its first flag twice (`if not`, then
+            # `while`): one wait more
+            spans.count("host_syncs")
+            first.clear()
         # fresh tensors: a carried value returned as it came in is an
         # alias, which the loop's tracing refuses
         return lo | step(hi, active, P), hi & step(lo, active, P)

@@ -19,6 +19,8 @@ from __future__ import annotations
 
 import torch
 
+from darknet_tpu_torch.utils import spans
+
 
 def yolo_activate(x, l):
     e = 5 + l.classes
@@ -38,7 +40,9 @@ def _grid(l, h: int, w: int, dev):
     cols = torch.arange(w, dtype=f32, device=dev)[None, None, :, None]
     rows = torch.arange(h, dtype=f32, device=dev)[None, :, None, None]
     anchors = torch.tensor(l.anchors, dtype=f32).reshape(-1, 2)
-    sel = anchors[torch.tensor(list(l.mask), dtype=torch.long)].to(dev)
+    sel = anchors[torch.tensor(list(l.mask), dtype=torch.long)]
+    spans.count_copy(sel, dev)
+    sel = sel.to(dev)
     return cols, rows, sel[:, 0][None, None, None, :], \
         sel[:, 1][None, None, None, :]
 

@@ -3,7 +3,7 @@
 
 * `trace_report` runs a program under `torch.profiler` and attributes the
   device time of each kernel to the cfg layer whose profiler range
-  launched it: the ranges are `nn/emit.scope`'s, named as the JAX
+  launched it: the ranges are `utils/spans.scope`'s, named as the JAX
   emitter's scopes (`L{i:03d}_{kind}`, `L{a:03d}-{b:03d}_region`,
   `head_delta_{n}`, `optimizer_update`).  A kernel is tied to the runtime
   call that launched it by its correlation id, and that call to its
