@@ -1,5 +1,6 @@
 """Smoke run of darknet_tpu_torch on one CUDA card: build the region
-kernel and the int8 GEMM, check each against its plain version, serve
+kernel, the conv epilogue and the int8 GEMM, check each against its
+plain version, serve
 yolov4-608 through the public API in bf16 and in int8, train it,
 validate it and the rest of the yolo zoo, stream video through the CLI,
 serve, resize, train and validate Gaussian YOLOv3, serve and train
@@ -27,7 +28,13 @@ Phases, each of which fails the run (non-zero exit) on any error:
      and device_out_to_dets, with the kernel's launch count rising on
      every request; one request uint8 (divided by 255 on the card) and
      one of its f32 copy divided on the host, whose served triples must
-     be bitwise equal; one f32 request against the same
+     be bitwise equal; during one request every launch of the one-pass
+     conv epilogue (one per conv served outside the region kernel, its
+     count reset just before) held to its plain version on the same f32
+     sum (bitwise for linear, leaky, relu and logistic, one ulp for the
+     others, with the share of elements that differ), its time in a
+     traced request beside the plain version's and the byte bound, and
+     its rate from HBM per kind of map; one f32 request against the same
      network with the plain region; bf16 img/s (median and spread of 3
      windows of 20 requests after 30 untimed ones); at b=8, the serving
      shape, the bf16 kernel held to its plain version (one ulp, with the
@@ -1519,6 +1526,162 @@ def kept(probs) -> set:
     return set(zip(*np.nonzero(probs.float().cpu().numpy() > 0)))
 
 
+def bf16_ulps(a, b):
+    """Distance of two bf16 tensors in units in the last place (signed
+    zeros equal)."""
+    import torch
+
+    def key(t):
+        v = t.contiguous().view(torch.int16).int()
+        return torch.where(v < 0, -(v & 0x7FFF), v)
+
+    return (key(a) - key(b)).abs()
+
+
+def kernel_events(fn, name):
+    """Durations in us, in launch order, of the device events whose name
+    contains `name` over one fn() call in a torch.profiler trace (after
+    one untraced call)."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+
+    from darknet_tpu_torch.utils.profiler import device_events
+
+    fn()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        first_device_event()
+        fn()
+        torch.cuda.synchronize()
+    hit = sorted((e.time_range.start, e.time_range.elapsed_us())
+                 for e in device_events(prof.events()) if name in e.name)
+    return [us for _start, us in hit]
+
+
+def check_conv_epilogue(net, frame, card):
+    """The one-pass conv epilogue (`ops/cuda/conv_epilogue`) over one
+    served request: one launch per conv served outside the region kernel,
+    in order, each sum NHWC-contiguous, and each launch held to the plain
+    version on the same f32 sum (bitwise for linear, leaky, relu and
+    logistic; one bf16 ulp at most for the others, whose arithmetic nvcc
+    contracts into FMAs), with the share of elements that differ.  Times:
+    the kernel's durations in a traced request (the main path: part of
+    each sum is still in L2 from the conv that wrote it), the plain
+    version's kernels over the request's sums, and the bound, the
+    request's elements at 6 B (f32 read, bf16 written) at 3.35 TB/s; per
+    kind of map (shape, activation), the kernel's rate from HBM, a read
+    of 256 MB clearing the 50 MB L2 before each of 5 launches."""
+    import collections
+    import statistics
+
+    import torch
+
+    from darknet_tpu_torch.nn.emit import kernel_conv_indices
+    from darknet_tpu_torch.ops.cuda import conv_epilogue as ce
+
+    kernel = kernel_conv_indices(net.graph)
+    served = [l for l in net.graph.layers
+              if l.kind == "convolutional" and l.index not in kernel]
+
+    def request():
+        net.device_out_to_dets(*net.submit_detect_device(frame))
+
+    records, orig = [], ce.conv_epilogue
+
+    def recorded(y, bias, act):
+        out = orig(y, bias, act)
+        records.append((y, bias, act, out))
+        return out
+
+    ce.conv_epilogue = recorded
+    try:
+        ce.launches = 0
+        request()
+        launches = ce.launches
+    finally:
+        ce.conv_epilogue = orig
+    require(launches == len(records) == len(served),
+            f"one conv_epilogue launch per served conv ({len(served)}), got "
+            f"{launches} launches, {len(records)} calls")
+    require([(tuple(r[0].shape[1:]), r[2]) for r in records]
+            == [((l.out_h, l.out_w, l.n), l.activation) for l in served],
+            "the epilogue's launches are the served convs, in order")
+    require(all(r[0].is_contiguous() and r[0].dtype == torch.float32
+                for r in records), "every sum reaches the kernel as an "
+            "NHWC-contiguous f32 tensor")
+    stats = collections.defaultdict(lambda: [0, 0, 0])
+    err = 0.0
+    with torch.inference_mode():
+        for y, b, act, out in records:
+            want = ce.conv_epilogue_plain(y, b, act)
+            d = bf16_ulps(out, want)
+            st = stats[act]
+            st[0] += d.numel()
+            st[1] += int((d > 0).sum())
+            st[2] = max(st[2], int(d.max()))
+            err = max(err, float((out.float() - want.float()).abs().max()))
+    for act, (n, diff, top) in sorted(stats.items()):
+        print(f"conv_epilogue {act}: {diff} of {n} elements differ from the "
+              f"plain version ({100 * diff / n:.6f}%), at most {top} ulp",
+              flush=True)
+    bad = {a: st[2] for a, st in stats.items()
+           if st[2] > (0 if a in ("linear", "leaky", "relu", "logistic")
+                       else 1)}
+    require(not bad, f"conv_epilogue within its plain version's tolerance: "
+            f"{bad}")
+
+    elements = sum(r[0].numel() for r in records)
+    bound = 6 * elements / PEAK_BYTES * 1e3
+    sums = [(y, b, act) for y, b, act, _out in records]
+    del records
+    with torch.inference_mode():
+        req_us = kernel_events(request, "conv_epilogue_kernel")
+        plain_ms, _n = profiled_ms(
+            lambda: [ce.conv_epilogue_plain(*r) for r in sums])
+        kinds = {}
+        for i, (y, b, act) in enumerate(sums):
+            kinds.setdefault((tuple(y.shape), act), []).append(i)
+        flush = torch.ones(64 << 20, device=DEVICE)
+
+        def cold(y, b, act):
+            for _ in range(5):
+                flush.sum()
+                ce.conv_epilogue_cuda(y, b, act)
+
+        rows = []
+        for (shape, act), idx in kinds.items():
+            cold_us = statistics.median(kernel_events(
+                lambda: cold(*sums[idx[0]]), "conv_epilogue_kernel"))
+            n = sums[idx[0]][0].numel()
+            rows.append({"shape": list(shape), "act": act,
+                         "convs": len(idx), "elements": n,
+                         "served_us": statistics.median(
+                             req_us[i] for i in idx)
+                         if len(req_us) == len(sums) else None,
+                         "cold_us": cold_us,
+                         "hbm_pct": 100 * 6 * n / PEAK_BYTES * 1e6 / cold_us})
+        del flush
+    require(len(req_us) == len(sums), f"{len(sums)} conv_epilogue_kernel "
+            f"events in a traced request, got {len(req_us)}")
+    ms = sum(req_us) / 1e3
+    for r in sorted(rows, key=lambda r: -r["elements"]):
+        print(f"conv_epilogue {str(tuple(r['shape'])):>20} {r['act']:>8} "
+              f"x{r['convs']:<3} {r['elements'] / 1e6:8.3f} M: served "
+              f"{r['served_us']:.2f} us, from HBM {r['cold_us']:.2f} us "
+              f"(bound {6 * r['elements'] / PEAK_BYTES * 1e6:.2f} us, "
+              f"{r['hbm_pct']:.1f}% of 3.35 TB/s)", flush=True)
+    big = ", ".join(f"{r['hbm_pct']:.1f}%" for r in rows
+                    if r["elements"] >= 8e6)
+    print(f"conv_epilogue over one request's {launches} launches (b="
+          f"{frame.shape[0]}, {elements / 1e6:.1f} M elements): kernel "
+          f"{ms:.4f} ms in the traced request, plain {plain_ms} ms, bound "
+          f"{bound:.4f} ms by bytes ({100 * bound / ms:.1f}%); maps of 8 M "
+          f"elements or more from HBM: {big} [{card}]", flush=True)
+    return {"launches": launches, "max_abs_err": err, "ms": ms,
+            "plain_ms": plain_ms, "bound_ms": bound, "rows": rows}
+
+
 def phase_serve(card):
     import torch
 
@@ -1569,6 +1732,7 @@ def phase_serve(card):
           f"{same} (largest difference {diff})", flush=True)
     require(same, "the uint8 and the f32 requests serve the same triple")
     del triples
+    epi = check_conv_epilogue(net, frames[0], card)
 
     img_s, spread, rates = serve_rate(net, frames[0])
 
@@ -1660,7 +1824,7 @@ def phase_serve(card):
             "plain_ms": p_ms, "max_abs_err": err,
             "f32_kept": len(kept(pa)), "bound_ms": bound,
             "bound_by": bound_by, "profiler_ms": prof_ms,
-            "unfused_cudnn_ms": u_ms}
+            "unfused_cudnn_ms": u_ms, "epilogue": epi}
 
 
 def int8_operands(m, k, n, seed, unit):
@@ -7133,6 +7297,7 @@ def main(argv=None) -> int:
 
     timed(phase_kernels)
     serve = timed(phase_serve, card)
+    epi = serve["epilogue"]
     timed(phase_int8_kernel)
     int8 = timed(phase_int8_serve, card, serve["img_s"])
     timed(phase_train_parity)
@@ -7212,7 +7377,16 @@ def main(argv=None) -> int:
             "phase18_mp_sp_bf16": [r[1] for r in mpw["sp bf16"]],
             "phase18_mp_sp_int8": [r[1] for r in mpw["sp int8"]],
             "phase18_mp_pipeline_bf16":
-                [r[1] for r in mpw["pipe bf16"]]}}]}),
+                [r[1] for r in mpw["pipe bf16"]]}}, {
+        "name": "conv_epilogue", "route": "cuda",
+        "source": "darknet_tpu_torch/csrc/fused_region.cu",
+        "replaces": None,
+        "launches": epi["launches"],
+        "max_abs_err": epi["max_abs_err"],
+        "ms": epi["ms"], "plain_ms": epi["plain_ms"],
+        "bound_ms": epi["bound_ms"], "bound_by": "bytes",
+        "library_ms": None,
+        "launches_by_path": {"phase4_serve_bf16": epi["launches"]}}]}),
         flush=True)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

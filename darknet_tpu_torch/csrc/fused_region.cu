@@ -1,6 +1,9 @@
 // Fused conv region for Hopper (sm_90a): one launch runs a whole stride-1
 // region plan (the s2d stem's 3x3 and 2x2 convs, 1x1/3x3 convs, shortcut
 // adds, route concats) with every intermediate held in shared memory.
+// Beside it, conv_epilogue_kernel: the bias, roundings and activation of
+// a bf16 conv outside a region in one pass (its note is at the kernel);
+// it lives here to share act() with the region kernels.
 //
 // Replaces: darknet_tpu/ops/pallas/fused_region.py build_region_call (the
 // Pallas TPU kernel, pallas_call at :759), whose conv steps are MXU
@@ -298,6 +301,89 @@ region_kernel(const float* __restrict__ x, float* __restrict__ out,
             src[((r - oy) * ew + (q - ox)) * C + c];
     }
   }
+}
+
+// ==========================================================================
+// The conv epilogue (bfloat16 convs outside a region)
+// ==========================================================================
+//
+// Replaces no TPU kernel: the JAX package leaves a conv's bias, rounding
+// and activation to XLA's fusion.  In eager PyTorch they were separate
+// passes (bias add, cast, f32 copy, a dozen ops of mish, cast: about 20
+// launches and 160 B an element for a mish conv); here they are one:
+//   out[i] = bf16(act(bf16(y[i] + bias[i % C])))
+// over the conv's f32 sum y in NHWC, in the order of ops/conv.py: the f32
+// bias add (__fadd_rn, never contracted), one rounding to bf16, the
+// activation in f32 on that value (act(), the region kernels' own), and a
+// second rounding.
+//
+// Bound: bytes, 6 an element (f32 read, bf16 written; the bias stays in
+// L1): the 102 convs yolov4-608 serves outside the region kernel write
+// 0.7-23.7 M elements each at b=8, 513 M a request: 3.08 GB, 0.92 ms at
+// 3.35 TB/s (the largest map 42 us).  Mish's expf and IEEE division take
+// about as much issue time as the loads, which the warps overlap.
+// Design: a grid-stride loop over groups of 8 elements, each thread
+// loading 2 x 16 B of f32 (streaming: the sum is read once) and storing
+// 16 B of bf16 (cached: the next conv reads it); where C % 8 == 0 a
+// group's 8 channels are consecutive and their biases two 16-byte loads,
+// else each channel index wraps on its own (head convs: 255, 57
+// channels); the n % 8 tail is done element by element.  No shared
+// memory, no allocation.  A layout of 4-element units whose every warp
+// load is one contiguous 512 B span gave bitwise the same output and
+// took 7% longer over yolov4-608's served maps (H100 SXM, L2 cleared
+// before each launch): the loads' sector spread costs nothing here.
+constexpr int kEpiThreads = 256;
+
+template <int CODE>
+__device__ __forceinline__ float epilogue1(float y, float b) {
+  return act(__bfloat162float(__float2bfloat16_rn(__fadd_rn(y, b))), CODE);
+}
+
+template <int CODE, bool VEC_C>
+__global__ void __launch_bounds__(kEpiThreads)
+conv_epilogue_kernel(const float* __restrict__ y,
+                     const float* __restrict__ bias,
+                     __nv_bfloat16* __restrict__ out, long long n, int C) {
+  const long long n8 = n >> 3;
+  const long long first = (long long)blockIdx.x * kEpiThreads + threadIdx.x;
+  const long long step = (long long)gridDim.x * kEpiThreads;
+  // the group's first channel, advanced by the stride's channels
+  int c0 = (int)((first << 3) % C);
+  const int dc = (int)((step << 3) % C);
+  for (long long g = first; g < n8; g += step) {
+    const float4* src = reinterpret_cast<const float4*>(y) + 2 * g;
+    const float4 lo = __ldcs(src), hi = __ldcs(src + 1);
+    const float v[8] = {lo.x, lo.y, lo.z, lo.w, hi.x, hi.y, hi.z, hi.w};
+    float b[8];
+    if constexpr (VEC_C) {
+      const float4* bp = reinterpret_cast<const float4*>(bias + c0);
+      const float4 b0 = __ldg(bp), b1 = __ldg(bp + 1);
+      b[0] = b0.x; b[1] = b0.y; b[2] = b0.z; b[3] = b0.w;
+      b[4] = b1.x; b[5] = b1.y; b[6] = b1.z; b[7] = b1.w;
+    } else {
+      int c = c0;
+#pragma unroll
+      for (int j = 0; j < 8; ++j) {
+        b[j] = __ldg(bias + c);
+        c = c + 1 == C ? 0 : c + 1;
+      }
+    }
+    c0 += dc;
+    if (c0 >= C) c0 -= C;
+    uint32_t w[4];
+#pragma unroll
+    for (int k = 0; k < 4; ++k) {
+      const __nv_bfloat162 h = __floats2bfloat162_rn(
+          epilogue1<CODE>(v[2 * k], b[2 * k]),
+          epilogue1<CODE>(v[2 * k + 1], b[2 * k + 1]));
+      w[k] = *reinterpret_cast<const uint32_t*>(&h);
+    }
+    reinterpret_cast<uint4*>(out)[g] = make_uint4(w[0], w[1], w[2], w[3]);
+  }
+  const long long t = (n8 << 3) + first;      // the ragged tail, < 8
+  if (t < n)
+    out[t] = __float2bfloat16_rn(
+        epilogue1<CODE>(__ldg(y + t), __ldg(bias + (int)(t % C))));
 }
 
 // ==========================================================================
@@ -753,6 +839,32 @@ int launch_tc(const void* x, void* y, const void* w, const float* bias,
   return (int)cudaGetLastError();
 }
 
+template <int CODE>
+int launch_epilogue(const float* y, const float* bias, __nv_bfloat16* out,
+                    long long n, int C, cudaStream_t stream) {
+  static int sms = 0;
+  if (sms == 0) {
+    int dev = 0;
+    cudaError_t e = cudaGetDevice(&dev);
+    if (e == cudaSuccess)
+      e = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev);
+    if (e != cudaSuccess) return (int)e;
+  }
+  // enough blocks to fill every SM (8 x 256 threads), fewer for a small map
+  const long long groups = (n >> 3) > 0 ? (n >> 3) : 1;
+  const long long want = (groups + kEpiThreads - 1) / kEpiThreads;
+  const int blocks = (int)(want < 8LL * sms ? want : 8LL * sms);
+  // the biases of 8 consecutive channels as two 16-byte loads
+  const bool vec = C % 8 == 0 && reinterpret_cast<uintptr_t>(bias) % 16 == 0;
+  if (vec)
+    conv_epilogue_kernel<CODE, true><<<blocks, kEpiThreads, 0, stream>>>(
+        y, bias, out, n, C);
+  else
+    conv_epilogue_kernel<CODE, false><<<blocks, kEpiThreads, 0, stream>>>(
+        y, bias, out, n, C);
+  return (int)cudaGetLastError();
+}
+
 }  // namespace
 
 // dtype: 0 float32 (FFMA kernel, kThreads threads), 1 bfloat16 (tensor-
@@ -767,6 +879,37 @@ extern "C" int region_launch(int dtype, const void* x, void* y,
   if (dtype == 1)
     return launch_tc(x, y, w, bias, tab, batch, n_tiles, smem_bytes, threads,
                      s);
+  return (int)cudaErrorInvalidValue;
+}
+
+// out (n,) bf16 = act(round(y + bias[i % C])), rounded; y and out
+// contiguous and 16-byte aligned, act a code of ACT_CODES in
+// ops/cuda/fused_region.py.  Returns the cudaError_t of the launch.
+extern "C" int conv_epilogue_launch(const void* y, const void* bias,
+                                    void* out, long long n, int C, int code,
+                                    void* stream) {
+  const float* yp = static_cast<const float*>(y);
+  const float* bp = static_cast<const float*>(bias);
+  __nv_bfloat16* op = static_cast<__nv_bfloat16*>(out);
+  cudaStream_t s = static_cast<cudaStream_t>(stream);
+  if (n <= 0 || C <= 0 || reinterpret_cast<uintptr_t>(y) % 16 ||
+      reinterpret_cast<uintptr_t>(out) % 16)
+    return (int)cudaErrorInvalidValue;
+  switch (code) {
+    case 0: return launch_epilogue<0>(yp, bp, op, n, C, s);
+    case 1: return launch_epilogue<1>(yp, bp, op, n, C, s);
+    case 2: return launch_epilogue<2>(yp, bp, op, n, C, s);
+    case 3: return launch_epilogue<3>(yp, bp, op, n, C, s);
+    case 4: return launch_epilogue<4>(yp, bp, op, n, C, s);
+    case 5: return launch_epilogue<5>(yp, bp, op, n, C, s);
+    case 6: return launch_epilogue<6>(yp, bp, op, n, C, s);
+    case 7: return launch_epilogue<7>(yp, bp, op, n, C, s);
+    case 8: return launch_epilogue<8>(yp, bp, op, n, C, s);
+    case 9: return launch_epilogue<9>(yp, bp, op, n, C, s);
+    case 10: return launch_epilogue<10>(yp, bp, op, n, C, s);
+    case 11: return launch_epilogue<11>(yp, bp, op, n, C, s);
+    case 12: return launch_epilogue<12>(yp, bp, op, n, C, s);
+  }
   return (int)cudaErrorInvalidValue;
 }
 

@@ -17,7 +17,9 @@ form: the stride-1 step prefix of a region (`hybrid_prefix`; for yolov4
 the space-to-depth stem plus the first CSP block, layers 0-10) goes
 through `ops.cuda.fused_region.region_call` (the CUDA kernel for a CUDA
 tensor, its plain version for a CPU tensor), and the strided remainder
-through the plain steps.  fuse_regions="plain" runs whole regions through
+through the plain steps, each conv with the epilogue `ops/conv.conv_block`
+gives it (on the card the one-pass kernel, `ops/cuda/conv_epilogue`).
+fuse_regions="plain" runs whole regions through
 the plain steps on any device (the reference the kernel path is checked
 against on the card).
 
@@ -181,9 +183,7 @@ def region_runner(plan, *, compute_dtype=torch.float32,
     from darknet_tpu_torch.ops.cuda.fused_region import region_call
 
     cd = compute_dtype
-    pre = fr.hybrid_prefix(plan) if mode == "hybrid" else None
-    if pre is None and mode == "hybrid" and not plan.xla_only:
-        pre = (plan, len(plan.steps))
+    pre = kernel_prefix(plan) if mode == "hybrid" else None
     n_pre = 0 if pre is None else len(pre[0].conv_steps)
     n_conv = len(plan.conv_steps)
     tag = zlib.crc32(f"{plan.to_json()}|{mode}|{cd}".encode())
@@ -206,7 +206,7 @@ def region_runner(plan, *, compute_dtype=torch.float32,
         def run(params, x):
             ws, bs = weights(params)
             return fr.region_plain(plan, x, ws, bs, compute_dtype=cd,
-                                   params=params)
+                                   params=params, one_pass=mode == "hybrid")
     else:
         sub, k = pre
         rest = plan.steps[k:]
@@ -219,7 +219,7 @@ def region_runner(plan, *, compute_dtype=torch.float32,
                             compute_dtype=cd)
             slots = {sub.out_slot: y}
             fr.run_steps_plain(rest, slots, ws[n_pre:], bs[n_pre:], cd,
-                               params)
+                               params, one_pass=True)
             return slots[plan.out_slot]
 
         def run_prefix(params, x, h):
@@ -252,6 +252,36 @@ def region_conv_indices(graph) -> set:
     return {k for p in plan_graph_regions(graph, stem=stem).values()
             for k in range(p.start, p.stop + 1)
             if graph.layers[k].kind == "convolutional"}
+
+
+def kernel_prefix(plan):
+    """(sub-plan, steps) of `plan` the region kernel runs in the hybrid
+    form: the stride-1 step prefix (`hybrid_prefix`), else the whole plan
+    unless it is xla_only; None when the kernel runs none of it."""
+    from darknet_tpu_torch.ops import fused_region as fr
+
+    pre = fr.hybrid_prefix(plan)
+    if pre is None and not plan.xla_only:
+        pre = (plan, len(plan.steps))
+    return pre
+
+
+def kernel_conv_indices(graph) -> set:
+    """Conv layer indices the region kernel runs: the kernel prefixes
+    (`kernel_prefix`) of the inference region plans.  Every other served
+    conv takes its own epilogue (`ops/conv.conv_block`, or the
+    remainder's plain steps)."""
+    from darknet_tpu_torch.ops import fused_region as fr
+    from darknet_tpu_torch.ops.stem import stem_pattern
+
+    stem = bool(stem_pattern(graph) and 0 not in _liveness(graph))
+    out = set()
+    for plan in fr.plan_graph_regions(graph, stem=stem).values():
+        pre = kernel_prefix(plan)
+        if pre is not None:
+            out |= {s.li for s in pre[0].steps
+                    if isinstance(s, fr.ConvStep)}
+    return out
 
 
 def region_int8_convs(graph) -> set:

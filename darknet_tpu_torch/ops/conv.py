@@ -19,12 +19,15 @@ Numerics:
   with TF32 on: a bf16 value is exact in TF32, so the tensor cores form
   exact products and sum them in f32; the f32 bias is added and the sum
   rounds to bf16 once, as the reference's `preferred_element_type` conv
-  and the region kernel do.
+  and the region kernel do.  On the card a folded conv whose activation
+  has a kernel code runs this epilogue (bias, rounding, activation,
+  rounding) in one pass over the f32 sum
+  (`ops/cuda/conv_epilogue.conv_epilogue`).
 * int8 (`conv_block_int8`): the int32 sum is exact, and the f32
   epilogue is the reference's, so given the same quantized input the
-  pre-activation equals the reference's to the bit; the cast (fused into
-  the kernel's epilogue on the card) and the activation follow in the
-  reference's order.
+  pre-activation equals the reference's to the bit; the cast and a leaky
+  activation run in the kernel's epilogue (in the plain version on the
+  CPU), in the reference's order; any other activation follows.
 * antialiasing (`antialias_blur`): the layer runs at stride 1, then a
   fixed depthwise blur at its original stride, after the activation,
   summed in f32 over the activation's values (exact products: the blur
@@ -34,6 +37,11 @@ Numerics:
   bf16 its operands are rounded to bf16 first and their exact products
   summed in f32, the reference's bf16 `jnp.dot` with f32 output.  Its
   output, BN and activation stay f32, as the reference's do.
+
+`conv_block` and `conv_block_int8` count each served conv (`utils/spans`
+counter `conv_epilogues`) and each whose epilogue ran in one pass on the
+card (`conv_epilogues_fused`), as do the served remainder's plain steps
+of a hybrid region, through the same `conv_act` and `conv_int8_act`.
 """
 
 from __future__ import annotations
@@ -47,6 +55,7 @@ from darknet_tpu_torch.ops.activations import apply_activation
 from darknet_tpu_torch.ops.collective import group_size, group_sum_grad
 from darknet_tpu_torch.ops.quant_matmul import (input_scale, int8_conv,
                                                 quantize_int8)
+from darknet_tpu_torch.utils import spans
 
 BN_EPS = 1e-5
 
@@ -129,10 +138,10 @@ def conv2d_raw(x, w, b=None, *, stride=(1, 1), padding=((0, 0), (0, 0)),
 
 
 def conv2d_int8(x, p, *, size, stride, padding, out_hw,
-                out_dtype=torch.float32):
+                out_dtype=torch.float32, leaky: bool = False):
     """The int8 product of `conv_block_int8`: NHWC x -> NHWC out_dtype
     `acc * (x_scale * w_scale) + b` (computed in f32, rounded once),
-    before the activation.
+    then leaky 0.1 where asked (else before the activation).
 
     The scale is static (p["x_scale"], calibrated) or dynamic: max|x|
     over the whole batch, kept on the device.  x quantizes from float32
@@ -144,31 +153,69 @@ def conv2d_int8(x, p, *, size, stride, padding, out_hw,
     x_q = quantize_int8(xf, x_scale)
     return int8_conv(x_q, p["w_q"], p["w_scale"], p["b"], x_scale, size=size,
                      stride=stride, padding=padding, out_hw=out_hw,
-                     out_dtype=out_dtype)
+                     out_dtype=out_dtype, leaky=leaky)
+
+
+def conv_int8_act(x, p, act: str, **geom):
+    """`conv2d_int8` and the activation `act`: leaky in the GEMM's own
+    epilogue, any other after it.  Counted in `conv_epilogues`, and in
+    `conv_epilogues_fused` on the card where nothing follows the GEMM."""
+    leaky = act == "leaky"
+    y = conv2d_int8(x, p, leaky=leaky, **geom)
+    spans.count("conv_epilogues")
+    if x.is_cuda and act in ("leaky", "linear"):
+        spans.count("conv_epilogues_fused")
+    return y if leaky else apply_activation(y, act)
 
 
 def conv_block_int8(x, p, l, *, compute_dtype=None):
     """Quantized inference conv (`darknet_tpu/ops/conv.py:107-150`):
     per-tensor int8 activations x per-output-channel int8 weights, exact
     int32 sums, the f32 dequant + bias epilogue, a cast to the compute
-    dtype, then the activation.  `p` carries "w_q" and "w_scale"
-    (`nn/params.quantize_conv_params`), BN folded, and optionally a
-    static "x_scale".  An antialiased conv blurs after the activation.
-    `quantize_conv_params` quantizes no grouped or dilated conv, and
-    neither does this."""
+    dtype, then the activation (`conv_int8_act`).  `p` carries "w_q" and
+    "w_scale" (`nn/params.quantize_conv_params`), BN folded, and
+    optionally a static "x_scale".  An antialiased conv blurs after the
+    activation.  `quantize_conv_params` quantizes no grouped or dilated
+    conv, and neither does this."""
     if l.groups != 1 or l.dilation != 1:
         raise NotImplementedError(
             "int8 conv: groups and dilation are never quantized")
     padding = darknet_conv_padding(
         l.size, l.pad, l.dilation, (l.h, l.w), (l.stride_y, l.stride_x),
         (l.out_h, l.out_w))
-    y = conv2d_int8(x, p, size=l.size, stride=(l.stride_y, l.stride_x),
-                    padding=padding, out_hw=(l.out_h, l.out_w),
-                    out_dtype=compute_dtype or torch.float32)
-    y = apply_activation(y, l.activation)
+    y = conv_int8_act(x, p, l.activation, size=l.size,
+                      stride=(l.stride_y, l.stride_x), padding=padding,
+                      out_hw=(l.out_h, l.out_w),
+                      out_dtype=compute_dtype or torch.float32)
     if getattr(l, "antialiasing", 0):
         y = antialias_blur(y, l)
     return y
+
+
+def kernel_epilogue(x, act: str, compute_dtype) -> bool:
+    """Whether a folded conv's epilogue runs in the one-pass kernel
+    (`ops/cuda/conv_epilogue`): a bf16 conv on the card whose activation
+    `act` has a kernel code."""
+    if compute_dtype != torch.bfloat16 or not x.is_cuda:
+        return False
+    from darknet_tpu_torch.ops.cuda.fused_region import ACT_CODES
+
+    return act in ACT_CODES
+
+
+def conv_act(x, w, b, act: str, **geom):
+    """A folded conv (`conv2d_raw`), its bias and the activation `act`;
+    where `kernel_epilogue` says so, the conv's f32 sum then the
+    one-pass epilogue.  Counted in `conv_epilogues`, and the one pass in
+    `conv_epilogues_fused`."""
+    spans.count("conv_epilogues")
+    if not kernel_epilogue(x, act, geom.get("compute_dtype")):
+        return apply_activation(conv2d_raw(x, w, b, **geom), act)
+    from darknet_tpu_torch.ops.cuda.conv_epilogue import conv_epilogue
+
+    spans.count("conv_epilogues_fused")
+    return conv_epilogue(conv2d_raw(x, w, out_dtype=torch.float32, **geom),
+                         b, act)
 
 
 def conv_block(x, p, l, *, compute_dtype=None, train: bool = False,
@@ -177,7 +224,9 @@ def conv_block(x, p, l, *, compute_dtype=None, train: bool = False,
     `p` carries the unfolded "scales"/"mean"/"var" of a batch-normalised
     conv, conv then the rolling-statistics BN in f32
     (`darknet_tpu/ops/conv.py:200-202`); cast to the compute dtype,
-    activation, then an antialiased conv's blur.  train=True is the
+    activation (`conv_act`: a folded bf16 conv on the card whose
+    activation has a kernel code takes its epilogue in one pass), then an
+    antialiased conv's blur.  train=True is the
     training layer (`_conv_block_train`), which returns (y, bn_stats),
     its statistics taken over `stats_group` (sync-BN) where one is given."""
     if train:
@@ -191,12 +240,13 @@ def conv_block(x, p, l, *, compute_dtype=None, train: bool = False,
                 dilation=(l.dilation, l.dilation), groups=l.groups,
                 compute_dtype=compute_dtype)
     if l.batch_normalize and "scales" in p:
+        spans.count("conv_epilogues")
         y = conv2d_raw(x, p["w"], out_dtype=torch.float32, **geom)
         y = ((y - p["mean"]) * torch.rsqrt(p["var"] + BN_EPS) * p["scales"]
              + p["b"]).to(compute_dtype or torch.float32)
+        y = apply_activation(y, l.activation)
     else:
-        y = conv2d_raw(x, p["w"], p["b"], **geom)
-    y = apply_activation(y, l.activation)
+        y = conv_act(x, p["w"], p["b"], l.activation, **geom)
     if getattr(l, "antialiasing", 0):
         y = antialias_blur(y, l)
     return y

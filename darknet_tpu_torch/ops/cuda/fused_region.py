@@ -18,6 +18,10 @@ channels + 8 (conflict-free `ldmatrix` rows) and whose weights are one
 version (`fused_region.region_plain`); a CUDA tensor launches the kernel
 (`region_cuda`, the op's CUDA backend) or raises.  `launches` counts the
 kernel launches, and `variant_launches` counts them by kernel.
+
+The same source holds the one-pass conv epilogue, which shares the
+kernels' activations (`ACT_CODES`); its wrapper is
+`ops/cuda/conv_epilogue.py`.
 """
 
 from __future__ import annotations

@@ -27,7 +27,8 @@ from typing import Callable
 import torch
 
 from darknet_tpu_torch.ops.activations import apply_activation
-from darknet_tpu_torch.ops.conv import conv2d_int8, conv2d_raw
+from darknet_tpu_torch.ops.conv import (conv2d_int8, conv2d_raw, conv_act,
+                                        conv_int8_act)
 from darknet_tpu_torch.ops.stem import pack_w0, pack_w1
 
 ELEMENTWISE_ACTS = frozenset({
@@ -480,7 +481,7 @@ def step_weights(steps, params, dtype):
 
 
 def run_steps_plain(steps, slots: dict, weights, biases, compute_dtype,
-                    params=None):
+                    params=None, *, one_pass: bool = False):
     """Execute `steps` on unpacked NHWC tensors, updating `slots` in place.
     weights/biases: one per ConvStep, in step order (`step_weights`;
     in bf16 the weights may be their f32 copies, see `ops/conv.conv2d_raw`).
@@ -490,7 +491,15 @@ def run_steps_plain(steps, slots: dict, weights, biases, compute_dtype,
     (`ops/conv.conv2d_int8`: the int8 GEMM kernel for a CUDA tensor), the
     same integers as the unpacked int8 chain (`conv_block_int8`); a step
     without "x_scale" stays in floating point.  Under region_int8 every
-    conv step of a region carries both (`Network.calibrate_int8`)."""
+    conv step of a region carries both (`Network.calibrate_int8`).
+
+    one_pass (the served remainder of a hybrid region, `nn/emit.
+    region_runner`): each conv step runs as `ops/conv.conv_block` and
+    `conv_block_int8` run a layer (`conv_act`, `conv_int8_act`: the
+    one-pass kernel for a bf16 step on the card whose activation has a
+    code, leaky in the int8 GEMM's epilogue), counted as they count:
+    the mesh paths run these layers through those blocks, and serve the
+    same numbers."""
     cd = compute_dtype
     wi = 0
     for step in steps:
@@ -513,22 +522,29 @@ def run_steps_plain(steps, slots: dict, weights, biases, compute_dtype,
                     f"layer's own w_q over the step's window")
             out_hw = ((src.shape[1] - 1) // step.sy + 1,
                       (src.shape[2] - 1) // step.sx + 1)
-            y = conv2d_int8(src, p_l, size=step.kh,
-                            stride=(step.sy, step.sx), padding=pad,
-                            out_hw=out_hw, out_dtype=cd)
+            geom = dict(size=step.kh, stride=(step.sy, step.sx),
+                        padding=pad, out_hw=out_hw, out_dtype=cd)
+            y = conv_int8_act(src, p_l, step.act, **geom) if one_pass \
+                else apply_activation(conv2d_int8(src, p_l, **geom),
+                                      step.act)
         else:
             w = weights[wi].permute(3, 2, 0, 1)    # HWIO -> OIHW
-            y = conv2d_raw(src, w, biases[wi], stride=(step.sy, step.sx),
-                           padding=pad, compute_dtype=cd)
-        slots[step.out_slot] = apply_activation(y, step.act)
+            geom = dict(stride=(step.sy, step.sx), padding=pad,
+                        compute_dtype=cd)
+            y = conv_act(src, w, biases[wi], step.act, **geom) if one_pass \
+                else apply_activation(conv2d_raw(src, w, biases[wi], **geom),
+                                      step.act)
+        slots[step.out_slot] = y
         wi += 1
 
 
 def region_plain(plan: RegionPlan, x, weights, biases, *,
-                 compute_dtype=torch.float32, params=None):
+                 compute_dtype=torch.float32, params=None,
+                 one_pass: bool = False):
     """The plain version of the region kernel: same contract as
     `ops.cuda.fused_region.region_call` (x is the raw net input when
-    plan.stem, else the previous layer's NHWC output).  `params` as in
+    plan.stem, else the previous layer's NHWC output).  `params` and
+    `one_pass` (a served region the kernel does not run) as in
     `run_steps_plain` (the whole region in plain form)."""
     from darknet_tpu_torch.ops.stem import space_to_depth
 
@@ -536,5 +552,5 @@ def region_plain(plan: RegionPlan, x, weights, biases, *,
         x = space_to_depth(x)
     slots = {IN_SLOT: x.to(compute_dtype)}
     run_steps_plain(plan.steps, slots, weights, biases, compute_dtype,
-                    params)
+                    params, one_pass=one_pass)
     return slots[plan.out_slot]

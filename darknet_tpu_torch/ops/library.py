@@ -1,4 +1,4 @@
-"""The two CUDA kernels as `torch.library` custom ops.
+"""The CUDA kernels as `torch.library` custom ops.
 
     torch.ops.darknet_tpu_torch.region(x, weights, biases, plan, dtype)
         the fused region (`ops/cuda/fused_region.py`); `plan` is
@@ -11,16 +11,21 @@
     torch.ops.darknet_tpu_torch.int8_matmul(a_q, b_q, w_scales, bias,
                                             x_scale, leaky)
         the int8 GEMM (`ops/quant_matmul.int8_matmul`)
+    torch.ops.darknet_tpu_torch.conv_epilogue(y, bias, act)
+        a bf16 conv's bias, roundings and activation in one pass
+        (`ops/cuda/conv_epilogue.conv_epilogue`)
 
 Each op has a CPU backend, the kernel's plain version, and a CUDA
 backend, which launches the hand-written kernel through its ctypes
 binding and counts the launch (`ops.cuda.fused_region.launches` /
-`variant_launches`, `ops.quant_matmul.launches`); a missing nvcc, a
+`variant_launches`, `ops.quant_matmul.launches`,
+`ops.cuda.conv_epilogue.launches`); a missing nvcc, a
 failed build or a failed launch raises there.  Each op also has a fake
 (shape-only) implementation, so `torch.export` records the op as one
 node: an exported serving program (`Network.export_serving`) reaches the
 same kernels, and counts the same launches, as the eager path, which
-calls the ops through `region_call`, `int8_conv` and `int8_matmul`.
+calls the ops through `region_call`, `int8_conv`, `int8_matmul` and
+`conv_epilogue`.
 
 The ops are defined through `torch.library.Library` (a schema and one
 implementation a dispatch key), not `torch.library.custom_op`, whose
@@ -38,6 +43,7 @@ import functools
 import torch
 
 from darknet_tpu_torch.ops import quant_matmul as qm
+from darknet_tpu_torch.ops.cuda import conv_epilogue as cuda_epilogue
 from darknet_tpu_torch.ops.cuda import fused_region as cuda_region
 from darknet_tpu_torch.ops.fused_region import RegionPlan, region_plain
 
@@ -123,3 +129,13 @@ def _int8_matmul_fake(a_q, b_q, w_scales, bias, x_scale, leaky):
 _define("int8_matmul(Tensor a_q, Tensor b_q, Tensor w_scales, Tensor bias, "
         "Tensor x_scale, bool leaky) -> Tensor",
         _int8_matmul_cpu, _int8_matmul_cuda, _int8_matmul_fake)
+
+
+# ------------------------------------------------------------ conv epilogue
+def _conv_epilogue_fake(y, bias, act):
+    return y.new_empty(y.shape, dtype=torch.bfloat16)
+
+
+_define("conv_epilogue(Tensor y, Tensor bias, str act) -> Tensor",
+        cuda_epilogue.conv_epilogue_plain, cuda_epilogue.conv_epilogue_cuda,
+        _conv_epilogue_fake)

@@ -1,6 +1,9 @@
 """int8_conv (the implicit-GEMM int8 convolution) on the CPU: its plain
 version against darknet_tpu's int8 conv, and a torch emulation of the
-CUDA kernel's addressing (`csrc/int8_gemm.cu`) against the plain version.
+CUDA kernel's addressing (`csrc/int8_gemm.cu`) against the plain version;
+`conv_block_int8`, whose leaky convs take the activation from the GEMM's
+epilogue, against the previous cast then `apply_activation` (the card's
+case is in tests/test_torch_conv_epilogue.py, which imports no jax).
 
 Numpy makes every input.  Tolerances: none: the quantized input and the
 int32 sums are exact, and the f32 epilogue is the same rounded ops, so
@@ -263,3 +266,41 @@ def test_int8_conv_dispatch():
     assert torch.equal(got, tqm.int8_conv_plain(*ops, **geo))
     with pytest.raises(ValueError):
         tqm.int8_conv(*(t.to("meta") for t in ops), **geo)
+
+
+@pytest.mark.parametrize("static", [False, True])
+@pytest.mark.parametrize("out_dtype", ["float32", "bfloat16"])
+@pytest.mark.parametrize("li", [0, 1, 2, 3])
+def test_conv_block_int8_leaky_in_the_epilogue(convs, li, out_dtype, static,
+                                               monkeypatch):
+    """conv_block_int8 (mish, leaky, linear, leaky convs) equals the
+    previous `int8_conv` with no activation, then `apply_activation`,
+    bitwise; a leaky conv goes through `int8_conv_plain(leaky=True)`."""
+    from darknet_tpu_torch.ops.activations import apply_activation
+
+    g, qp = convs
+    l, p = g.layers[li], dict(qp[li])
+    if not static:
+        p.pop("x_scale", None)
+    elif "x_scale" not in p:
+        p["x_scale"] = np.float32(0.05)
+    tp = tparams.params_to_torch(g, [{}] * li + [p], "cpu")[li]
+    x = torch.from_numpy(np.random.default_rng(li + 10).normal(
+        size=(2, l.h, l.w, l.c)).astype(np.float32))
+    dt = getattr(torch, out_dtype)
+    leaky = []
+    real = tqm.int8_conv_plain
+
+    def plain(*a, **kw):
+        leaky.append(kw.get("leaky", False))
+        return real(*a, **kw)
+
+    monkeypatch.setattr(tqm, "int8_conv_plain", plain)
+    got = tconv.conv_block_int8(x, tp, l, compute_dtype=dt)
+    monkeypatch.undo()
+    assert leaky == [l.activation == "leaky"]
+    geo = _geometry(l)
+    want = apply_activation(tconv.conv2d_int8(x, tp, out_dtype=dt, **geo),
+                            l.activation)
+    assert got.dtype == want.dtype == dt
+    assert torch.equal(got, want)

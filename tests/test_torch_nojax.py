@@ -28,7 +28,8 @@ with the same three blocked, trains one step of yolov4-64 each through
 `PipelineTrain`, `make_tp_train_step` and `make_spatial_train_step` and
 runs `dryrun_multichip(2, device="cpu")`; and no source of the port (`eval/`, `apps/` and `parallel/`
 included), nor the chip
-scripts (chip_smoke.py, chip_int8_shapes.py, chip_region_tiles.py),
+scripts (chip_smoke.py, chip_int8_shapes.py, chip_region_tiles.py,
+chip_serve_ab.py),
 imports any of the three, nor does the port's C shim import a module
 outside darknet_tpu_torch (and numpy)."""
 

@@ -13,6 +13,9 @@ path, on the CPU, and on a CUDA card where there is one.
   `host_syncs` is two more (the NMS loop's flag reads: before each round
   and after the last, the first read twice; a CPU input makes no copy to
   a card).
+- `conv_epilogues` counts each conv a request serves outside the region
+  kernel; `conv_epilogues_fused` those whose epilogue ran in one pass,
+  none on the CPU and all of a benchmark cell's on the card.
 - No span is named like a layer range (`benchmark.flops.SCOPE`,
   `utils.profiler.SCOPE`); the store keeps its last `LIMIT` requests;
   `export_serving` under the profiler exports a program with no span or
@@ -29,7 +32,6 @@ This file imports no jax.  On the card:
 import os
 import re
 import sys
-import tempfile
 import traceback
 import warnings
 
@@ -40,6 +42,7 @@ from torch.profiler import ProfilerActivity, profile
 
 from darknet_tpu_torch import Network, model_zoo
 from darknet_tpu_torch.graph.builder import build_graph
+from darknet_tpu_torch.nn import emit as temit
 from darknet_tpu_torch.ops import boxes as boxops
 from darknet_tpu_torch.ops import nms as nmslib
 from darknet_tpu_torch.utils import profiler as tprofiler
@@ -47,7 +50,7 @@ from darknet_tpu_torch.utils import spans
 from darknet_tpu_torch.weights import io as wio
 # by file, not as tests.torch_params: an installed package named `tests`
 # would shadow this directory
-from torch_params import chip_smoke, spread_params
+from torch_params import cell_net, chip_smoke, spread_params
 
 REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 PX = 160
@@ -198,7 +201,28 @@ def test_nms_rounds_and_host_syncs(nets, kind, monkeypatch):
     (case,) = seen
     rounds = _own_rounds(*case)
     assert rounds >= 2
-    assert req.counts == {"nms_rounds": rounds, "host_syncs": rounds + 2}
+    assert {k: req.counts[k] for k in ("nms_rounds", "host_syncs")} == {
+        "nms_rounds": rounds, "host_syncs": rounds + 2}
+    assert set(req.counts) == {"nms_rounds", "host_syncs", "conv_epilogues"}
+
+
+def _served_convs(net) -> list:
+    """The conv layers a request runs outside the region kernel."""
+    kernel = temit.kernel_conv_indices(net.graph)
+    return [l.index for l in net.graph.layers
+            if l.kind == "convolutional" and l.index not in kernel]
+
+
+@pytest.mark.parametrize("kind", sorted(NETS))
+def test_conv_epilogues_counted(nets, kind):
+    """A request counts each conv it serves outside the region kernel
+    (`conv_epilogues`); on the CPU none runs the one-pass kernel, so
+    `conv_epilogues_fused` stays unrecorded."""
+    net = nets[kind]
+    _traced(net, _frames(2, net.net.w, seed=5))
+    (req,) = spans.requests()
+    assert req.counts["conv_epilogues"] == len(_served_convs(net)) > 0
+    assert "conv_epilogues_fused" not in req.counts
 
 
 def test_span_names_are_not_layer_ranges():
@@ -261,44 +285,6 @@ def cuda():
     return torch.device("cuda")
 
 
-def _cell_net(cell, device):
-    """A network of the benchmark cell's configuration at its size, with
-    the weights, frames and int8 calibration the benchmark makes from a
-    seed (`benchmark/weights.py`, `benchmark/traffic.py`), a batch of
-    its frames and its serving settings."""
-    sys.path.insert(0, REPO)
-    try:
-        from benchmark import harness
-        from benchmark import traffic as gen
-        from benchmark import weights as wgen
-        from benchmark.reference import darknet
-    finally:
-        sys.path.remove(REPO)
-    bench = harness.Bench(REPO)
-    c = bench.cell(cell)
-    cfg, t = bench.config(c["config"]), bench.traffic(c["traffic"])
-    model = darknet.Model(cfg["cfg_text"])
-    s_w, s_f, s_c = harness.streams(3000019001, 3)
-    raw = wgen.make(model, cfg["weights"], s_w, device)
-    path = os.path.join(tempfile.mkdtemp(), "cell.weights")
-    try:
-        wgen.write(model, {i: {k: v.cpu() for k, v in p.items()}
-                           for i, p in raw.items()}, path)
-        with warnings.catch_warnings():
-            warnings.simplefilter("ignore")
-            net = Network.from_cfg(cfg["cfg_text"], weights=path,
-                                   compute_dtype=torch.bfloat16,
-                                   device=device, int8=bool(cfg.get("int8")))
-    finally:
-        os.remove(path)
-    if cfg.get("int8"):
-        calib = gen.frames(cfg["int8"]["calibration_frames"], model, s_c,
-                           device)
-        net.calibrate_int8([gen.to_unit(calib, "cpu").numpy()])
-    x = gen.pool(t, model, s_f, device)[0]
-    return net, x, {k: t[k] for k in ("thresh", "nms", "top_k")}
-
-
 def _sync_sites(fn):
     """Run fn() with the card's sync debug mode warning: for each
     synchronising call made inside the program, the innermost frames of
@@ -330,7 +316,7 @@ def _sync_sites(fn):
 @pytest.mark.parametrize("cell", ["yolov4-608.serve-b8",
                                   "gaussian-yolov3-512-int8.serve-b32"])
 def test_cuda_syncs_are_counted(cuda, cell):
-    net, x, kw = _cell_net(cell, cuda)
+    net, x, kw = cell_net(cell, cuda)
     net.submit_detect_device(x, **kw)                  # builds, uploads
     torch.cuda.synchronize()
 
@@ -352,7 +338,7 @@ def test_cuda_syncs_are_counted(cuda, cell):
 def test_cuda_only_profile_traces(cuda):
     """The benchmark's busy-time profile (the CUDA activity alone) turns
     the program's tracing on."""
-    net, x, kw = _cell_net("yolov4-608.serve-b8", cuda)
+    net, x, kw = cell_net("yolov4-608.serve-b8", cuda)
     net.submit_detect_device(x, **kw)
     torch.cuda.synchronize()
     with profile(activities=[ProfilerActivity.CUDA]):
@@ -364,3 +350,22 @@ def test_cuda_only_profile_traces(cuda):
     print("\nCUDA-only profile, host ms:",
           {s.name: (s.end_ns - s.start_ns) / 1e6 for s in req.spans},
           req.counts)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("cell", ["yolov4-608.serve-b8",
+                                  "gaussian-yolov3-512-int8.serve-b32"])
+def test_cuda_conv_epilogues_fused(cuda, cell):
+    """On the card every conv a benchmark cell serves outside the region
+    runs its epilogue in one pass: the bf16 kernel or the int8 GEMM's
+    own."""
+    net, x, kw = cell_net(cell, cuda)
+    net.submit_detect_device(x, **kw)
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CUDA]):
+        net.submit_detect_device(x, **kw)
+        torch.cuda.synchronize()
+    (req,) = spans.requests()
+    print(f"\n{cell}: {req.counts}")
+    assert req.counts["conv_epilogues"] == len(_served_convs(net)) > 0
+    assert req.counts["conv_epilogues_fused"] == req.counts["conv_epilogues"]

@@ -1,6 +1,6 @@
 """Helpers of the port's tests: numpy yolov4 params whose heads are not
 saturated, and the slot matcher that compares two served triples, and chip_smoke.py's
-test graphs.
+test graphs, and a benchmark cell's network on a card.
 
 At random init a deep yolov4 damps its heads to sigmoid(~1e-6), where
 every score ties and a served kept set is decided by sum-order noise.
@@ -14,7 +14,11 @@ misplaced uc shows.  Imports no jax.
 """
 
 import importlib.util
+import os
 import pathlib
+import sys
+import tempfile
+import warnings
 
 import numpy as np
 
@@ -99,3 +103,46 @@ def chip_smoke():
     mod = importlib.util.module_from_spec(spec)
     spec.loader.exec_module(mod)
     return mod
+
+
+def cell_net(cell, device, seed=3000019001):
+    """A network of the benchmark cell's configuration at its size, with
+    the weights, frames and int8 calibration the benchmark makes from a
+    seed (`benchmark/weights.py`, `benchmark/traffic.py`), a batch of
+    its frames and its serving settings."""
+    import torch
+
+    from darknet_tpu_torch import Network
+
+    repo = str(pathlib.Path(__file__).resolve().parents[1])
+    sys.path.insert(0, repo)
+    try:
+        from benchmark import harness
+        from benchmark import traffic as gen
+        from benchmark import weights as wgen
+        from benchmark.reference import darknet
+    finally:
+        sys.path.remove(repo)
+    bench = harness.Bench(repo)
+    c = bench.cell(cell)
+    cfg, t = bench.config(c["config"]), bench.traffic(c["traffic"])
+    model = darknet.Model(cfg["cfg_text"])
+    s_w, s_f, s_c = harness.streams(seed, 3)
+    raw = wgen.make(model, cfg["weights"], s_w, device)
+    path = os.path.join(tempfile.mkdtemp(), "cell.weights")
+    try:
+        wgen.write(model, {i: {k: v.cpu() for k, v in p.items()}
+                           for i, p in raw.items()}, path)
+        with warnings.catch_warnings():
+            warnings.simplefilter("ignore")
+            net = Network.from_cfg(cfg["cfg_text"], weights=path,
+                                   compute_dtype=torch.bfloat16,
+                                   device=device, int8=bool(cfg.get("int8")))
+    finally:
+        os.remove(path)
+    if cfg.get("int8"):
+        calib = gen.frames(cfg["int8"]["calibration_frames"], model, s_c,
+                           device)
+        net.calibrate_int8([gen.to_unit(calib, "cpu").numpy()])
+    x = gen.pool(t, model, s_f, device)[0]
+    return net, x, {k: t[k] for k in ("thresh", "nms", "top_k")}
